@@ -5,7 +5,9 @@ with a plain C interface, loaded through ``ctypes``.  Libraries land in
 ``gatekeeper_tpu_torch/_build/`` (ignored by git) under a name keyed by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing builds at import time: the first
-kernel launch (or :func:`build`) does.
+kernel launch (or :func:`build`) does.  ``ptxas`` reports each kernel's
+registers, shared memory and spills; :data:`reports` keeps that output of
+the builds this process ran.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import threading
 CSRC_DIR = os.path.join(os.path.dirname(__file__), "..", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+reports: dict = {}  # source name -> nvcc/ptxas output of its build
 _libs: dict = {}
 _lock = threading.Lock()
 
@@ -70,6 +73,7 @@ def build(names=None) -> dict:
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
             continue
+        reports[name] = out
         os.replace(tmp, paths[name])
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -15,7 +15,13 @@ Both launch ``csrc/fold.cu`` on a CUDA tensor (the source's header says
 what bounds the kernel and how it is laid out) and run the plain PyTorch
 version on a CPU tensor.  On a CUDA tensor the wrapper launches the kernel
 or raises; it never falls back.  Each wrapper counts its launches in a
-plain int attribute (``fused_fold.launches``, ``epilogue.launches``).
+plain int attribute (``fused_fold.launches``, ``epilogue.launches``) and
+the ``(C, N, k)`` of each launch in a ``collections.Counter``
+(``fused_fold.shapes``, ``epilogue.shapes``).
+
+The launch plan (:func:`fold_plan`: cluster size, and the 16-byte load
+path or the byte path) is computed here, where the CPU tests reach it, and
+passed to the kernel.
 
 Contract (bit-identical to the JAX package's): ``idx [C, k]`` int32 with
 invalid slots 0, ``valid [C, k]`` bool, ``counts [C]`` int32 and, fused,
@@ -24,6 +30,7 @@ invalid slots 0, ``valid [C, k]`` bool, ``counts [C]`` int32 and, fused,
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -33,14 +40,43 @@ from gatekeeper_tpu_torch.ops import cuda_build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+THREADS = 256     # threads per block (kThreads in csrc/fold.cu)
+CHUNK = 16        # bytes a thread reads per array per pass (kChunk)
+MAX_CLUSTER = 8   # portable thread-block cluster size on Hopper
+
+
+def fold_plan(n: int, aligned: bool) -> tuple:
+    """(S, vec): the launch plan of a fold over rows of ``n`` bytes.
+
+    S blocks (a power of two <= 8) share a row as one cluster; each reads
+    one chunk of ``THREADS * CHUNK`` bytes per pass, so one pass covers
+    ``S * THREADS * CHUNK`` bytes and longer rows take several.  S grows
+    until one pass covers the row.  ``vec`` (16-byte loads) needs
+    ``n % 16 == 0`` and every input 16-byte ``aligned``; otherwise the
+    kernel reads bytes.  Every row gets the same split; the rows lie on
+    the grid's x, so their number sets no limit."""
+    vec = bool(aligned) and n % CHUNK == 0
+    s = 1
+    while s < MAX_CLUSTER and s * THREADS * CHUNK < n:
+        s *= 2
+    return s, vec
+
 
 def _lib():
     lib = cuda_build.load("fold")
     if not getattr(lib, "_gk_typed", False):
-        lib.gk_fused_fold.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.gk_fused_fold.argtypes = [_P, _P, _I, _I, _I, _I, _I,
+                                      _P, _P, _P, _P, _P]
         lib.gk_fused_fold.restype = _I
-        lib.gk_epilogue.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
+        lib.gk_epilogue.argtypes = [_P, _I, _I, _I, _I, _I,
+                                    _P, _P, _P, _P]
         lib.gk_epilogue.restype = _I
+        lib.gk_empty.argtypes = [_P]
+        lib.gk_empty.restype = _I
+        lib.gk_fold_block_bytes.restype = _I
+        if lib.gk_fold_block_bytes() != THREADS * CHUNK:
+            raise RuntimeError("csrc/fold.cu and ops/fold.py disagree on "
+                               "the bytes a block reads per pass")
         lib._gk_typed = True
     return lib
 
@@ -101,6 +137,11 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
 
+def _plan(*grids: torch.Tensor) -> tuple:
+    n = grids[0].shape[1]
+    return fold_plan(n, all(g.data_ptr() % CHUNK == 0 for g in grids))
+
+
 def epilogue(grid: torch.Tensor, k: int) -> tuple:
     """(idx [C,k] i32, valid [C,k] bool, counts [C] i32) of an
     already-masked verdict grid."""
@@ -109,13 +150,16 @@ def epilogue(grid: torch.Tensor, k: int) -> tuple:
         return epilogue_plain(grid, k)
     c, n = grid.shape
     k = min(k, n)
+    s, vec = _plan(grid)
     idx, valid, counts = _outputs(c, k, grid.device)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().gk_epilogue(grid.data_ptr(), c, n, k, idx.data_ptr(),
-                                valid.data_ptr(), counts.data_ptr(), stream)
+        rc = _lib().gk_epilogue(grid.data_ptr(), c, n, k, s, int(vec),
+                                idx.data_ptr(), valid.data_ptr(),
+                                counts.data_ptr(), stream)
     _raise_on(rc, "epilogue")
     epilogue.launches += 1
+    epilogue.shapes[(c, n, k)] += 1
     return idx, valid, counts
 
 
@@ -127,17 +171,30 @@ def fused_fold(grid_raw: torch.Tensor, mask: torch.Tensor, k: int) -> tuple:
         return fused_fold_plain(grid_raw, mask, k)
     c, n = grid_raw.shape
     k = min(k, n)
+    s, vec = _plan(grid_raw, mask)
     idx, valid, counts = _outputs(c, k, grid_raw.device)
     occ = torch.empty((c,), dtype=torch.int32, device=grid_raw.device)
     with torch.cuda.device(grid_raw.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().gk_fused_fold(
-            grid_raw.data_ptr(), mask.data_ptr(), c, n, k, idx.data_ptr(),
-            valid.data_ptr(), counts.data_ptr(), occ.data_ptr(), stream)
+            grid_raw.data_ptr(), mask.data_ptr(), c, n, k, s, int(vec),
+            idx.data_ptr(), valid.data_ptr(), counts.data_ptr(),
+            occ.data_ptr(), stream)
     _raise_on(rc, "fused_fold")
     fused_fold.launches += 1
+    fused_fold.shapes[(c, n, k)] += 1
     return idx, valid, counts, occ
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the launch
+    floor that the fold kernels' times are read against."""
+    with torch.cuda.device(device):
+        _raise_on(_lib().gk_empty(torch.cuda.current_stream().cuda_stream),
+                  "empty_launch")
 
 
 epilogue.launches = 0
 fused_fold.launches = 0
+epilogue.shapes = collections.Counter()
+fused_fold.shapes = collections.Counter()

@@ -169,11 +169,31 @@ def packbits(grid: torch.Tensor) -> torch.Tensor:
 
 def _nonzero_padded(flat: torch.Tensor, size: int, fill: int):
     """``jnp.nonzero(flat, size=size, fill_value=fill)``: the first
-    ``size`` set positions, padded with ``fill`` (int64)."""
+    ``size`` set positions, padded with ``fill`` (int64).  ``torch.nonzero``
+    waits for the device: the host syncs here."""
     nz = torch.nonzero(flat).reshape(-1)[:size]
     out = torch.full((size,), fill, dtype=torch.int64, device=flat.device)
     out[: nz.shape[0]] = nz
     return out
+
+
+def select_hits(sel: torch.Tensor, idx: torch.Tensor, hit_cap: int,
+                pad_n: int, sentinel: int) -> torch.Tensor:
+    """The first ``hit_cap`` set slots of ``sel`` [C, k], in row-major
+    order, as flat ``row * pad_n + idx[row, j]`` coordinates (int32) padded
+    with ``sentinel``: the coordinates of ``nonzero(sel)[:hit_cap]``.  Each
+    set slot's place is the running count of set slots before it; slots
+    past ``hit_cap`` scatter into one extra slot that is dropped.  Static
+    shapes throughout, so the host never waits on the device."""
+    flat = sel.reshape(-1)
+    place = torch.cumsum(flat, 0) - 1
+    dest = torch.where(flat & (place < hit_cap), place, hit_cap)
+    rows = torch.arange(sel.shape[0], dtype=torch.int64, device=sel.device)
+    coords = (rows[:, None] * pad_n + idx.to(torch.int64)).reshape(-1)
+    out = torch.full((hit_cap + 1,), sentinel, dtype=torch.int64,
+                     device=sel.device)
+    out.scatter_(0, dest, coords)
+    return out[:hit_cap].to(torch.int32)
 
 
 class _PendingSweep:
@@ -545,13 +565,7 @@ class SweepEvaluator:
                                         device=dev)[None, :] < want[:, None])
             nsel = sel.sum(dtype=torch.int32)
             if hit_cap:
-                pos = _nonzero_padded(sel.reshape(-1), hit_cap,
-                                      c_total * k_eff)
-                safe = torch.clamp(pos, max=c_total * k_eff - 1)
-                oi = idx.reshape(-1)[safe].to(torch.int64)
-                hits = torch.where(pos < c_total * k_eff,
-                                   (pos // k_eff) * pad_n + oi,
-                                   sentinel).to(torch.int32)
+                hits = select_hits(sel, idx, hit_cap, pad_n, sentinel)
             else:
                 hits = torch.zeros((0,), dtype=torch.int32, device=dev)
         return torch.cat(head + [nsel.reshape(1).to(torch.int32), hits])
