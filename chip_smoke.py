@@ -26,7 +26,21 @@ Phases (any failure raises and exits non-zero):
    edge grid and on a random grid, then timed;
 5. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-6. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+6. admission: the library (Rego templates and sample constraints, the
+   Ingresses of the traffic synced as inventory) served by the port's
+   ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
+   ``Batcher`` at its default window, batch size and interpreter cut-off
+   (with batch stats on) and failurePolicy=Fail.  ``--admissions``
+   AdmissionReview bodies (the library's ``samples/example_*.yaml``
+   objects, then ``make_cluster_objects(..., seed=3)``; every tenth an
+   UPDATE that carries an ``oldObject``) are posted by 64 keep-alive
+   clients in 8 load processes.  Every response must equal the port's
+   in-process handler on the CPU without a batcher (the exact interpreter
+   path); no answer may have code 500, the grid lane must have run and
+   ``query_batch`` must not have raised.  Prints admissions/s, p50/p99
+   latency, the batch-size histogram, the lane counts and the medians of
+   the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
+7. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -34,8 +48,12 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
+import http.client
 import json
+import multiprocessing
 import statistics
+import threading
 import subprocess
 import sys
 import time
@@ -50,6 +68,7 @@ C_MAIN, N_MAIN, K_MAIN = 44, 32768, 20
 CPU_PREFIX = 8192
 GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
 GRAPH_REPLAYS = 25  # timed replays of that graph (median taken)
+LOAD_PROCS, LOAD_CONNS = 8, 8  # 64 keep-alive clients in 8 processes
 
 
 def log(msg: str) -> None:
@@ -315,14 +334,14 @@ def shape_phase(rows, err, shapes) -> None:
         row["max_abs_err"] = err[row["name"]]
 
 
-def _client(objects):
+def _client(objects, device: str = "cuda"):
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
     from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.target.target import K8sValidationTarget
     from gatekeeper_tpu_torch.utils.synthetic import load_library
 
-    driver = TorchDriver()
+    driver = TorchDriver(device=device)
     client = Client(target=K8sValidationTarget(), drivers=[driver],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
     nt, nc = load_library(client, skip_kinds=CEL_KINDS)
@@ -342,7 +361,7 @@ def audit(objects, device: str, collect: str) -> tuple:
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
 
-    client, driver, _nt, _nc = _client(objects)
+    client, driver, _nt, _nc = _client(objects, device=device)
     evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
                                collect=collect)
     mgr = AuditManager(client, lister=lambda: iter(objects),
@@ -410,6 +429,18 @@ def path_phase(n_objects: int) -> tuple:
     return launches, shapes, objects
 
 
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_events(prof) -> list:
+    """Device-side events only (kernels, memcpy, memset): the aten ops
+    that launched them carry the same time again."""
+    return [e for e in prof.key_averages() if dev_us(e) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
 def profile_phase(objects) -> None:
     """Device busy time of one reduced-lane audit (sum of the device
     events' self time; one stream, so they do not overlap) against its wall
@@ -419,15 +450,7 @@ def profile_phase(objects) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _run, _phases, wall = audit(objects, "cuda", "reduced")
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only (kernels, memcpy, memset): the aten ops
-    # that launched them carry the same time again
-    events = [e for e in prof.key_averages() if dev_us(e) > 0
-              and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    events = _device_events(prof)
     if not events:
         log("profile[reduced]: the profiler reported no device events; "
             "device busy time not measured")
@@ -447,19 +470,291 @@ def profile_phase(objects) -> None:
                 f"{dev_us(e) / 1e3 / e.count:.5f} ms per launch")
 
 
+def admission_body(obj: dict, uid: str, old: dict = None) -> dict:
+    """An AdmissionReview for ``obj`` as the apiserver sends it: CREATE,
+    or UPDATE when ``old`` (the oldObject) is given."""
+    group, _, version = obj.get("apiVersion", "").rpartition("/")
+    meta = obj.get("metadata") or {}
+    req = {"uid": uid, "operation": "CREATE" if old is None else "UPDATE",
+           "kind": {"group": group, "version": version,
+                    "kind": obj.get("kind", "")},
+           "name": meta.get("name", ""),
+           "namespace": meta.get("namespace", ""),
+           "userInfo": {"username": "kubernetes-admin",
+                        "groups": ["system:masters"]},
+           "object": obj}
+    if old is not None:
+        req["oldObject"] = old
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": req}
+
+
+def admission_traffic(n: int) -> tuple:
+    """(bodies, objects): the library's sample objects, then synthetic
+    cluster objects, ``n`` in all; every tenth body is an UPDATE whose
+    oldObject differs (a Pod's service account, else a label)."""
+    import glob
+    import os
+
+    from gatekeeper_tpu_torch.utils.synthetic import (library_dir,
+                                                      make_cluster_objects)
+    from gatekeeper_tpu_torch.utils.unstructured import load_yaml_file
+
+    samples = []
+    for path in sorted(glob.glob(os.path.join(
+            library_dir(), "*", "*", "samples", "example_*.yaml"))):
+        samples.extend(d for d in load_yaml_file(path) if isinstance(d, dict))
+    objects = (samples + make_cluster_objects(max(0, n - len(samples)),
+                                              seed=3))[:n]
+    bodies = []
+    for i, obj in enumerate(objects):
+        old = None
+        if i % 10 == 9:
+            old = copy.deepcopy(obj)
+            if obj.get("kind") == "Pod":
+                old.setdefault("spec", {})["serviceAccountName"] = "prior-sa"
+            else:
+                old.setdefault("metadata", {}).setdefault(
+                    "labels", {})["revision"] = "prior"
+        bodies.append(admission_body(obj, f"adm-{i}", old))
+    return bodies, objects
+
+
+def _load_worker(port: int, share: list, conns: int, barrier,
+                 results) -> None:
+    """One load process: ``conns`` threads, each posting its part of
+    ``share`` ([(index, body bytes)]) over one keep-alive connection, one
+    request at a time.  Puts [(index, latency s, status, reply bytes)]."""
+    out = []
+    lock = threading.Lock()
+
+    def client(part):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for idx, data in part:
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/admit", body=data, headers={
+                    "Content-Type": "application/json"})
+                resp = conn.getresponse()
+                reply = resp.read()
+                dt = time.perf_counter() - t0
+                with lock:
+                    out.append((idx, dt, resp.status, reply))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(share[c::conns],))
+               for c in range(conns)]
+    barrier.wait(timeout=300)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    results.put(out)
+
+
+def post_concurrently(port: int, bodies: list) -> tuple:
+    """Post every body from LOAD_PROCS processes x LOAD_CONNS keep-alive
+    connections.  Returns (replies by index, latencies s, wall s)."""
+    ctx = multiprocessing.get_context("spawn")
+    barrier = ctx.Barrier(LOAD_PROCS + 1)
+    results = ctx.Queue()
+    items = [(i, json.dumps(b).encode()) for i, b in enumerate(bodies)]
+    procs = [ctx.Process(target=_load_worker,
+                         args=(port, items[p::LOAD_PROCS], LOAD_CONNS,
+                               barrier, results), daemon=True)
+             for p in range(LOAD_PROCS)]
+    for proc in procs:
+        proc.start()
+    try:
+        barrier.wait(timeout=300)
+        t0 = time.perf_counter()
+        rows = []
+        for _ in procs:  # drain the queue before joining the writers
+            rows.extend(results.get(timeout=600))
+        wall = time.perf_counter() - t0
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    replies = {}
+    for idx, _dt, status, reply in rows:
+        if status != 200:
+            raise AssertionError(f"admission {idx}: HTTP {status}")
+        replies[idx] = json.loads(reply)["response"]
+    if len(replies) != len(bodies):
+        raise AssertionError(f"{len(replies)} of {len(bodies)} answered")
+    return replies, [r[1] for r in rows], wall
+
+
+def _answer(resp: dict) -> tuple:
+    status = resp.get("status") or {}
+    return (resp["allowed"], status.get("code", 200),
+            status.get("message", ""), sorted(resp.get("warnings") or []))
+
+
+def profile_grid_batch(client, bodies, namespaces) -> None:
+    """One grid-lane batch (``client.review_batch``, as the batcher calls
+    it) under ``torch.profiler``: the device's busy time beside the
+    batch's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gatekeeper_tpu_torch.apis.constraints import WEBHOOK_EP
+    from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+    from gatekeeper_tpu_torch.target.review import AugmentedReview
+    from gatekeeper_tpu_torch.webhook.policy import parse_admission_review
+
+    reviews = []
+    for body in bodies:
+        req = parse_admission_review(copy.deepcopy(body))
+        reviews.append(AugmentedReview(
+            admission_request=req, namespace=namespaces.get(req.namespace),
+            source=SOURCE_ORIGINAL, is_admission=True))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        client.review_batch(reviews, enforcement_point=WEBHOOK_EP)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    if not events:
+        log("admission profile: the profiler reported no device events; "
+            "device busy time not measured")
+        return
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:4]
+    log(f"admission profile: one grid batch of {len(reviews)}, wall "
+        f"{wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms, idle "
+        f"share {1 - busy_ms / wall_ms:.4f}; top: " + "; ".join(
+            f"{e.key[:50]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
+            for e in top))
+
+
+def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
+    """Serve ``n`` admissions through the port's webhook on ``device``
+    and hold every answer against the CPU exact-interpreter handler."""
+    from gatekeeper_tpu_torch.__main__ import warm_batcher
+    from gatekeeper_tpu_torch.webhook.namespacelabel import \
+        NamespaceLabelHandler
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import (WebhookServer,
+                                                     admission_response)
+
+    bodies, objects = admission_traffic(n)
+    namespaces = {o["metadata"]["name"]: o for o in objects
+                  if o.get("kind") == "Namespace"}
+    client, driver, nt, nc = _client(objects, device=device)
+    batcher = Batcher(client, stats=True).start()
+    t0 = time.perf_counter()
+    warm_batcher(client, batcher)
+    log(f"admission: {nt} templates, {nc} constraints, {n} bodies; warm "
+        f"{time.perf_counter() - t0:.3f}s")
+    grid_stats: list = []
+    errors: list = []
+    query_batch = driver.query_batch
+
+    def counted_query_batch(*args, **kwargs):
+        try:
+            out = query_batch(*args, **kwargs)
+        except Exception as e:
+            errors.append(repr(e))
+            raise
+        for entry in out[0].stats_entries if out else ():
+            grid_stats.append({s.name: s.value for s in entry.stats})
+        return out
+
+    driver.query_batch = counted_query_batch
+    driver.perf.clear()
+    server = WebhookServer(
+        validation_handler=ValidationHandler(
+            client, namespace_lookup=namespaces.get, batcher=batcher,
+            failure_policy="fail"),
+        namespace_label_handler=NamespaceLabelHandler(),
+        host="127.0.0.1", port=0, batcher=batcher).start()
+    try:
+        replies, lat, wall = post_concurrently(server.port, bodies)
+    finally:
+        drained = server.stop()
+    lanes = dict(batcher.lane_counts)
+    sizes = dict(sorted(batcher.batch_sizes.items()))
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {
+        "admissions": n, "wall_s": wall, "admissions_per_s": n / wall,
+        "p50_ms": lat_ms[len(lat_ms) // 2],
+        "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+        "lanes": lanes, "batch_sizes": sizes,
+        "grid_batches": len(grid_stats),
+        "d2h_bytes": driver.perf.get("d2h_bytes", 0.0),
+    }
+    for name in ("flattenNS", "batchEvalNS", "totalNS"):
+        vals = [g[name] for g in grid_stats]
+        out[f"median_{name}"] = statistics.median(vals) if vals else None
+    log(f"admission: {n} admissions in {wall:.3f}s, "
+        f"{out['admissions_per_s']:.1f} admissions/s, p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms "
+        f"({LOAD_PROCS * LOAD_CONNS} keep-alive clients), {card}")
+    log(f"admission: lanes {lanes}, batch sizes {sizes}")
+    log("admission: grid batch medians (ns): " + json.dumps(
+        {k: out[f"median_{k}"] for k in ("flattenNS", "batchEvalNS",
+                                         "totalNS")})
+        + f", {out['grid_batches']} grid batches, d2h "
+        f"{out['d2h_bytes']:.0f} bytes")
+
+    if device == "cuda":
+        profile_grid_batch(client, bodies[:batcher.max_batch], namespaces)
+    ref_client = _client(objects, device="cpu")[0]
+    ref = ValidationHandler(ref_client, namespace_lookup=namespaces.get,
+                            failure_policy="fail")
+    t0 = time.perf_counter()
+    diffs, denied, code500 = [], 0, 0
+    for i, body in enumerate(bodies):
+        v = ref.handle(copy.deepcopy(body))
+        want = _answer(admission_response(v.uid, v.allowed, v.message,
+                                          v.code, v.warnings)["response"])
+        got = _answer(replies[i])
+        denied += not got[0]
+        code500 += got[1] == 500
+        if got != want:
+            diffs.append((i, got, want))
+    log(f"admission: cpu reference handler {time.perf_counter() - t0:.3f}s; "
+        f"{denied} denied, {len(diffs)} differ, {code500} with code 500")
+    if errors:
+        raise AssertionError(f"query_batch raised: {errors[:3]}")
+    if diffs:
+        raise AssertionError(f"served answers differ from the CPU handler, "
+                             f"first: {diffs[:2]}")
+    if code500 or not lanes.get("grid") or not grid_stats:
+        raise AssertionError(f"admission not sane: {code500} code-500 "
+                             f"answers, lanes {lanes}")
+    if not drained or denied == 0:
+        raise AssertionError("admission: server did not drain, or nothing "
+                             "was denied")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--objects", type=int, default=131072,
                    help="synthetic cluster objects (131,072 = 4 chunks; up "
                         "to 1,000,000)")
+    p.add_argument("--admissions", type=int, default=4096,
+                   help="AdmissionReviews served in the admission phase")
     args = p.parse_args()
     if not 0 < args.objects <= 1_000_000:
         raise SystemExit("--objects must be in 1..1,000,000")
-    device_phase()
+    if args.admissions < 1:
+        raise SystemExit("--admissions must be positive")
+    card = device_phase()["card"]
     rows, err = kernel_phase()
     launches, shapes, objects = path_phase(args.objects)
     shape_phase(rows, err, shapes)
     profile_phase(objects)
+    del objects
+    admission_phase(args.admissions, card)
+    log(card)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -8,12 +8,13 @@ in ``csrc/`` and build at first use.  Entry points take ``device=`` and
 default to ``"cuda"``; only a caller that asks for ``"cpu"`` gets the plain
 PyTorch versions of the kernels.
 
-The port covers the library audit sweep so far: YAML loading, the Rego front
-end and lowering, the columnar flatten, the grid evaluator
-(``ir/program.py``), the audit driver (``drivers/torch_driver.py``), the
-one-device sweep (``parallel/sweep.py``) with both fold kernels
-(``ops/fold.py``), the serial audit schedule (``audit/manager.py``) and
-``python -m gatekeeper_tpu_torch --manifests DIR --once``.
+The port covers the library audit sweep and validating admission so far:
+YAML loading, the Rego front end and lowering, the columnar flatten, the
+grid evaluator (``ir/program.py``), the driver (``drivers/torch_driver.py``,
+with the batched ``query_batch``), the one-device sweep
+(``parallel/sweep.py``) with both fold kernels (``ops/fold.py``), the serial
+audit schedule (``audit/manager.py``), the webhook (``webhook/``) and
+``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
 """
 
 __version__ = "0.1.0"

@@ -1,21 +1,37 @@
-"""Offline audit entry point of the port.
+"""Entry point of the port: one audit sweep, or the admission webhook.
 
     python -m gatekeeper_tpu_torch --manifests DIR --once \
         [--collect reduced|masks] [--device cuda|cpu] \
         [--constraint-violations-limit N]
+    python -m gatekeeper_tpu_torch --manifests DIR [--port N] \
+        [--certs-dir D] [--tls-min-version 1.2|1.3] [--log-denies] \
+        [--webhook-small-batch N] [--webhook-failure-policy fail|ignore] \
+        [--device cuda|cpu]
 
 Loads ConstraintTemplates, constraints and cluster objects from YAML
-(files or directories, ``--manifests`` repeatable), runs one audit sweep on
-the device and prints the same summary (stderr) and kept-violation lines
-(stdout) as ``python -m gatekeeper_tpu --manifests DIR --once``.
+(files or directories, ``--manifests`` repeatable).  ``--device`` is where
+both the audit sweep and the webhook's batched reviews run.
 
-Every manifest object is audited, templates and constraints included.  The
-JAX package's CLI runs its controller plane and also audits the status
-objects it writes (one ConstraintTemplatePodStatus per template); the port
-has no controller plane yet, so its object count leaves those out.  A
-``Config`` named ``config`` with ``spec.sync.syncOnly`` syncs the listed
-kinds into ``data.inventory``; its other fields are not read.  CEL-only
-templates are skipped with a warning (the CEL engine is not ported yet).
+``--once`` runs one audit sweep on the device and prints the same summary
+(stderr) and kept-violation lines (stdout) as ``python -m gatekeeper_tpu
+--manifests DIR --once``.  Every manifest object is audited, templates and
+constraints included.  The JAX package's CLI runs its controller plane and
+also audits the status objects it writes (one ConstraintTemplatePodStatus
+per template); the port has no controller plane yet, so its object count
+leaves those out.
+
+Without ``--once`` the CLI serves ``/v1/admit``, ``/v1/admitlabel`` and
+``/healthz`` on ``--port`` (0 picks a free port; stderr prints
+``webhook serving on :PORT``) until SIGINT or SIGTERM, then drains.  The
+namespace of a request is looked up among the manifests' Namespace
+objects.  ``--certs-dir`` serves TLS from its existing ``tls.crt`` and
+``tls.key``.  Before serving, one grid-lane batch of the batcher's largest
+size warms the device path.
+
+A ``Config`` named ``config`` is read for ``spec.sync.syncOnly`` (the
+kinds synced into ``data.inventory``) and ``spec.match`` (the per-process
+namespace exclusions); its other fields are not read.  CEL-only templates
+are skipped with a warning (the CEL engine is not ported yet).
 """
 
 from __future__ import annotations
@@ -43,16 +59,54 @@ def load_manifests(paths) -> list:
     return list(store.values())
 
 
-def build_client(objects):
+def is_config(obj) -> bool:
+    """True for the gatekeeper ``Config`` object the CLI reads."""
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+
+    group, _v, kind = gvk_of(obj)
+    return group == CONFIG_GROUP and kind == "Config" \
+        and name_of(obj) == "config"
+
+
+def process_excluder(objects):
+    """The ``ProcessExcluder`` of the Config's ``spec.match``."""
+    from gatekeeper_tpu_torch.sync.process import ProcessExcluder
+
+    entries: list = []
+    for obj in objects:
+        if is_config(obj):
+            entries = (obj.get("spec") or {}).get("match") or []
+    return ProcessExcluder.from_config_match(entries)
+
+
+def warm_batcher(client, batcher) -> None:
+    """Run one grid-lane batch at the batcher's largest size, so the first
+    admission burst does not pay the first-use cost of the device path.
+    One batch is enough: the torch evaluation compiles nothing per shape."""
+    from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+    from gatekeeper_tpu_torch.target.review import AugmentedUnstructured
+
+    if not client.templates():
+        return
+    pod = {"apiVersion": "v1", "kind": "Pod",
+           "metadata": {"name": "warmup", "namespace": "default"},
+           "spec": {"containers": [{"name": "c", "image": "warmup"}]}}
+    warm = [AugmentedUnstructured(object=dict(pod), source=SOURCE_ORIGINAL)
+            for _ in range(batcher.max_batch)]
+    client.review_batch(warm)
+
+
+def build_client(objects, device: str = "cuda"):
     """(client, driver) with every template and constraint of
-    ``objects`` installed and the Config-synced inventory loaded."""
+    ``objects`` installed and the Config-synced inventory loaded; the
+    driver's batched reviews run on ``device``."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
     from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.target.target import K8sValidationTarget
     from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
 
-    driver = TorchDriver()
+    driver = TorchDriver(device=device)
     client = Client(target=K8sValidationTarget(), drivers=[driver],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
     sync: set = set()
@@ -64,8 +118,7 @@ def build_client(objects):
             except Exception as e:
                 print(f"template {name_of(obj)} skipped: {e}",
                       file=sys.stderr)
-        elif group == CONFIG_GROUP and kind == "Config" \
-                and name_of(obj) == "config":
+        elif is_config(obj):
             for e in ((obj.get("spec") or {}).get("sync") or {}).get(
                     "syncOnly") or []:
                 sync.add((e.get("group", ""), e.get("version", ""),
@@ -88,28 +141,51 @@ def main(argv=None) -> int:
     p.add_argument("--manifests", action="append", default=[],
                    help="YAML file or directory (repeatable)")
     p.add_argument("--once", action="store_true",
-                   help="run one audit sweep and exit (the only mode "
-                        "ported so far)")
+                   help="run one audit sweep and exit (no server)")
     p.add_argument("--collect", default="reduced",
                    choices=("reduced", "masks"),
                    help="what a sweep chunk brings back from the device")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="cuda (default) runs the hand-written kernels; cpu "
-                        "runs their plain PyTorch versions")
+                   help="cuda (default) runs the hand-written kernels and "
+                        "the grid evaluator on the card; cpu runs their "
+                        "plain PyTorch versions")
     p.add_argument("--constraint-violations-limit", type=int, default=20)
+    p.add_argument("--port", type=int, default=8443,
+                   help="webhook port (0 picks a free one)")
+    p.add_argument("--certs-dir", default="",
+                   help="serve TLS with tls.crt and tls.key from this dir")
+    p.add_argument("--tls-min-version", default="1.3",
+                   choices=["1.2", "1.3"])
+    p.add_argument("--log-denies", action="store_true",
+                   help="log structured deny events (reference --log-denies)")
+    p.add_argument("--webhook-small-batch", type=int, default=None,
+                   help="admission batches this size or smaller take the "
+                        "per-review interpreter lane instead of the "
+                        "device verdict grid (default 8; the lanes agree "
+                        "bit for bit)")
+    p.add_argument("--webhook-failure-policy", default="fail",
+                   choices=["ignore", "fail"],
+                   help="what a failed review answers: 'ignore' fails open "
+                        "(allow + warning), 'fail' fails closed (deny, "
+                        "code 500) — the reference webhook failurePolicy")
     args = p.parse_args(argv)
-    if not args.once:
-        print("only --once is supported by the port so far", file=sys.stderr)
-        return 2
+    from gatekeeper_tpu_torch import resolve_device
 
-    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
-    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
-
+    resolve_device(args.device)  # no card and no --device cpu: raise now
     objects = load_manifests(args.manifests)
-    client, driver = build_client(objects)
+    client, driver = build_client(objects, device=args.device)
     print(f"templates: {len(client.templates())} "
           f"({len(driver.lowered_kinds())} on the device verdict path), "
           f"constraints: {len(client.constraints())}", file=sys.stderr)
+    if args.once:
+        return audit_once(args, objects, client, driver)
+    return serve(args, objects, client)
+
+
+def audit_once(args, objects, client, driver) -> int:
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
     evaluator = SweepEvaluator(
         driver, device=args.device,
         violations_limit=args.constraint_violations_limit,
@@ -134,6 +210,68 @@ def main(argv=None) -> int:
             print(f"  {key[0]}/{key[1]}: {v.kind} "
                   f"{v.namespace + '/' if v.namespace else ''}{v.name}: "
                   f"{v.message}")
+    return 0
+
+
+def serve(args, objects, client) -> int:
+    """Serve the admission webhook until SIGINT or SIGTERM, then drain."""
+    import os
+    import signal
+    import threading
+
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+    from gatekeeper_tpu_torch.webhook.namespacelabel import \
+        NamespaceLabelHandler
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    namespaces = {name_of(o): o for o in objects
+                  if gvk_of(o) == ("", "v1", "Namespace")}
+    batcher = Batcher(client, small_batch=args.webhook_small_batch).start()
+    try:
+        warm_batcher(client, batcher)
+        certfile = keyfile = None
+        if args.certs_dir:
+            certfile = os.path.join(args.certs_dir, "tls.crt")
+            keyfile = os.path.join(args.certs_dir, "tls.key")
+        server = WebhookServer(
+            validation_handler=ValidationHandler(
+                client,
+                process_excluder=process_excluder(objects),
+                namespace_lookup=namespaces.get,
+                batcher=batcher,
+                log_denies=args.log_denies,
+                failure_policy=args.webhook_failure_policy,
+            ),
+            namespace_label_handler=NamespaceLabelHandler(),
+            port=args.port,
+            certfile=certfile,
+            keyfile=keyfile,
+            tls_min_version=args.tls_min_version,
+            batcher=batcher,
+        ).start()
+    except BaseException:
+        batcher.stop()
+        raise
+    print(f"webhook serving on :{server.port}", file=sys.stderr, flush=True)
+
+    stopping = threading.Event()
+
+    def _on_signal(signum, frame):
+        print(f"signal {signum}: draining", file=sys.stderr, flush=True)
+        server.begin_drain()
+        stopping.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    while not stopping.wait(1.0):
+        pass
+    drained = server.stop()
+    batcher.stop()  # idempotent (server.stop drained it already)
+    print("drain complete" if drained else
+          "WARNING: drain exceeded its budget; in-flight work abandoned",
+          file=sys.stderr, flush=True)
     return 0
 
 

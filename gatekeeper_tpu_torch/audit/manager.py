@@ -8,8 +8,8 @@ violations per constraint (LimitQueue) → write constraint status.
 Device middle: each chunk flattens to columns and the whole constraint ×
 chunk grid evaluates in one device pass (``parallel/sweep.SweepEvaluator``);
 only the ≤K kept violations per constraint render to messages through the
-exact interpreter.  Non-lowered kinds run the interpreter behind the same
-seam.
+exact interpreter.  Kinds the sweep does not cover go to their driver's
+``query_batch`` (the admission path), on the sweep's device.
 
 Not ported yet: the staged pipeline schedule, the resident snapshot,
 the expansion generator stage, export, metrics, tracing and brownout hooks.
@@ -347,14 +347,13 @@ class AuditManager:
 
     def _eval_via_drivers(self, constraints, objects, reviews, kept, totals,
                           limit):
-        """Evaluate constraints through their own template's driver with a
-        matcher-prefiltered per-object query loop.  This is the lane for
-        every constraint the device sweep did not cover: non-lowered Rego
-        templates and referential templates whose inventory tables are
-        inexact for the current data version."""
+        """Evaluate constraints through their own template's driver's
+        ``query_batch``.  This is the lane for every constraint the device
+        sweep did not cover: non-lowered Rego templates and referential
+        templates whose inventory tables are inexact for the current data
+        version."""
         if not constraints:
             return
-        target = self.client.target
         by_driver: dict[int, tuple] = {}
         for con in constraints:
             d = self.client._template_driver.get(con.kind)
@@ -362,21 +361,8 @@ class AuditManager:
                 continue  # no template: constraint cannot be evaluated
             by_driver.setdefault(id(d), (d, []))[1].append(con)
         for d, cons in by_driver.values():
-            for oi, obj in enumerate(objects):
-                review = reviews[oi]
-                for con in cons:
-                    if not target.to_matcher(con.match).match(review):
-                        continue
-                    qr = d.query(
-                        target.name, [con], review,
-                        ReviewCfg(enforcement_point=AUDIT_EP)
-                    )
-                    key = con.key()
-                    totals[key] += len(qr.results)
-                    for r in qr.results:
-                        if len(kept[key]) < limit:
-                            kept[key].append(
-                                self._violation(con, obj, r.msg, r.details))
+            self._chunk_via_query_batch(d, cons, objects, reviews, kept,
+                                        totals, limit)
 
     @staticmethod
     def fold_swept(swept, n_objects, render, limit, exact, budget=None):
@@ -463,6 +449,27 @@ class AuditManager:
         if rest:
             self._eval_via_drivers(rest, objects, get_reviews(), kept,
                                    totals, limit)
+
+    def _chunk_via_query_batch(self, driver, constraints, objects, reviews,
+                               kept, totals, limit):
+        # the audit's device is its sweep's; without one, the driver's own
+        device = self.evaluator.device if self.evaluator is not None else None
+        responses = driver.query_batch(
+            self.client.target.name, constraints, reviews,
+            ReviewCfg(enforcement_point=AUDIT_EP), device=device,
+        )
+        for oi, resp in enumerate(responses):
+            for r in resp.results:
+                ckind = r.constraint.get("kind", "")
+                cname = (r.constraint.get("metadata") or {}).get("name", "")
+                key = (ckind, cname)
+                if key not in totals:
+                    continue
+                totals[key] += 1
+                if len(kept[key]) < limit:
+                    con = self.client.get_constraint(ckind, cname)
+                    kept[key].append(
+                        self._violation(con, objects[oi], r.msg, r.details))
 
     def _violation(self, con, obj, msg, details) -> Violation:
         group, version, kind = gvk_of(obj)

@@ -1,32 +1,43 @@
 """The port's driver: vectorized detection + exact host rendering.
 
-Port of ``gatekeeper_tpu/drivers/tpu_driver.py`` (``TpuDriver``) for the
-audit sweep.  Split of labor:
+Port of ``gatekeeper_tpu/drivers/tpu_driver.py`` (``TpuDriver``).  Split of
+labor:
 
 - ``add_template`` compiles the Rego source twice: (a) interpreter modules
   (exact oracle + message rendering), (b) a lowered predicate Program where
   the template is in the vectorizable fragment (ir/lower_rego), evaluated
-  by ``ir/program.CompiledProgram`` inside the sweep
-  (``parallel/sweep.SweepEvaluator``).
+  by ``ir/program.CompiledProgram`` inside the audit sweep
+  (``parallel/sweep.SweepEvaluator``) and inside ``query_batch``.
 - ``query`` (single review) delegates to the interpreter.
+- ``query_batch`` (many reviews: the webhook microbatch, the audit's
+  non-swept kinds) flattens once, evaluates each lowered template's [C, N]
+  grid on ``device``, ANDs it with the match mask on the host and renders
+  the hits through the interpreter; other kinds run the interpreter over
+  their mask-filtered pairs.
 - ``render_query`` renders a device-detected hit through the interpreter,
   with the inventory restricted to join candidates where provably safe.
 
-Not ported yet: the batched admission path (``query_batch``), the CEL
-engine, generation swaps, the compile cache, the external-data lane and
-metrics.  Kinds with external-data joins therefore never ride the device
-grid (``extdata_ready`` is False for them) and render through the
-interpreter.
+Not ported yet: the CEL engine, generation swaps, the compile cache, the
+external-data lane, cost attribution, tracing and metrics.  Kinds with
+external-data joins therefore never ride the device grid
+(``extdata_ready`` is False for them) and run through the interpreter.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Optional, Sequence
 
+import numpy as np
+
+from gatekeeper_tpu_torch import resolve_device
 from gatekeeper_tpu_torch.apis.constraints import Constraint
 from gatekeeper_tpu_torch.apis.templates import ConstraintTemplate
-from gatekeeper_tpu_torch.client.types import QueryResponse
+from gatekeeper_tpu_torch.client.types import (QueryResponse, Result, Stat,
+                                               StatsEntry)
+from gatekeeper_tpu_torch.drivers.base import ReviewCfg
 from gatekeeper_tpu_torch.drivers.rego_driver import RegoDriver
+from gatekeeper_tpu_torch.ir import masks as masks_mod
 from gatekeeper_tpu_torch.ir import nodes as _N
 from gatekeeper_tpu_torch.ir.lower_rego import lower_template
 from gatekeeper_tpu_torch.ir.program import (CompiledProgram, LowerError,
@@ -34,8 +45,10 @@ from gatekeeper_tpu_torch.ir.program import (CompiledProgram, LowerError,
                                              build_param_table, expr_nodes,
                                              extdata_key_cols,
                                              walk_join_values)
-from gatekeeper_tpu_torch.ops.flatten import (RaggedCol, ScalarCol, Vocab,
+from gatekeeper_tpu_torch.ops.flatten import (Flattener, RaggedCol,
+                                              ScalarCol, Schema, Vocab,
                                               _axis_items, _walk)
+from gatekeeper_tpu_torch.target.review import GkReview
 
 DRIVER_NAME = "Torch"
 
@@ -67,9 +80,14 @@ def _col_values(obj, col):
 
 
 class TorchDriver:
-    """Implements the Driver protocol for the audit sweep's device path."""
+    """Implements the Driver protocol + the batched device path.
 
-    def __init__(self):
+    ``device`` is where ``query_batch`` evaluates its grids unless the call
+    names another ("cuda" by default; resolved when a batch has a lowered
+    kind, which raises without a card).  The audit sweep, and the audit's
+    ``query_batch`` calls, run on its ``SweepEvaluator``'s device."""
+
+    def __init__(self, batch_bucket: int = 256, device: str = "cuda"):
         self._interp = RegoDriver()
         self.vocab = Vocab()
         self._programs: dict[str, CompiledProgram] = {}  # kind -> compiled
@@ -82,6 +100,12 @@ class TorchDriver:
         self._inv_cache: dict = {}  # kind -> (versions, cols, exact)
         self._render_specs: dict = {}  # kind -> Optional[list[(spec, col)]]
         self._render_idx: dict = {}  # spec.key() -> (version, index)
+        self._dev_cache: dict = {}  # host array id -> device tensor (LRU)
+        self.batch_bucket = batch_bucket
+        self.device = device
+        # device->host transfer accounting for query_batch (grid fetches),
+        # the admission-side twin of the sweep evaluator's perf["d2h_bytes"]
+        self.perf: dict = {}
 
     def lowering_stats(self) -> dict:
         """Device-coverage summary: how much of the loaded template set
@@ -343,10 +367,145 @@ class TorchDriver:
         return d
 
     def get_description_for_stat(self, stat_name: str) -> str:
-        return self._interp.get_description_for_stat(stat_name)
+        return {
+            "batchEvalNS": "nanoseconds spent in the device verdict kernel",
+            "flattenNS": "nanoseconds spent flattening objects to columns",
+        }.get(stat_name, self._interp.get_description_for_stat(stat_name))
 
     def lowered_kinds(self) -> list[str]:
         return sorted(self._programs)
 
     def fallback_kinds(self) -> dict[str, str]:
         return dict(self._lower_errors)
+
+    # --- the batched device path ------------------------------------------
+    def query_batch(
+        self,
+        target: str,
+        constraints: Sequence[Constraint],
+        reviews: Sequence[GkReview],
+        cfg: Optional[ReviewCfg] = None,
+        render_messages: bool = True,
+        device: Optional[str] = None,
+    ) -> list[QueryResponse]:
+        """Evaluate all constraints against all reviews in one device pass.
+
+        Returns one QueryResponse per review.  This is the kernel behind the
+        webhook batcher and the audit's non-swept kinds.  ``device``: where
+        the grids evaluate (default: the driver's own ``device``); it is
+        resolved only when some kind is lowered, so a batch of fallback
+        kinds never needs the card."""
+        cfg = cfg or ReviewCfg()
+        n = len(reviews)
+        responses = [QueryResponse() for _ in range(n)]
+        if n == 0 or not constraints:
+            return responses
+
+        objects = [r.request.object or {} for r in reviews]
+        namespaces = [r.namespace for r in reviews]
+        sources = [r.source for r in reviews]
+
+        by_kind: dict[str, list[Constraint]] = {}
+        for con in constraints:
+            by_kind.setdefault(con.kind, []).append(con)
+
+        # capture the programs ONCE: a template install replaces the dict
+        # (never mutates it), so this batch finishes on the programs it
+        # started on
+        programs = self._programs
+        lowered_kinds = [k for k in by_kind
+                         if k in programs
+                         and self.inventory_exact(k, programs=programs)
+                         and self.extdata_ready(k, programs=programs)]
+        fallback_kinds = [k for k in by_kind if k not in lowered_kinds]
+        if lowered_kinds:
+            dev = resolve_device(self.device if device is None else device)
+
+        t0 = time.perf_counter_ns()
+        verdicts: dict[str, np.ndarray] = {}
+        # flatten once with the union schema (identity columns are always
+        # needed for match masks, even when every kind falls back)
+        schema = Schema()
+        for kind in lowered_kinds:
+            schema.merge(programs[kind].program.schema)
+        # power-of-two padding above the base bucket bounds the distinct
+        # batch shapes at log2(max N)
+        pad_n = self.batch_bucket
+        while pad_n < n:
+            pad_n *= 2
+        tf = time.perf_counter_ns()
+        review_docs = [
+            {
+                "kind": r.request.kind,
+                "operation": r.request.operation,
+                "name": r.request.name,
+                "namespace": r.request.namespace,
+                "userInfo": r.request.user_info,
+                # UPDATE-delta policies compare object fields against
+                # oldObject fields; absent outside UPDATE/DELETE, so such
+                # rules stay vacuous on CREATE, as in the interpreter
+                "oldObject": r.request.old_object,
+            }
+            for r in reviews
+        ]
+        batch = Flattener(schema, self.vocab).flatten(
+            objects, pad_n=pad_n, reviews=review_docs)
+        flatten_ns = time.perf_counter_ns() - tf
+        te = time.perf_counter_ns()
+        batch_memo: dict = {}  # this batch's uploads, shared across kinds
+        for kind in lowered_kinds:
+            prog = programs[kind]
+            cons = by_kind[kind]
+            table = build_param_table(prog.program, cons, self.vocab)
+            grid = prog.run(batch, table, vocab=self.vocab,
+                            extra_cols=self.inventory_cols(
+                                kind, programs=programs)[0],
+                            device=dev,
+                            dev_cache=self._dev_cache,
+                            batch_cache=batch_memo)
+            mask = masks_mod.constraint_masks(
+                cons, batch, self.vocab, objects, namespaces, sources)
+            # the admission grid is folded on the host (batches are small
+            # and per-request rendering needs every hit anyway): account
+            # the fetch next to the audit lane's
+            self.perf["d2h_bytes"] = (self.perf.get("d2h_bytes", 0.0)
+                                      + grid.nbytes)
+            verdicts[kind] = grid[:, : batch.n] & mask
+        eval_ns = time.perf_counter_ns() - te
+
+        # render hits through the exact engine
+        for kind in lowered_kinds:
+            grid = verdicts[kind]
+            for ci, con in enumerate(by_kind[kind]):
+                for oi in np.nonzero(grid[ci, :n])[0].tolist():
+                    if render_messages:
+                        qr = self.render_query(target, con, reviews[oi], cfg)
+                        responses[oi].results.extend(qr.results)
+                        if qr.trace:
+                            responses[oi].trace = (
+                                (responses[oi].trace + "\n" + qr.trace)
+                                if responses[oi].trace else qr.trace)
+                    else:
+                        responses[oi].results.append(
+                            Result(target=target, msg="", constraint=con.raw))
+
+        # fallback kinds: exact engine on match-filtered pairs
+        for kind in fallback_kinds:
+            cons = by_kind[kind]
+            mask = masks_mod.constraint_masks(
+                cons, batch, self.vocab, objects, namespaces, sources)
+            for ci, con in enumerate(cons):
+                for oi in np.nonzero(mask[ci, :n])[0].tolist():
+                    qr = self._interp.query(target, [con], reviews[oi], cfg)
+                    responses[oi].results.extend(qr.results)
+
+        if cfg.stats:
+            total_ns = time.perf_counter_ns() - t0
+            source = {"type": "engine", "value": DRIVER_NAME}
+            responses[0].stats_entries.append(StatsEntry(
+                scope="batch",
+                stats_for=f"{len(constraints)} constraints x {n} objects",
+                stats=[Stat("batchEvalNS", eval_ns, source),
+                       Stat("flattenNS", flatten_ns, source),
+                       Stat("totalNS", total_ns, source)]))
+        return responses

@@ -17,12 +17,14 @@ from __future__ import annotations
 
 import itertools
 import re
+import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from gatekeeper_tpu_torch.ir import nodes as N
+from gatekeeper_tpu_torch.ir.convert import to_tensor
 from gatekeeper_tpu_torch.ops.flatten import (
     ColumnBatch,
     K_MAP,
@@ -1383,16 +1385,64 @@ class CompiledProgram:
     def run(self, batch: ColumnBatch, param_table: dict,
             vocab: Optional[Vocab] = None,
             extra_cols: Optional[dict] = None,
-            device: str = "cuda") -> np.ndarray:
+            device: str = "cuda",
+            dev_cache: Optional[dict] = None,
+            batch_cache: Optional[dict] = None) -> np.ndarray:
         """Verdicts [C, N] (numpy bool) for a flattened batch.
-        ``extra_cols``: shared non-batch arrays (inventory join tables)."""
-        from gatekeeper_tpu_torch import resolve_device
-        from gatekeeper_tpu_torch.ir.convert import tensors_from_numpy
+        ``extra_cols``: shared non-batch arrays (inventory join tables).
 
-        cols = slim_cols(pack_batch_cols(batch), needed_fields(self.program))
+        Two memo scopes of host array -> tensor on ``device``:
+        - ``dev_cache``: persistent LRU for arrays that recur ACROSS
+          batches — vocab pred/fn tables, inventory join tables.
+        - ``batch_cache``: per-query memo for THIS batch's columns, shared
+          across the per-kind programs evaluating the same batch (a
+          many-template query_batch would otherwise upload every shared
+          column once per template); it dies with the query, so batch
+          columns never pin device memory."""
+        from gatekeeper_tpu_torch import resolve_device
+
+        dev = resolve_device(device)
+
+        def conv(cache, a):
+            if cache is None:
+                return to_tensor(a, dev)
+            return _dev_cached(cache, a, dev)
+
+        cols: dict = {}
+        for key, val in slim_cols(pack_batch_cols(batch),
+                                  needed_fields(self.program)).items():
+            if isinstance(val, dict):
+                cols[key] = {k: conv(batch_cache, v) for k, v in val.items()}
+            else:
+                cols[key] = conv(batch_cache, val)
         if vocab is not None:
-            cols.update(vocab_tables(self.program, vocab))
-        cols.update(extra_cols or {})
-        params, tcols = tensors_from_numpy(param_table, cols,
-                                           resolve_device(device))
-        return self.grid(params, tcols, batch.n).cpu().numpy()
+            for k, v in vocab_tables(self.program, vocab).items():
+                cols[k] = conv(dev_cache, v)
+        for k, v in (extra_cols or {}).items():
+            cols[k] = conv(dev_cache, v)
+        params = {k: to_tensor(v, dev) for k, v in param_table.items()}
+        return self.grid(params, cols, batch.n).cpu().numpy()
+
+
+_DEV_CACHE_CAP = 4096
+_DEV_CACHE_LOCK = threading.Lock()
+
+
+def _dev_cached(cache: dict, a, device) -> torch.Tensor:
+    """Bounded id-keyed host->device LRU memo; holds a ref to the host
+    array so ids can't be reused while an entry lives.  Lock-guarded: the
+    webhook batcher thread and the audit thread share one driver.  An entry
+    uploaded to another device type is a miss (and is replaced)."""
+    key = id(a)
+    with _DEV_CACHE_LOCK:
+        hit = cache.pop(key, None)
+        if hit is not None and hit[0] is a \
+                and hit[1].device.type == device.type:
+            cache[key] = hit  # re-insert = move to the recent end
+            return hit[1]
+    dev = to_tensor(a, device)
+    with _DEV_CACHE_LOCK:
+        cache[key] = (a, dev)
+        while len(cache) > _DEV_CACHE_CAP:
+            cache.pop(next(iter(cache)), None)
+    return dev

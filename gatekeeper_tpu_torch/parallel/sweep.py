@@ -167,16 +167,6 @@ def packbits(grid: torch.Tensor) -> torch.Tensor:
     return (g.reshape(c, -1, 8) << shifts).sum(dim=-1).to(torch.uint8)
 
 
-def _nonzero_padded(flat: torch.Tensor, size: int, fill: int):
-    """``jnp.nonzero(flat, size=size, fill_value=fill)``: the first
-    ``size`` set positions, padded with ``fill`` (int64).  ``torch.nonzero``
-    waits for the device: the host syncs here."""
-    nz = torch.nonzero(flat).reshape(-1)[:size]
-    out = torch.full((size,), fill, dtype=torch.int64, device=flat.device)
-    out[: nz.shape[0]] = nz
-    return out
-
-
 def select_hits(sel: torch.Tensor, idx: torch.Tensor, hit_cap: int,
                 pad_n: int, sentinel: int) -> torch.Tensor:
     """The first ``hit_cap`` set slots of ``sel`` [C, k], in row-major
@@ -551,10 +541,11 @@ class SweepEvaluator:
         if complete:
             nsel = counts.sum()
             if hit_cap:
-                # row-major nonzero == canonical (constraint, ascending
-                # index) order; fill coords sort last
-                hits = _nonzero_padded(grid.reshape(-1), hit_cap,
-                                       sentinel).to(torch.int32)
+                # every set cell of the grid, row-major == canonical
+                # (constraint, ascending index) order; fill coords sort last
+                cols = torch.arange(pad_n, dtype=torch.int32,
+                                    device=dev).expand(c_total, pad_n)
+                hits = select_hits(grid, cols, hit_cap, pad_n, sentinel)
             else:
                 hits = torch.zeros((0,), dtype=torch.int32, device=dev)
         else:

@@ -1,10 +1,11 @@
-"""The budgeted reduced lane of the port's sweep
-(gatekeeper_tpu_torch/parallel/sweep.py) picks its kept hit coordinates
-without ``torch.nonzero``: :func:`select_hits` must give, bit for bit, the
+"""The reduced lane of the port's sweep (gatekeeper_tpu_torch/parallel/
+sweep.py) picks its hit coordinates without ``torch.nonzero``, on the
+budgeted path (the kept selection) and on the exact-totals path (every
+set cell of the grid): :func:`select_hits` must give, bit for bit, the
 coordinates that the nonzero-and-pad formulation gives (the JAX package's
 ``jnp.nonzero(sel, size=hit_cap)``), for a hit buffer below, at and above
 the selection and for no hits, and ``_reduce`` must not call
-``torch.nonzero`` on that lane."""
+``torch.nonzero`` on either path."""
 
 import numpy as np
 import pytest
@@ -14,10 +15,19 @@ from gatekeeper_tpu_torch.ops import fold
 from gatekeeper_tpu_torch.parallel import sweep
 
 
+def _nonzero_padded(flat, size, fill):
+    """``jnp.nonzero(flat, size=size, fill_value=fill)`` through
+    ``torch.nonzero`` (which makes the host wait for the device)."""
+    nz = torch.nonzero(flat).reshape(-1)[:size]
+    out = torch.full((size,), fill, dtype=torch.int64)
+    out[: nz.shape[0]] = nz
+    return out
+
+
 def _nonzero_hits(sel, idx, hit_cap, pad_n, sentinel):
     """The formulation with ``torch.nonzero`` that select_hits replaces."""
     c_total, k_eff = sel.shape
-    pos = sweep._nonzero_padded(sel.reshape(-1), hit_cap, c_total * k_eff)
+    pos = _nonzero_padded(sel.reshape(-1), hit_cap, c_total * k_eff)
     safe = torch.clamp(pos, max=c_total * k_eff - 1)
     oi = idx.reshape(-1)[safe].to(torch.int64)
     return torch.where(pos < c_total * k_eff, (pos // k_eff) * pad_n + oi,
@@ -92,12 +102,63 @@ def test_budgeted_reduce_never_calls_nonzero(monkeypatch, hit_cap):
     assert torch.equal(out[c + 1:], want_hits)
 
 
-def test_exact_totals_reduce_still_uses_nonzero(monkeypatch):
-    """The exact-totals branch keeps its nonzero (a remaining host sync);
-    this also shows that the patch above takes hold."""
-    rng = np.random.default_rng(12)
-    raw, mask, _b, _i, _s = _selection(rng, 4, 64, 20, 0.1)
-    ev = sweep.SweepEvaluator(driver=None, device="cpu", violations_limit=20)
+def _exact_hits(grid, hit_cap, pad_n):
+    """The old exact-totals coordinates: ``nonzero`` over the whole
+    [C, pad_n] grid, padded with the C * pad_n sentinel."""
+    c = grid.shape[0]
+    return _nonzero_padded(grid.reshape(-1), hit_cap, c * pad_n).to(
+        torch.int32)
+
+
+def test_patched_nonzero_raises(monkeypatch):
+    """The patch the tests below rely on takes hold."""
     _forbid_nonzero(monkeypatch)
     with pytest.raises(AssertionError, match="torch.nonzero"):
-        ev._reduce(raw, mask, None, True, 64, 20, 64)
+        _exact_hits(torch.ones((2, 8), dtype=torch.bool), 4, 8)
+
+
+CAPS = ["below", "equal", "above", "none"]
+
+
+def _exact_reduce(seed, cap, monkeypatch=None):
+    """(exact-totals reduce output, torch.nonzero-and-pad coordinates, C,
+    hit count) over a random grid with a hit buffer below, at or above the
+    hit count, or a grid with no hits.  With ``monkeypatch`` the reduce
+    runs with ``torch.nonzero`` made to raise."""
+    rng = np.random.default_rng(12 + seed)
+    c, pad_n = 7, 128
+    density = 0.0 if cap == "none" else 0.08
+    raw, mask, _b, _i, _s = _selection(rng, c, pad_n, 20, density)
+    grid = raw & mask
+    nhits = int(grid.sum())
+    hit_cap = {"below": max(1, nhits // 3), "equal": nhits,
+               "above": nhits + 29, "none": 16}[cap]
+    assert (nhits > 1) != (cap == "none")
+    want = _exact_hits(grid, hit_cap, pad_n)
+    ev = sweep.SweepEvaluator(driver=None, device="cpu", violations_limit=20)
+    if monkeypatch is not None:
+        _forbid_nonzero(monkeypatch)
+    out = ev._reduce(raw, mask, None, True, hit_cap, 20, pad_n)
+    # [counts|occ (u16|u16) per row | nsel | hits(hit_cap)]
+    assert out.shape == (c + 1 + hit_cap,)
+    return out, want, c, nhits
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("cap", CAPS)
+def test_exact_totals_reduce_still_uses_nonzero(seed, cap):
+    """The exact-totals branch ships every set cell of ``raw & mask`` as
+    flat coordinates; they still equal the ``torch.nonzero``-and-pad
+    coordinates bit for bit."""
+    out, want, c, nhits = _exact_reduce(seed, cap)
+    assert int(out[c]) == nhits
+    assert torch.equal(out[c + 1:], want)
+
+
+@pytest.mark.parametrize("cap", CAPS)
+def test_exact_totals_reduce_never_calls_nonzero(monkeypatch, cap):
+    """The exact-totals branch gets those coordinates without calling
+    ``torch.nonzero`` (the host does not wait on the device)."""
+    out, want, c, nhits = _exact_reduce(1, cap, monkeypatch)
+    assert int(out[c]) == nhits
+    assert torch.equal(out[c + 1:], want)
