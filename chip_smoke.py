@@ -14,32 +14,42 @@ Phases (any failure raises and exits non-zero):
    pass, 70,000 rows), then time the kernel, the plain version, one
    ``torch.topk`` call (the library yardstick) and an empty kernel (the
    launch floor) on the device clock (see ``device_ms``);
-3. path: the library audit sweep (every Rego template of ``library/`` and
-   its sample constraint, ``--objects`` synthetic cluster objects, chunks
-   of 32,768, 20 kept violations per constraint) through
+3. path: the library audit sweep (all 46 templates of ``library/``, 44
+   Rego and 2 CEL, each with its sample constraint; every template must
+   lower to the device grid; ``--objects`` synthetic cluster objects,
+   chunks of 32,768, 20 kept violations per constraint) through
    ``AuditManager.audit()`` on the card, once per collect lane: both lanes
-   must agree, each fold kernel must have been launched by its lane, and a
-   CPU run of the port (plain versions) must equal the card's run on the
-   first 8,192 objects;
+   must agree, each fold kernel must have been launched by its lane, the
+   rows of both CEL kinds must have ridden at least one of those launches
+   and each CEL constraint must have violations, and a CPU run of the port
+   (plain versions) must equal the card's run on the first 8,192 objects;
 4. shapes: at every distinct (C, N, k) that the path launched a kernel
    with, both kernels held bit for bit against their plain versions on an
    edge grid and on a random grid, then timed;
 5. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-6. admission: the library (Rego templates and sample constraints, the
-   Ingresses of the traffic synced as inventory) served by the port's
+6. admission: the library (all 46 templates and their sample
+   constraints, the Ingresses of the traffic synced as inventory) served
+   by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
    ``Batcher`` at its default window, batch size and interpreter cut-off
    (with batch stats on) and failurePolicy=Fail.  ``--admissions``
    AdmissionReview bodies (the library's ``samples/example_*.yaml``
    objects, then ``make_cluster_objects(..., seed=3)``; every tenth an
-   UPDATE that carries an ``oldObject``) are posted by 64 keep-alive
-   clients in 8 load processes.  Every response must equal the port's
-   in-process handler on the CPU without a batcher (the exact interpreter
-   path); no answer may have code 500, the grid lane must have run and
-   ``query_batch`` must not have raised.  Prints admissions/s, p50/p99
-   latency, the batch-size histogram, the lane counts and the medians of
-   the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
+   UPDATE that carries an ``oldObject``, every twentieth of the others a
+   DELETE whose ``object`` is null and whose ``oldObject`` is the object)
+   are posted by 64 keep-alive clients in 8 load processes.  Every
+   response must equal the port's in-process handler on the CPU without a
+   batcher (the exact engines: the CEL evaluator and the Rego
+   interpreter); the deny message is compared as its set of lines, since
+   that handler lists CEL results before Rego ones and the grid lane
+   lists them by constraint kind, as in the JAX package.  No answer may
+   have code 500, the grid lane must have run, the CEL DELETE route of
+   ``query_batch`` must have run on the card, CEL constraints must have
+   hit in grid batches and ``query_batch`` must not have raised.  Prints
+   admissions/s, p50/p99 latency, the batch-size histogram, the lane
+   counts, the DELETE count, the CEL hits per grid batch and the medians
+   of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
 7. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -63,7 +73,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate (data sheet)
-CEL_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")
+# the library's two CEL (K8sNativeValidation) templates
+CEL_TEMPLATE_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")
 C_MAIN, N_MAIN, K_MAIN = 44, 32768, 20
 CPU_PREFIX = 8192
 GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
@@ -335,35 +346,53 @@ def shape_phase(rows, err, shapes) -> None:
 
 
 def _client(objects, device: str = "cuda"):
+    """(client, driver, templates, constraints) as the CLI builds them:
+    a ``TorchDriver`` with a ``CELDriver`` beside it, the whole library
+    loaded, every template lowered."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
     from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.target.target import K8sValidationTarget
     from gatekeeper_tpu_torch.utils.synthetic import load_library
 
-    driver = TorchDriver(device=device)
-    client = Client(target=K8sValidationTarget(), drivers=[driver],
+    cel = CELDriver()
+    driver = TorchDriver(device=device, cel_driver=cel)
+    client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    nt, nc = load_library(client, skip_kinds=CEL_KINDS)
+    nt, nc = load_library(client)
     if driver.fallback_kinds():
         raise AssertionError(
             f"templates fell back to the interpreter: "
             f"{driver.fallback_kinds()}")
+    if driver._cel_kinds != set(CEL_TEMPLATE_KINDS):
+        raise AssertionError(f"CEL kinds {sorted(driver._cel_kinds)}")
     for o in objects:
         if o.get("kind") == "Ingress":
             client.add_data(o)  # referential inventory (uniqueingresshost)
     return client, driver, nt, nc
 
 
-def audit(objects, device: str, collect: str) -> tuple:
+def audit(objects, device: str, collect: str, dispatches=None) -> tuple:
     """One library audit through the port's entry points: (run, phases,
-    seconds)."""
+    seconds).  ``dispatches`` (a list) receives (kinds, C, padded N) of
+    every device dispatch of the sweep; each launches one fold kernel."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
 
     client, driver, _nt, _nc = _client(objects, device=device)
     evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
                                collect=collect)
+    if dispatches is not None:
+        dispatch = evaluator.sweep_dispatch
+
+        def recorded_dispatch(flat):
+            if getattr(flat, "kinds", None):
+                dispatches.append((flat.kinds, sum(
+                    len(flat.by_kind[k]) for k in flat.kinds), flat.pad_n))
+            return dispatch(flat)
+
+        evaluator.sweep_dispatch = recorded_dispatch
     mgr = AuditManager(client, lister=lambda: iter(objects),
                        config=AuditConfig(violations_limit=20,
                                           chunk_size=32768,
@@ -398,10 +427,11 @@ def path_phase(n_objects: int) -> tuple:
     results = {}
     for collect, kernel in (("reduced", "fused_fold"),
                             ("masks", "epilogue")):
+        dispatches: list = []
         for wrapper in (fold.fused_fold, fold.epilogue):
             wrapper.launches = 0
             wrapper.shapes.clear()
-        run, phases, dt = audit(objects, "cuda", collect)
+        run, phases, dt = audit(objects, "cuda", collect, dispatches)
         counts = {"fused_fold": fold.fused_fold.launches,
                   "epilogue": fold.epilogue.launches}
         if counts[kernel] <= 0:
@@ -416,6 +446,24 @@ def path_phase(n_objects: int) -> tuple:
             {k: round(v, 6) for k, v in sorted(phases.items())}))
         if run.incomplete or run.total_objects != n_objects or total <= 0:
             raise AssertionError(f"audit[{collect}] result is not sane")
+        # the CEL rows ride the fold launches of their kind group
+        with_cel = [(c, n) for kinds, c, n in dispatches
+                    if set(CEL_TEMPLATE_KINDS) <= set(kinds)]
+        if len(dispatches) != counts[kernel] or not with_cel:
+            raise AssertionError(
+                f"audit[{collect}]: {len(dispatches)} dispatches for "
+                f"{counts[kernel]} {kernel} launches, {len(with_cel)} with "
+                f"both CEL kinds")
+        cel_totals = {f"{kind}/{name}": v for (kind, name), v in
+                      sorted(run.total_violations.items())
+                      if kind in CEL_TEMPLATE_KINDS}
+        log(f"audit[{collect}]: {len(with_cel)} of {len(dispatches)} "
+            f"{kernel} launches carry both CEL kinds' rows at (C, N) "
+            f"{sorted(set(with_cel))}; CEL constraint totals {cel_totals}")
+        if len(cel_totals) != len(CEL_TEMPLATE_KINDS) or \
+                min(cel_totals.values()) <= 0:
+            raise AssertionError(f"audit[{collect}]: a CEL constraint has "
+                                 f"no violations: {cel_totals}")
         results[collect] = summary(run)
     if results["reduced"] != results["masks"]:
         raise AssertionError("reduced and masks lanes disagree")
@@ -470,9 +518,11 @@ def profile_phase(objects) -> None:
                 f"{dev_us(e) / 1e3 / e.count:.5f} ms per launch")
 
 
-def admission_body(obj: dict, uid: str, old: dict = None) -> dict:
+def admission_body(obj: dict, uid: str, old: dict = None,
+                   delete: bool = False) -> dict:
     """An AdmissionReview for ``obj`` as the apiserver sends it: CREATE,
-    or UPDATE when ``old`` (the oldObject) is given."""
+    UPDATE when ``old`` (the oldObject) is given, or DELETE (``object``
+    null, ``oldObject`` the object)."""
     group, _, version = obj.get("apiVersion", "").rpartition("/")
     meta = obj.get("metadata") or {}
     req = {"uid": uid, "operation": "CREATE" if old is None else "UPDATE",
@@ -483,7 +533,9 @@ def admission_body(obj: dict, uid: str, old: dict = None) -> dict:
            "userInfo": {"username": "kubernetes-admin",
                         "groups": ["system:masters"]},
            "object": obj}
-    if old is not None:
+    if delete:
+        req.update(operation="DELETE", object=None, oldObject=obj)
+    elif old is not None:
         req["oldObject"] = old
     return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
             "request": req}
@@ -492,7 +544,8 @@ def admission_body(obj: dict, uid: str, old: dict = None) -> dict:
 def admission_traffic(n: int) -> tuple:
     """(bodies, objects): the library's sample objects, then synthetic
     cluster objects, ``n`` in all; every tenth body is an UPDATE whose
-    oldObject differs (a Pod's service account, else a label)."""
+    oldObject differs (a Pod's service account, else a label), and every
+    twentieth of the other bodies a DELETE."""
     import glob
     import os
 
@@ -507,16 +560,21 @@ def admission_traffic(n: int) -> tuple:
     objects = (samples + make_cluster_objects(max(0, n - len(samples)),
                                               seed=3))[:n]
     bodies = []
+    others = 0  # non-UPDATE bodies so far
     for i, obj in enumerate(objects):
         old = None
-        if i % 10 == 9:
+        delete = False
+        if i % 10 != 9:
+            others += 1
+            delete = others % 20 == 0
+        else:
             old = copy.deepcopy(obj)
             if obj.get("kind") == "Pod":
                 old.setdefault("spec", {})["serviceAccountName"] = "prior-sa"
             else:
                 old.setdefault("metadata", {}).setdefault(
                     "labels", {})["revision"] = "prior"
-        bodies.append(admission_body(obj, f"adm-{i}", old))
+        bodies.append(admission_body(obj, f"adm-{i}", old, delete))
     return bodies, objects
 
 
@@ -596,6 +654,13 @@ def _answer(resp: dict) -> tuple:
             status.get("message", ""), sorted(resp.get("warnings") or []))
 
 
+def _unordered(answer: tuple) -> tuple:
+    """An answer with its deny message as the sorted list of its lines
+    (one line per violated constraint)."""
+    allowed, code, message, warnings = answer
+    return allowed, code, sorted(message.split("\n")), warnings
+
+
 def profile_grid_batch(client, bodies, namespaces) -> None:
     """One grid-lane batch (``client.review_batch``, as the batcher calls
     it) under ``torch.profiler``: the device's busy time beside the
@@ -654,19 +719,35 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
         f"{time.perf_counter() - t0:.3f}s")
     grid_stats: list = []
     errors: list = []
+    cel_hits: list = []  # per grid batch: results of the CEL constraints
+    delete_route: list = []  # CEL evaluations of DELETE reviews in batches
+    in_batch = threading.local()
     query_batch = driver.query_batch
+    cel_query = driver._cel.query
+
+    def counted_cel_query(target, constraints, review, cfg=None):
+        if getattr(in_batch, "on", False) and \
+                review.request.operation == "DELETE":
+            delete_route.append(len(constraints))
+        return cel_query(target, constraints, review, cfg)
 
     def counted_query_batch(*args, **kwargs):
+        in_batch.on = True
         try:
             out = query_batch(*args, **kwargs)
         except Exception as e:
             errors.append(repr(e))
             raise
+        finally:
+            in_batch.on = False
         for entry in out[0].stats_entries if out else ():
             grid_stats.append({s.name: s.value for s in entry.stats})
+        cel_hits.append(sum(r.constraint.get("kind") in CEL_TEMPLATE_KINDS
+                            for qr in out for r in qr.results))
         return out
 
     driver.query_batch = counted_query_batch
+    driver._cel.query = counted_cel_query
     driver.perf.clear()
     server = WebhookServer(
         validation_handler=ValidationHandler(
@@ -678,8 +759,11 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
         replies, lat, wall = post_concurrently(server.port, bodies)
     finally:
         drained = server.stop()
+    driver.query_batch = query_batch
+    driver._cel.query = cel_query
     lanes = dict(batcher.lane_counts)
     sizes = dict(sorted(batcher.batch_sizes.items()))
+    n_delete = sum(b["request"]["operation"] == "DELETE" for b in bodies)
     lat_ms = sorted(x * 1e3 for x in lat)
     out = {
         "admissions": n, "wall_s": wall, "admissions_per_s": n / wall,
@@ -688,6 +772,8 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
         "lanes": lanes, "batch_sizes": sizes,
         "grid_batches": len(grid_stats),
         "d2h_bytes": driver.perf.get("d2h_bytes", 0.0),
+        "deletes": n_delete, "cel_delete_evaluations": len(delete_route),
+        "cel_hits_per_grid_batch": cel_hits,
     }
     for name in ("flattenNS", "batchEvalNS", "totalNS"):
         vals = [g[name] for g in grid_stats]
@@ -697,6 +783,10 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
         f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms "
         f"({LOAD_PROCS * LOAD_CONNS} keep-alive clients), {card}")
     log(f"admission: lanes {lanes}, batch sizes {sizes}")
+    log(f"admission: {n_delete} DELETE bodies; {len(delete_route)} CEL "
+        f"evaluations of DELETE reviews inside grid batches (the CEL "
+        f"DELETE route); CEL hits per grid batch {cel_hits} "
+        f"({sum(cel_hits)} in all)")
     log("admission: grid batch medians (ns): " + json.dumps(
         {k: out[f"median_{k}"] for k in ("flattenNS", "batchEvalNS",
                                          "totalNS")})
@@ -709,7 +799,7 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
     ref = ValidationHandler(ref_client, namespace_lookup=namespaces.get,
                             failure_policy="fail")
     t0 = time.perf_counter()
-    diffs, denied, code500 = [], 0, 0
+    diffs, denied, code500, reordered = [], 0, 0, 0
     for i, body in enumerate(bodies):
         v = ref.handle(copy.deepcopy(body))
         want = _answer(admission_response(v.uid, v.allowed, v.message,
@@ -717,10 +807,12 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
         got = _answer(replies[i])
         denied += not got[0]
         code500 += got[1] == 500
-        if got != want:
+        reordered += got != want
+        if _unordered(got) != _unordered(want):
             diffs.append((i, got, want))
     log(f"admission: cpu reference handler {time.perf_counter() - t0:.3f}s; "
-        f"{denied} denied, {len(diffs)} differ, {code500} with code 500")
+        f"{denied} denied, {len(diffs)} differ, {code500} with code 500, "
+        f"{reordered} with the deny lines in another order")
     if errors:
         raise AssertionError(f"query_batch raised: {errors[:3]}")
     if diffs:
@@ -729,6 +821,11 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
     if code500 or not lanes.get("grid") or not grid_stats:
         raise AssertionError(f"admission not sane: {code500} code-500 "
                              f"answers, lanes {lanes}")
+    if not delete_route or not sum(cel_hits):
+        raise AssertionError(
+            f"admission: the CEL DELETE route ran {len(delete_route)} "
+            f"times, CEL constraints hit {sum(cel_hits)} times in grid "
+            f"batches")
     if not drained or denied == 0:
         raise AssertionError("admission: server did not drain, or nothing "
                              "was denied")

@@ -30,8 +30,9 @@ size warms the device path.
 
 A ``Config`` named ``config`` is read for ``spec.sync.syncOnly`` (the
 kinds synced into ``data.inventory``) and ``spec.match`` (the per-process
-namespace exclusions); its other fields are not read.  CEL-only templates
-are skipped with a warning (the CEL engine is not ported yet).
+namespace exclusions); its other fields are not read.  CEL
+(K8sNativeValidation) templates install through a ``CELDriver`` beside the
+device driver, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -102,12 +103,14 @@ def build_client(objects, device: str = "cuda"):
     driver's batched reviews run on ``device``."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
     from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.target.target import K8sValidationTarget
     from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
 
-    driver = TorchDriver(device=device)
-    client = Client(target=K8sValidationTarget(), drivers=[driver],
+    cel = CELDriver()
+    driver = TorchDriver(device=device, cel_driver=cel)
+    client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
     sync: set = set()
     for obj in objects:

@@ -8,19 +8,25 @@ labor:
   the template is in the vectorizable fragment (ir/lower_rego), evaluated
   by ``ir/program.CompiledProgram`` inside the audit sweep
   (``parallel/sweep.SweepEvaluator``) and inside ``query_batch``.
-- ``query`` (single review) delegates to the interpreter.
+- With a ``cel_driver``, CEL (K8sNativeValidation) templates install too:
+  their validations lower onto the same predicate IR (ir/lower_cel) and
+  join the same grids; the CEL evaluator is their exact oracle and message
+  renderer, as the interpreter is for Rego.
+- ``query`` (single review) delegates to the CEL evaluator (CEL kinds)
+  and the interpreter (Rego kinds), in that order.
 - ``query_batch`` (many reviews: the webhook microbatch, the audit's
   non-swept kinds) flattens once, evaluates each lowered template's [C, N]
   grid on ``device``, ANDs it with the match mask on the host and renders
-  the hits through the interpreter; other kinds run the interpreter over
-  their mask-filtered pairs.
-- ``render_query`` renders a device-detected hit through the interpreter,
-  with the inventory restricted to join candidates where provably safe.
+  the hits through the exact engines; other kinds run their exact engine
+  over their mask-filtered pairs.
+- ``render_query`` renders a device-detected hit through the CEL
+  evaluator (CEL kinds) or the interpreter, the latter with the inventory
+  restricted to join candidates where provably safe.
 
-Not ported yet: the CEL engine, generation swaps, the compile cache, the
-external-data lane, cost attribution, tracing and metrics.  Kinds with
-external-data joins therefore never ride the device grid
-(``extdata_ready`` is False for them) and run through the interpreter.
+Not ported yet: generation swaps, the compile cache, the external-data
+lane, cost attribution, tracing and metrics.  Kinds with external-data
+joins therefore never ride the device grid (``extdata_ready`` is False
+for them) and run through the interpreter.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from gatekeeper_tpu_torch.drivers.base import ReviewCfg
 from gatekeeper_tpu_torch.drivers.rego_driver import RegoDriver
 from gatekeeper_tpu_torch.ir import masks as masks_mod
 from gatekeeper_tpu_torch.ir import nodes as _N
+from gatekeeper_tpu_torch.ir.lower_cel import lower_cel_template
 from gatekeeper_tpu_torch.ir.lower_rego import lower_template
 from gatekeeper_tpu_torch.ir.program import (CompiledProgram, LowerError,
                                              build_inventory_tables,
@@ -85,10 +92,16 @@ class TorchDriver:
     ``device`` is where ``query_batch`` evaluates its grids unless the call
     names another ("cuda" by default; resolved when a batch has a lowered
     kind, which raises without a card).  The audit sweep, and the audit's
-    ``query_batch`` calls, run on its ``SweepEvaluator``'s device."""
+    ``query_batch`` calls, run on its ``SweepEvaluator``'s device.
 
-    def __init__(self, batch_bucket: int = 256, device: str = "cuda"):
+    With a ``cel_driver``, CEL (K8sNativeValidation) templates are accepted
+    too (see the module docstring)."""
+
+    def __init__(self, batch_bucket: int = 256, device: str = "cuda",
+                 cel_driver=None):
         self._interp = RegoDriver()
+        self._cel = cel_driver  # optional CELDriver
+        self._cel_kinds: set = set()  # kinds owned by the CEL engine
         self.vocab = Vocab()
         self._programs: dict[str, CompiledProgram] = {}  # kind -> compiled
         self._lower_errors: dict[str, str] = {}  # kind -> why fallback
@@ -126,10 +139,17 @@ class TorchDriver:
         return DRIVER_NAME
 
     def has_source_for(self, template: ConstraintTemplate) -> bool:
-        return self._interp.has_source_for(template)
+        if self._interp.has_source_for(template):
+            return True
+        return self._cel is not None and self._cel.has_source_for(template)
 
     def add_template(self, template: ConstraintTemplate) -> None:
+        if not self._interp.has_source_for(template) and \
+                self._cel is not None and self._cel.has_source_for(template):
+            self._add_cel_template(template)
+            return
         self._interp.add_template(template)
+        self._cel_kinds = self._cel_kinds - {template.kind}
         compiled = self._interp._templates[template.kind]
         try:
             program = lower_template(
@@ -154,6 +174,20 @@ class TorchDriver:
                            parameters={}, enforcement_action="deny")
         build_param_table(program, [trial], self.vocab)
 
+    def _add_cel_template(self, template: ConstraintTemplate) -> None:
+        self._cel.add_template(template)
+        self._cel_kinds = self._cel_kinds | {template.kind}
+        compiled = self._cel._templates[template.kind]
+        try:
+            program = lower_cel_template(
+                compiled, template.kind, self.vocab,
+                schema_hint=template.parameters_schema)
+            self._trial_param_table(program, template.kind)
+        except LowerError as e:
+            self._install(template.kind, None, str(e))
+            return
+        self._install(template.kind, CompiledProgram(program), None)
+
     def _install(self, kind: str, program, err) -> None:
         """Install one compile result copy-on-write: the serving dicts are
         REPLACED, not mutated, so a sweep that captured them mid-flight
@@ -173,7 +207,11 @@ class TorchDriver:
         self._render_specs.pop(kind, None)
 
     def remove_template(self, template_kind: str) -> None:
-        self._interp.remove_template(template_kind)
+        if template_kind in self._cel_kinds:
+            self._cel.remove_template(template_kind)
+            self._cel_kinds = self._cel_kinds - {template_kind}
+        else:
+            self._interp.remove_template(template_kind)
         programs = dict(self._programs)
         programs.pop(template_kind, None)
         errors = dict(self._lower_errors)
@@ -185,10 +223,16 @@ class TorchDriver:
         self._render_specs.pop(template_kind, None)
 
     def add_constraint(self, constraint: Constraint) -> None:
-        self._interp.add_constraint(constraint)
+        if constraint.kind in self._cel_kinds:
+            self._cel.add_constraint(constraint)
+        else:
+            self._interp.add_constraint(constraint)
 
     def remove_constraint(self, constraint: Constraint) -> None:
-        self._interp.remove_constraint(constraint)
+        if constraint.kind in self._cel_kinds:
+            self._cel.remove_constraint(constraint)
+        else:
+            self._interp.remove_constraint(constraint)
 
     def _bump_data(self, path) -> None:
         self._data_version += 1
@@ -258,7 +302,19 @@ class TorchDriver:
         return not keymap and extractable
 
     def query(self, target, constraints, review, cfg=None) -> QueryResponse:
-        return self._interp.query(target, constraints, review, cfg)
+        cel_cons = [c for c in constraints if c.kind in self._cel_kinds]
+        if not cel_cons:
+            return self._interp.query(target, constraints, review, cfg)
+        rego_cons = [c for c in constraints if c.kind not in self._cel_kinds]
+        resp = self._cel.query(target, cel_cons, review, cfg)
+        if rego_cons:
+            r2 = self._interp.query(target, rego_cons, review, cfg)
+            resp.results.extend(r2.results)
+            resp.stats_entries.extend(r2.stats_entries)
+            if r2.trace:
+                resp.trace = (resp.trace + "\n" + r2.trace
+                              if resp.trace else r2.trace)
+        return resp
 
     # --- restricted-inventory hit rendering ------------------------------
     # Rendering a device-detected hit re-runs the interpreter; for
@@ -269,8 +325,11 @@ class TorchDriver:
     # interpreter may run against just the join-key-matching candidates.
     def render_query(self, target, constraint, review,
                      cfg=None) -> QueryResponse:
-        """Interpreter query for message rendering of a device hit, with the
-        inventory restricted to join candidates where provably safe."""
+        """Exact-engine query for message rendering of a device hit: the
+        CEL evaluator for CEL kinds, else the interpreter with the inventory
+        restricted to join candidates where provably safe."""
+        if constraint.kind in self._cel_kinds:
+            return self._cel.query(target, [constraint], review, cfg)
         specs = self._render_restrict_specs(constraint.kind)
         if not specs or not (self._interp._data or {}).get("inventory"):
             return self._interp.query(target, [constraint], review, cfg)
@@ -413,6 +472,7 @@ class TorchDriver:
         # (never mutates it), so this batch finishes on the programs it
         # started on
         programs = self._programs
+        cel_kinds = self._cel_kinds
         lowered_kinds = [k for k in by_kind
                          if k in programs
                          and self.inventory_exact(k, programs=programs)
@@ -422,6 +482,14 @@ class TorchDriver:
             dev = resolve_device(self.device if device is None else device)
 
         t0 = time.perf_counter_ns()
+        # DELETE reviews diverge for CEL kinds (the CEL evaluator sees
+        # object null and oldObject = the object) while the flattened
+        # columns carry the copied object: those (constraint, review)
+        # pairs go through the CEL evaluator instead of the grid
+        cel_delete_idx = [
+            oi for oi, r in enumerate(reviews)
+            if r.request.operation == "DELETE"
+        ] if cel_kinds else []
         verdicts: dict[str, np.ndarray] = {}
         # flatten once with the union schema (identity columns are always
         # needed for match masks, even when every kind falls back)
@@ -470,7 +538,16 @@ class TorchDriver:
             # the fetch next to the audit lane's
             self.perf["d2h_bytes"] = (self.perf.get("d2h_bytes", 0.0)
                                       + grid.nbytes)
-            verdicts[kind] = grid[:, : batch.n] & mask
+            grid = grid[:, : batch.n] & mask
+            if kind in cel_kinds and cel_delete_idx:
+                for ci, con in enumerate(cons):
+                    for oi in cel_delete_idx:
+                        if mask[ci, oi]:
+                            qr = self._cel.query(target, [con], reviews[oi],
+                                                 cfg)
+                            responses[oi].results.extend(qr.results)
+                    grid[ci, cel_delete_idx] = False
+            verdicts[kind] = grid
         eval_ns = time.perf_counter_ns() - te
 
         # render hits through the exact engine
@@ -492,11 +569,13 @@ class TorchDriver:
         # fallback kinds: exact engine on match-filtered pairs
         for kind in fallback_kinds:
             cons = by_kind[kind]
+            engine = (self._cel.query if kind in cel_kinds
+                      else self._interp.query)
             mask = masks_mod.constraint_masks(
                 cons, batch, self.vocab, objects, namespaces, sources)
             for ci, con in enumerate(cons):
                 for oi in np.nonzero(mask[ci, :n])[0].tolist():
-                    qr = self._interp.query(target, [con], reviews[oi], cfg)
+                    qr = engine(target, [con], reviews[oi], cfg)
                     responses[oi].results.extend(qr.results)
 
         if cfg.stats:

@@ -16,7 +16,6 @@ Dtypes follow the reference: int32 ids, float32 numbers, bool verdicts.
 from __future__ import annotations
 
 import itertools
-import re
 import threading
 from typing import Any, Optional
 
@@ -121,42 +120,15 @@ _STR_FNS = {
 def _apply_str_fn(fn: str, s: str):
     if fn == "cel.quantity":
         # k8s resource.Quantity semantics (CEL quantity()/isQuantity())
+        from gatekeeper_tpu_torch.lang.cel.cel import _parse_quantity
+
         q = _parse_quantity(s)
-        return None if q is None else q
+        return None if q is None else float(q.value)
     from gatekeeper_tpu_torch.lang.rego import builtins as rb
     from gatekeeper_tpu_torch.lang.rego.value import UNDEFINED
 
     v = rb.REGISTRY[fn](s)
     return None if v is UNDEFINED else float(v)
-
-
-# local copy of the CEL engine's quantity parser (the port has no CEL
-# engine yet; lang/cel/cel.py _parse_quantity in the JAX package)
-_QUANTITY_SUFFIX = {
-    "": 1, "n": 1e-9, "u": 1e-6, "m": 1e-3,
-    "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12, "P": 10**15,
-    "E": 10**18,
-    "Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40, "Pi": 2**50,
-    "Ei": 2**60,
-}
-
-_QUANTITY_RE = re.compile(
-    r"^([+-]?[0-9]+(?:\.[0-9]*)?(?:[eE][+-]?[0-9]+)?)"
-    r"(n|u|m|k|M|G|T|P|E|Ki|Mi|Gi|Ti|Pi|Ei)?$")
-
-
-def _parse_quantity(s):
-    """The numeric value of a k8s resource.Quantity string, or None."""
-    if not isinstance(s, str):
-        return None
-    m = _QUANTITY_RE.match(s.strip())
-    if not m:
-        return None
-    num, suffix = m.groups()
-    try:
-        return float(num) * _QUANTITY_SUFFIX[suffix or ""]
-    except (ValueError, KeyError):
-        return None
 
 
 _VOCAB_BUCKET = 1024

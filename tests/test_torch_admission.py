@@ -1,7 +1,8 @@
 """The port's batched admission path (``TorchDriver.query_batch`` in
 gatekeeper_tpu_torch/drivers/torch_driver.py, on the CPU) against the JAX
 package's ``TpuDriver.query_batch``, both with ``batch_bucket=16``, over
-every Rego template of ``library/`` with its sample constraint and a
+every template of ``library/`` (44 Rego, 2 CEL) with its sample constraint
+and a
 seeded population of 300 synthetic objects (Ingresses synced into the
 inventory).  Per review the sorted (constraint name, message) lists must
 be identical.  Further cases: ``render_messages=False``, ``cfg.stats``,
@@ -24,6 +25,8 @@ from gatekeeper_tpu.audit.manager import AuditConfig as JConfig  # noqa: E402
 from gatekeeper_tpu.audit.manager import AuditManager as JManager  # noqa
 from gatekeeper_tpu.client.client import Client as JClient  # noqa: E402
 from gatekeeper_tpu.drivers.base import ReviewCfg as JCfg  # noqa: E402
+from gatekeeper_tpu.drivers.cel_driver import \
+    CELDriver as JCELDriver  # noqa: E402
 from gatekeeper_tpu.drivers.tpu_driver import TpuDriver  # noqa: E402
 from gatekeeper_tpu.parallel.sharded import (ShardedEvaluator,  # noqa: E402
                                              make_mesh)
@@ -43,6 +46,8 @@ from gatekeeper_tpu_torch.audit.manager import \
     AuditManager as TManager  # noqa: E402
 from gatekeeper_tpu_torch.client.client import Client as TClient  # noqa
 from gatekeeper_tpu_torch.drivers.base import ReviewCfg as TCfg  # noqa
+from gatekeeper_tpu_torch.drivers.cel_driver import \
+    CELDriver as TCELDriver  # noqa: E402
 from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver  # noqa
 from gatekeeper_tpu_torch.ir import program as tprog  # noqa: E402
 from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator  # noqa: E402
@@ -73,13 +78,14 @@ def _population(n, seed):
     return objects
 
 
-def _clients(objects, skip_kinds=CEL_KINDS, library=None,
+def _clients(objects, skip_kinds=(), library=None,
              driver_kw=(("device", "cpu"),)):
-    jd = TpuDriver(batch_bucket=16)
-    jc = JClient(target=JTarget(), drivers=[jd],
+    jcel, tcel = JCELDriver(), TCELDriver()
+    jd = TpuDriver(batch_bucket=16, cel_driver=jcel)
+    jc = JClient(target=JTarget(), drivers=[jd, jcel],
                  enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    td = TorchDriver(batch_bucket=16, **dict(driver_kw))
-    tc = TClient(target=TTarget(), drivers=[td],
+    td = TorchDriver(batch_bucket=16, cel_driver=tcel, **dict(driver_kw))
+    tc = TClient(target=TTarget(), drivers=[td, tcel],
                  enforcement_points=[WEBHOOK_EP, AUDIT_EP])
     assert jload(jc, library=library, skip_kinds=skip_kinds) == \
         tload(tc, library=library, skip_kinds=skip_kinds)
@@ -133,6 +139,7 @@ def test_query_batch_matches_jax(lib):
     assert _keyed(got) == _keyed(want)
     kinds = {r.constraint["kind"] for qr in got for r in qr.results}
     assert len(kinds) >= 10 and sum(map(len, _keyed(got))) > 100
+    assert set(CEL_KINDS) <= kinds
 
 
 def test_query_batch_stats_without_messages(lib):

@@ -1,7 +1,8 @@
 """The port's audit sweep (gatekeeper_tpu_torch/audit/manager.py over
 parallel/sweep.py, on the CPU with the plain fold versions) against the
 JAX package's ``AuditManager`` with ``ShardedEvaluator(make_mesh(1))``:
-the library without its two CEL templates, seeded synthetic objects,
+the whole library (44 Rego and 2 CEL templates, each side with its CEL
+driver), seeded synthetic objects,
 chunks of 512, on both collect lanes.  Object counts, per-constraint
 totals and the kept (constraint, kind, namespace/name, message) lists must
 be identical.  One more case compares ``python -m gatekeeper_tpu_torch
@@ -24,6 +25,8 @@ from gatekeeper_tpu.apis.constraints import AUDIT_EP, WEBHOOK_EP  # noqa: E402
 from gatekeeper_tpu.audit.manager import AuditConfig as JConfig  # noqa: E402
 from gatekeeper_tpu.audit.manager import AuditManager as JManager  # noqa
 from gatekeeper_tpu.client.client import Client as JClient  # noqa: E402
+from gatekeeper_tpu.drivers.cel_driver import \
+    CELDriver as JCELDriver  # noqa: E402
 from gatekeeper_tpu.drivers.tpu_driver import TpuDriver  # noqa: E402
 from gatekeeper_tpu.parallel.sharded import (ShardedEvaluator,  # noqa: E402
                                              make_mesh)
@@ -37,6 +40,8 @@ from gatekeeper_tpu_torch.audit.manager import \
 from gatekeeper_tpu_torch.audit.manager import \
     AuditManager as TManager  # noqa: E402
 from gatekeeper_tpu_torch.client.client import Client as TClient  # noqa
+from gatekeeper_tpu_torch.drivers.cel_driver import \
+    CELDriver as TCELDriver  # noqa: E402
 from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver  # noqa
 from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator  # noqa: E402
 from gatekeeper_tpu_torch.target.target import \
@@ -71,10 +76,11 @@ def _summary(run):
 
 
 def _jax_run(objects, collect, exact):
-    driver = TpuDriver()
-    client = JClient(target=JTarget(), drivers=[driver],
+    cel = JCELDriver()
+    driver = TpuDriver(cel_driver=cel)
+    client = JClient(target=JTarget(), drivers=[driver, cel],
                      enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    jload(client, skip_kinds=CEL_KINDS)
+    jload(client)
     for o in objects:
         if o["kind"] == "Ingress":
             client.add_data(o)
@@ -86,10 +92,12 @@ def _jax_run(objects, collect, exact):
 
 
 def _port_run(objects, collect, exact):
-    driver = TorchDriver()
-    client = TClient(target=TTarget(), drivers=[driver],
+    cel = TCELDriver()
+    driver = TorchDriver(cel_driver=cel)
+    client = TClient(target=TTarget(), drivers=[driver, cel],
                      enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    tload(client, skip_kinds=CEL_KINDS)
+    assert tload(client) == (46, 46)
+    assert set(CEL_KINDS) <= set(driver.lowered_kinds())
     for o in objects:
         if o["kind"] == "Ingress":
             client.add_data(o)
@@ -115,6 +123,7 @@ def test_library_audit_matches_jax(objects, jax_runs, collect, exact, n):
     got = _summary(_port_run(objects[:n], collect, exact))
     assert got[0] == want[0] == n
     assert sum(want[1].values()) > 0
+    assert all(want[1][key] > 0 for key in want[1] if key[0] in CEL_KINDS)
     assert got == want
 
 
@@ -126,10 +135,11 @@ def test_collect_lanes_agree_exact_totals(objects):
         _summary(_port_run(objects[:N_EXACT], "masks", True))
 
 
-def _manifest_dir(tmp_path):
+def _manifest_dir(tmp_path, names=("requiredlabels", "allowedrepos",
+                                   "containerlimits")):
     lib = os.path.join(ROOT, "library", "general")
     docs = []
-    for name in ("requiredlabels", "allowedrepos", "containerlimits"):
+    for name in names:
         for f in ("template.yaml", "samples/constraint.yaml",
                   "samples/example_allowed.yaml",
                   "samples/example_disallowed.yaml"):
@@ -140,8 +150,12 @@ def _manifest_dir(tmp_path):
     return tmp_path
 
 
-def test_cli_once_matches_jax_cli(tmp_path):
-    _manifest_dir(tmp_path)
+@pytest.mark.parametrize("names", [
+    ("requiredlabels", "allowedrepos", "containerlimits"),
+    ("requiredlabels", "allowedrepos", "containerlimits",
+     "containerlimitscel", "noprivileged")], ids=["rego", "rego+cel"])
+def test_cli_once_matches_jax_cli(tmp_path, names):
+    _manifest_dir(tmp_path, names)
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     outs = {}
     for pkg, extra in (("gatekeeper_tpu", []),
@@ -156,11 +170,15 @@ def test_cli_once_matches_jax_cli(tmp_path):
         outs[pkg] = (p.stdout, int(m.group(1)), int(m.group(2)))
     jax_out, jax_n, jax_v = outs["gatekeeper_tpu"]
     out, n, v = outs["gatekeeper_tpu_torch"]
-    assert out == jax_out and out.count("\n") >= 3
+    assert out == jax_out and out.count("\n") >= len(names)
     assert v == jax_v
+    cel_kinds = {ln.split("/")[0].strip() for ln in out.splitlines()} & \
+        set(CEL_KINDS)
+    assert cel_kinds == (set(CEL_KINDS) if "noprivileged" in names
+                         else set())
     # the JAX CLI also audits the ConstraintTemplatePodStatus object its
     # controller writes per template; the port has no controller plane
-    assert jax_n == n + 3
+    assert jax_n == n + len(names)
 
 
 def test_cli_serves_admission(tmp_path):

@@ -1,6 +1,6 @@
 """The port's grid evaluator (gatekeeper_tpu_torch/ir/program.py) against
-the JAX package's ``CompiledProgram``: for every Rego template of
-``library/`` the [C, N] verdict grids must be bit-equal on the same numpy
+the JAX package's ``CompiledProgram``: for every template of ``library/``
+(44 Rego, 2 CEL, each side with its CEL driver) the [C, N] verdict grids must be bit-equal on the same numpy
 inputs (the JAX package's parameter table and batch columns, handed to the
 port through ``ir.convert.tensors_from_numpy``).  Each template runs with
 its sample constraint plus two variants (no parameters; altered
@@ -20,6 +20,8 @@ jax = pytest.importorskip("jax")
 from gatekeeper_tpu.apis.constraints import AUDIT_EP, WEBHOOK_EP  # noqa: E402
 from gatekeeper_tpu.apis.constraints import Constraint as JConstraint  # noqa
 from gatekeeper_tpu.client.client import Client as JClient  # noqa: E402
+from gatekeeper_tpu.drivers.cel_driver import \
+    CELDriver as JCELDriver  # noqa: E402
 from gatekeeper_tpu.drivers.tpu_driver import TpuDriver  # noqa: E402
 from gatekeeper_tpu.ir import program as jprog  # noqa: E402
 from gatekeeper_tpu.ops.flatten import Flattener as JFlattener  # noqa: E402
@@ -30,6 +32,8 @@ from gatekeeper_tpu.utils.synthetic import \
 from gatekeeper_tpu.utils.synthetic import make_cluster_objects  # noqa: E402
 from gatekeeper_tpu.utils.unstructured import load_yaml_file  # noqa: E402
 from gatekeeper_tpu_torch.client.client import Client as TClient  # noqa
+from gatekeeper_tpu_torch.drivers.cel_driver import \
+    CELDriver as TCELDriver  # noqa: E402
 from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver  # noqa
 from gatekeeper_tpu_torch.ir import program as tprog  # noqa: E402
 from gatekeeper_tpu_torch.ir.convert import tensors_from_numpy  # noqa: E402
@@ -41,7 +45,6 @@ from gatekeeper_tpu_torch.utils.synthetic import \
     load_library as tload  # noqa: E402
 
 LIB = os.path.join(os.path.dirname(__file__), "..", "library")
-CEL_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")
 PAD_N = 1024
 
 
@@ -50,23 +53,23 @@ def _template_kinds():
     for path in sorted(glob.glob(os.path.join(LIB, "*", "*",
                                               "template.yaml"))):
         doc = load_yaml_file(path)[0]
-        kind = doc["spec"]["crd"]["spec"]["names"]["kind"]
-        if kind not in CEL_KINDS:
-            kinds.append(kind)
+        kinds.append(doc["spec"]["crd"]["spec"]["names"]["kind"])
     return kinds
 
 
 @pytest.fixture(scope="module")
 def lib():
-    jd = TpuDriver()
-    jc = JClient(target=JTarget(), drivers=[jd],
+    jcel, tcel = JCELDriver(), TCELDriver()
+    jd = TpuDriver(cel_driver=jcel)
+    jc = JClient(target=JTarget(), drivers=[jd, jcel],
                  enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    td = TorchDriver()
-    tc = TClient(target=TTarget(), drivers=[td],
+    td = TorchDriver(cel_driver=tcel)
+    tc = TClient(target=TTarget(), drivers=[td, tcel],
                  enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    assert jload(jc, skip_kinds=CEL_KINDS) == tload(tc, skip_kinds=CEL_KINDS)
-    # identical intern order: the port's lowered constants and the JAX
-    # package's numpy tables name the same string ids
+    assert jload(jc) == tload(tc) == (46, 46)
+    # identical intern order (the CEL lowering's constants included): the
+    # port's lowered constants and the JAX package's numpy tables name the
+    # same string ids
     assert td.vocab._to_str == jd.vocab._to_str
     samples = []
     for path in sorted(glob.glob(os.path.join(LIB, "*", "*", "samples",

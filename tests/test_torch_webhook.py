@@ -2,7 +2,8 @@
 against the JAX package's: ``ValidationHandler`` with a ``Batcher`` on both
 lanes (``small_batch=0``: every batch takes the grid lane through
 ``review_batch``/``query_batch``; ``small_batch=64``: every batch takes the
-per-review interpreter lane) over the library's ``samples/example_*.yaml``
+per-review interpreter lane) over the whole library (44 Rego and 2 CEL
+templates, each side with its CEL driver) and its ``samples/example_*.yaml``
 objects and UPDATE reviews as AdmissionReview bodies, the handler's fast
 paths (service-account bypass, namespace exclusion, template/constraint
 validation), the failure policy on a review error, and HTTP round trips
@@ -22,6 +23,8 @@ pytest.importorskip("jax")
 
 from gatekeeper_tpu.apis.constraints import AUDIT_EP, WEBHOOK_EP  # noqa: E402
 from gatekeeper_tpu.client.client import Client as JClient  # noqa: E402
+from gatekeeper_tpu.drivers.cel_driver import \
+    CELDriver as JCELDriver  # noqa: E402
 from gatekeeper_tpu.drivers.tpu_driver import TpuDriver  # noqa: E402
 from gatekeeper_tpu.sync.process import \
     ProcessExcluder as JExcluder  # noqa: E402
@@ -36,6 +39,8 @@ from gatekeeper_tpu.webhook.namespacelabel import \
 from gatekeeper_tpu.webhook.server import \
     admission_response as jresponse  # noqa: E402
 from gatekeeper_tpu_torch.client.client import Client as TClient  # noqa
+from gatekeeper_tpu_torch.drivers.cel_driver import \
+    CELDriver as TCELDriver  # noqa: E402
 from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver  # noqa
 from gatekeeper_tpu_torch.sync.process import \
     ProcessExcluder as TExcluder  # noqa: E402
@@ -49,7 +54,6 @@ from gatekeeper_tpu_torch.webhook.namespacelabel import \
 from gatekeeper_tpu_torch.webhook.server import WebhookServer  # noqa: E402
 
 LIB = os.path.join(os.path.dirname(__file__), "..", "library")
-CEL_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")
 
 
 def admission_body(obj: dict, uid: str, operation: str = "CREATE",
@@ -83,12 +87,13 @@ def env():
     assert len(objects) >= 100
     bodies = [admission_body(o, f"uid-{i}") for i, o in enumerate(objects)]
     bodies += _samples("update_*.yaml")
-    jc = JClient(target=JTarget(), drivers=[TpuDriver()],
+    jcel, tcel = JCELDriver(), TCELDriver()
+    jc = JClient(target=JTarget(), drivers=[TpuDriver(cel_driver=jcel), jcel],
                  enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    td = TorchDriver(device="cpu")
-    tc = TClient(target=TTarget(), drivers=[td],
+    td = TorchDriver(device="cpu", cel_driver=tcel)
+    tc = TClient(target=TTarget(), drivers=[td, tcel],
                  enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    assert jload(jc, skip_kinds=CEL_KINDS) == tload(tc, skip_kinds=CEL_KINDS)
+    assert jload(jc) == tload(tc) == (46, 46)
     for o in objects:
         if o["kind"] == "Ingress":
             jc.add_data(o)
