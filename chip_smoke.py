@@ -26,9 +26,30 @@ Phases (any failure raises and exits non-zero):
 4. shapes: at every distinct (C, N, k) that the path launched a kernel
    with, both kernels held bit for bit against their plain versions on an
    edge grid and on a random grid, then timed;
-5. profile: the reduced-lane audit once more under ``torch.profiler``,
+5. snapshot: the same objects and templates through the resident
+   snapshot (``--audit-source snapshot``): per collect lane a
+   ``FakeCluster``, a ``ClusterSnapshot``, a ``WatchIngester`` and
+   ``DeviceResidency(mode="auto")`` on the card; (1) a first ``audit()``
+   (builds, uploads, evaluates), (2) a second full ``audit()`` from
+   resident columns only (repeated under ``torch.profiler`` for the
+   device's idle share), (3) a clean ``audit_tick()``, (4) a 1% churn
+   (label edits, ``privileged: true`` on some Pods, deletes and adds)
+   pumped and ticked, (5) ``audit_resync()``; on the reduced lane one more
+   resident dispatch of a gathered chunk with ``return_bits=False``, which
+   launches ``fused_fold``.  Every lowered group must be promoted, no
+   resident chunk may take the host-column path, steps 1 and 2 must equal
+   the path phase's relist run canonically, the repeat of step 2 must
+   upload 0 bytes, the dirty tick must evaluate only dirty rows and upload
+   under 5% of the resident bytes, the resync must find no difference,
+   and the card must equal a CPU snapshot run (``mode="on"``) on the first
+   8,192 objects, step by step.  Prints each step's wall, objects/s,
+   snapshot-build (flatten), residency upload/patch and dispatch seconds,
+   resident MB and uploaded bytes, and the rows patched;
+6. shapes (after the snapshot phase): as phase 4, at the (C, N, k) the
+   snapshot path launched too;
+7. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-6. admission: the library (all 46 templates and their sample
+8. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -50,7 +71,20 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-7. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+9. served: the served process's two threads on one driver and vocab, as
+   ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
+   runs them (``__main__.build_audit`` and ``start_audit_loop``): the
+   webhook answers up to 1,024 of the admission bodies while the snapshot
+   audit loop ticks and resyncs over a ``FakeCluster`` of 4,096 objects
+   that churns meanwhile.  Every answer must equal the CPU handler, at
+   least one tick and one resync must overlap the burst, no resync may
+   take an admission's new strings for its own, a final resync must find
+   no difference, the vocab must stay a bijection, every lowered group
+   must be resident and no chunk may take the host-column path;
+10. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+   last.
+   ``launches`` counts the relist path's launches, ``snapshot_launches``
+   the snapshot path's.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -58,7 +92,9 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
+import gc
 import http.client
 import json
 import multiprocessing
@@ -77,9 +113,11 @@ INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate (data sheet)
 CEL_TEMPLATE_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")
 C_MAIN, N_MAIN, K_MAIN = 44, 32768, 20
 CPU_PREFIX = 8192
+CHURN_SHARE = 0.01  # of the objects, per dirty tick of the snapshot phase
 GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
 GRAPH_REPLAYS = 25  # timed replays of that graph (median taken)
 LOAD_PROCS, LOAD_CONNS = 8, 8  # 64 keep-alive clients in 8 processes
+SERVED_ADMISSIONS, SERVED_OBJECTS = 1024, 4096  # the served phase's sizes
 
 
 def log(msg: str) -> None:
@@ -339,7 +377,7 @@ def shape_phase(rows, err, shapes) -> None:
                                   "launches": launches, "ms": ms,
                                   "bound_ms": bound_ms})
             log(f"{name} at C={c} N={n} k={k}: {ms:.5f} ms (device), "
-                f"{launches} launches on the path, plan "
+                f"{launches} launches on the relist and snapshot paths, plan "
                 f"{fold.fold_plan(n, True)}")
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
@@ -425,6 +463,7 @@ def path_phase(n_objects: int) -> tuple:
     launches = {}
     shapes = {}
     results = {}
+    runs = {}
     for collect, kernel in (("reduced", "fused_fold"),
                             ("masks", "epilogue")):
         dispatches: list = []
@@ -465,6 +504,7 @@ def path_phase(n_objects: int) -> tuple:
             raise AssertionError(f"audit[{collect}]: a CEL constraint has "
                                  f"no violations: {cel_totals}")
         results[collect] = summary(run)
+        runs[collect] = run
     if results["reduced"] != results["masks"]:
         raise AssertionError("reduced and masks lanes disagree")
     prefix = objects[:CPU_PREFIX]
@@ -474,7 +514,306 @@ def path_phase(n_objects: int) -> tuple:
         raise AssertionError("CPU run of the port differs from the card's")
     log(f"cpu == cuda on the first {CPU_PREFIX} objects "
         f"({sum(on_cpu[1].values())} violations)")
-    return launches, shapes, objects
+    return launches, shapes, objects, runs
+
+
+def snapshot_churn(objects, n: int, seed: int = 5) -> list:
+    """``n`` watch operations over ``objects`` (as ("apply"|"delete",
+    obj)): half label edits, a quarter ``privileged: true`` on a Pod's
+    first container (verdicts flip), an eighth deletes, an eighth new
+    Pods.  Distinct objects per operation; made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    n_priv, n_del, n_add = n // 4, n // 8, n // 8
+    n_lab = n - n_priv - n_del - n_add
+    order = rng.permutation(len(objects)).tolist()
+    pods = [i for i in order if objects[i].get("kind") == "Pod"
+            and (objects[i].get("spec") or {}).get("containers")]
+    priv = set(pods[:n_priv])
+    rest = [i for i in order if i not in priv]
+    ops = []
+    for i in rest[:n_lab]:
+        o = copy.deepcopy(objects[i])
+        o.setdefault("metadata", {}).setdefault("labels", {})["churn"] = \
+            f"tick-{seed}"
+        ops.append(("apply", o))
+    for i in sorted(priv):
+        o = copy.deepcopy(objects[i])
+        o["spec"]["containers"][0].setdefault(
+            "securityContext", {})["privileged"] = True
+        ops.append(("apply", o))
+    for i in rest[n_lab: n_lab + n_del]:
+        ops.append(("delete", copy.deepcopy(objects[i])))
+    for j, i in enumerate(pods[n_priv: n_priv + n_add]):
+        o = copy.deepcopy(objects[i])
+        o["metadata"]["name"] = f"churn-add-{seed}-{j}"
+        ops.append(("apply", o))
+    return ops
+
+
+def snapshot_world(objects, device: str, collect: str, mode: str):
+    """(manager, cluster, ingester, residency, snapshot, evaluator): the
+    CLI's ``--audit-source snapshot`` stack over ``objects``, with the
+    path phase's audit settings."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                               DeviceResidency,
+                                               SnapshotConfig, WatchIngester,
+                                               gvks_of)
+    from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+    client, driver, _nt, _nc = _client(objects, device=device)
+    evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
+                               collect=collect)
+    cluster = FakeCluster()
+    for o in objects:
+        cluster.apply(o)
+    snap = ClusterSnapshot(evaluator, SnapshotConfig())
+    ingester = WatchIngester(snap, cluster, gvks_of(cluster.list())).start()
+    residency = DeviceResidency(evaluator, mode=mode)
+    mgr = AuditManager(client, lister=cluster.list,
+                       config=AuditConfig(violations_limit=20,
+                                          chunk_size=32768,
+                                          exact_totals=False,
+                                          submit_window=4,
+                                          audit_source="snapshot"),
+                       evaluator=evaluator, snapshot=snap,
+                       residency=residency)
+    return mgr, cluster, ingester, residency, snap, evaluator
+
+
+def _timed(obj, name: str, acc: dict) -> None:
+    """Wrap ``obj.name`` so its wall seconds add up in ``acc[name]``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def _churn_apply(cluster, ops) -> None:
+    for op, obj in ops:
+        (cluster.apply if op == "apply" else cluster.delete)(obj)
+
+
+def snapshot_lane(objects, relist_run, collect: str, card: str,
+                  device: str = "cuda") -> dict:
+    """Steps 1-5 of the snapshot phase on one collect lane, on ``device``
+    (residency ``auto`` on the card; ``on`` for a CPU rehearsal)."""
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    mgr, cluster, ingester, residency, snap, ev = snapshot_world(
+        objects, device, collect, "auto" if device == "cuda" else "on")
+    if not residency.available():
+        raise AssertionError("residency declined on the card")
+    acc: dict = {}
+    _timed(snap, "rebuild", acc)
+    _timed(residency, "_upload", acc)
+    _timed(residency, "_patch", acc)
+    n_churn = max(8, int(len(objects) * CHURN_SHARE))
+    ops = snapshot_churn(objects, n_churn)
+    out = {"steps": {}}
+    try:
+        def step(name, fn, churn=None):
+            acc.clear()
+            perf0 = dict(ev.perf)
+            patched0 = residency.patched_rows
+            t0 = time.perf_counter()
+            run = fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d = {k: ev.perf.get(k, 0.0) - perf0.get(k, 0.0)
+                 for k in ("dispatch", "upload", "collect")}
+            rec = {"wall_s": wall,
+                   "objects_per_s": run.total_objects / wall,
+                   "rows": mgr.perf.get("last_rows_evaluated", 0.0),
+                   "h2d_bytes": mgr.perf.get("tick_h2d_bytes", 0.0),
+                   "resident_mb": residency.resident_bytes() / 1e6,
+                   "rows_patched": residency.patched_rows - patched0,
+                   "build_s": acc.get("rebuild", 0.0),
+                   "residency_upload_s": acc.get("_upload", 0.0),
+                   "residency_patch_s": acc.get("_patch", 0.0),
+                   "dispatch_s": d["dispatch"], "tables_s": d["upload"],
+                   "collect_s": d["collect"],
+                   "violations": sum(run.total_violations.values())}
+            out["steps"][name] = rec
+            log(f"snapshot[{collect}] {name}: {run.total_objects} objects, "
+                f"{rec['violations']} violations, {wall:.3f}s, "
+                f"{rec['objects_per_s']:.1f} objects/s, "
+                f"{rec['rows']:.0f} rows evaluated, h2d "
+                f"{rec['h2d_bytes']:.0f} bytes, resident "
+                f"{rec['resident_mb']:.3f} MB, {rec['rows_patched']} rows "
+                f"patched; build (flatten) {rec['build_s']:.3f}s, residency "
+                f"upload {rec['residency_upload_s']:.3f}s / patch "
+                f"{rec['residency_patch_s']:.3f}s, dispatch "
+                f"{rec['dispatch_s']:.3f}s, tables {rec['tables_s']:.3f}s, "
+                f"collect {rec['collect_s']:.3f}s ({card})")
+            if run.incomplete:
+                raise AssertionError(f"snapshot[{collect}] {name}: "
+                                     f"incomplete run")
+            return run, rec
+
+        run1, _ = step("1 build+upload+audit", mgr.audit)
+        run2, rec2 = step("2 resident audit", mgr.audit)
+        for label, run in (("1", run1), ("2", run2)):
+            diff = AuditManager._verdicts_differ_canonical(
+                run.kept, run.total_violations, relist_run.kept,
+                relist_run.total_violations, 20)
+            if diff is not None or run.total_objects != len(objects):
+                raise AssertionError(f"snapshot[{collect}] step {label} "
+                                     f"differs from the relist run: {diff}")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _run2b, rec2b = step("2 repeated, profiled", mgr.audit)
+        if rec2b["h2d_bytes"] != 0:
+            raise AssertionError(f"snapshot[{collect}]: the repeat of step "
+                                 f"2 uploaded {rec2b['h2d_bytes']} bytes")
+        events = _device_events(prof)
+        if events:
+            busy_ms = sum(dev_us(e) for e in events) / 1e3
+            idle = 1 - busy_ms / (rec2b["wall_s"] * 1e3)
+            out["idle_share"] = idle
+            top = sorted(events, key=dev_us, reverse=True)[:5]
+            log(f"snapshot[{collect}] profile of step 2: wall "
+                f"{rec2b['wall_s'] * 1e3:.1f} ms (profiled), device busy "
+                f"{busy_ms:.3f} ms, idle share {idle:.4f}; top: "
+                + "; ".join(f"{e.key[:50]} x{e.count} "
+                            f"{dev_us(e) / 1e3:.3f} ms" for e in top))
+        else:
+            log(f"snapshot[{collect}] profile: the profiler reported no "
+                f"device events; idle share not measured")
+        _run3, rec3 = step("3 clean tick", mgr.audit_tick)
+        if rec3["rows"] != 0 or rec3["h2d_bytes"] != 0:
+            raise AssertionError(f"snapshot[{collect}]: the clean tick "
+                                 f"evaluated {rec3['rows']} rows")
+        _churn_apply(cluster, ops)
+        ingester.pump()
+        dirty = snap.dirty_count()
+        _run4, rec4 = step(f"4 churn tick ({len(ops)} operations)",
+                           mgr.audit_tick)
+        resident = residency.resident_bytes()
+        if not 0 < rec4["rows"] <= dirty or rec4["rows"] > len(ops):
+            raise AssertionError(f"snapshot[{collect}]: the churn tick "
+                                 f"evaluated {rec4['rows']} rows for "
+                                 f"{dirty} dirty")
+        if not 0 < rec4["h2d_bytes"] < 0.05 * resident:
+            raise AssertionError(f"snapshot[{collect}]: the churn tick "
+                                 f"uploaded {rec4['h2d_bytes']} of "
+                                 f"{resident} resident bytes")
+        run5, _ = step("5 resync", mgr.audit_resync)
+        if mgr.last_resync_diff is not None:
+            raise AssertionError(f"snapshot[{collect}]: resync differs: "
+                                 f"{mgr.last_resync_diff}")
+        lowered = [s for s in snap.routed_stores() if s.lowered]
+        promoted = sum(residency.is_resident(s) for s in lowered)
+        host_chunks = mgr.perf.get("snapshot_host_chunks", 0.0)
+        log(f"snapshot[{collect}]: {promoted} of {len(lowered)} lowered "
+            f"groups resident, "
+            f"{mgr.perf.get('snapshot_resident_chunks', 0.0):.0f} resident "
+            f"chunks, {host_chunks:.0f} host-column chunks, resync diff "
+            f"{mgr.last_resync_diff}, residency {residency.stats()}")
+        if promoted != len(lowered) or not lowered or host_chunks:
+            raise AssertionError(f"snapshot[{collect}]: a group served "
+                                 f"host columns")
+        out["direct"] = None
+        if collect == "reduced":
+            # one budgeted resident dispatch: fused_fold on a gathered
+            # chunk (snapshot passes take the complete variant)
+            store = max(lowered, key=lambda s: s.live_count)
+            rg = residency.prepare(store)
+            positions = store.live_positions()[:32768]
+            got = ev.sweep_collect(ev.sweep_dispatch(
+                ev.sweep_flatten_resident(rg, positions,
+                                          return_bits=False)))
+            out["direct"] = (store, positions, got)
+        out["resync_violations"] = sum(run5.total_violations.values())
+        return out
+    finally:
+        ingester.stop()
+
+
+def snapshot_cpu_equal(objects) -> None:
+    """The card's snapshot lane equals a CPU snapshot run on ``objects``,
+    step by step (full pass, resident pass, churn tick)."""
+    sums = {}
+    for device, mode in (("cuda", "auto"), ("cpu", "on")):
+        mgr, cluster, ingester, residency, _snap, _ev = snapshot_world(
+            objects, device, "reduced", mode)
+        try:
+            got = [summary(mgr.audit()), summary(mgr.audit())]
+            _churn_apply(cluster, snapshot_churn(
+                objects, max(8, int(len(objects) * CHURN_SHARE))))
+            ingester.pump()
+            got.append(summary(mgr.audit_tick()))
+        finally:
+            ingester.stop()
+        if not residency.upload_count:
+            raise AssertionError(f"snapshot on {device}: nothing resident")
+        sums[device] = got
+    if sums["cuda"] != sums["cpu"]:
+        raise AssertionError("snapshot: the CPU run differs from the card's")
+    log(f"snapshot: cpu == cuda on the first {len(objects)} objects, step "
+        f"by step ({[sum(s[1].values()) for s in sums['cpu']]} violations)")
+
+
+def snapshot_phase(objects, relist_runs, card: str,
+                   device: str = "cuda") -> tuple:
+    """The resident snapshot on both collect lanes: (launches, shapes) of
+    the fold kernels over the snapshot path's runs, and each lane's steps.
+    ``device="cpu"`` rehearses it without the card (and without the
+    card-against-CPU comparison)."""
+    from gatekeeper_tpu_torch.ops import fold
+
+    launches, shapes, direct = {}, {}, None
+    for wrapper in (fold.fused_fold, fold.epilogue):
+        wrapper.launches = 0
+        wrapper.shapes.clear()
+    results = {}
+    for collect in ("reduced", "masks"):
+        out = snapshot_lane(objects, relist_runs[collect], collect, card,
+                            device)
+        results[collect] = out
+        if out["direct"] is not None:
+            direct = out["direct"]
+    for name in ("fused_fold", "epilogue"):
+        wrapper = getattr(fold, name)
+        launches[name] = wrapper.launches
+        shapes[name] = dict(wrapper.shapes)
+    log(f"snapshot: launches {launches}, shapes {shapes}")
+    if device == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"snapshot path: a fold kernel never "
+                             f"launched: {launches}")
+    # the direct resident dispatch against a host-column dispatch of the
+    # same rows (after the count was read)
+    store, positions, got = direct
+    ev = store.evaluator
+    batch = store.slice_rows(positions, ev._pad(len(positions)))
+    want = ev.sweep_collect(ev.sweep_dispatch(ev.sweep_flatten_from_batch(
+        store.cons, batch, [store.row_obj(p) for p in positions],
+        return_bits=False, alias=store.alias)))
+    for kind in want:
+        for a, b in zip(got[kind][1:4], want[kind][1:4]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"resident fused_fold dispatch of "
+                                     f"{kind} differs from host columns")
+    log(f"snapshot: the budgeted resident dispatch of {len(positions)} rows "
+        f"equals the host-column dispatch ({len(want)} kinds)")
+    if results["reduced"]["resync_violations"] != \
+            results["masks"]["resync_violations"]:
+        raise AssertionError("snapshot: reduced and masks lanes disagree")
+    if device == "cuda":
+        snapshot_cpu_equal(objects[:CPU_PREFIX])
+    return launches, shapes, {c: {k: v for k, v in r.items()
+                                  if k != "direct"}
+                              for c, r in results.items()}
 
 
 def dev_us(e) -> float:
@@ -697,6 +1036,38 @@ def profile_grid_batch(client, bodies, namespaces) -> None:
             for e in top))
 
 
+def _held_against_cpu(label: str, objects, namespaces, bodies,
+                      replies) -> tuple:
+    """Hold every served answer against the port's in-process handler on
+    the CPU without a batcher (the exact engines), the deny message as its
+    set of lines.  Raises on a difference; returns (denied, code 500)."""
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    from gatekeeper_tpu_torch.webhook.server import admission_response
+
+    ref_client = _client(objects, device="cpu")[0]
+    ref = ValidationHandler(ref_client, namespace_lookup=namespaces.get,
+                            failure_policy="fail")
+    t0 = time.perf_counter()
+    diffs, denied, code500, reordered = [], 0, 0, 0
+    for i, body in enumerate(bodies):
+        v = ref.handle(copy.deepcopy(body))
+        want = _answer(admission_response(v.uid, v.allowed, v.message,
+                                          v.code, v.warnings)["response"])
+        got = _answer(replies[i])
+        denied += not got[0]
+        code500 += got[1] == 500
+        reordered += got != want
+        if _unordered(got) != _unordered(want):
+            diffs.append((i, got, want))
+    log(f"{label}: cpu reference handler {time.perf_counter() - t0:.3f}s; "
+        f"{denied} denied, {len(diffs)} differ, {code500} with code 500, "
+        f"{reordered} with the deny lines in another order")
+    if diffs:
+        raise AssertionError(f"{label}: served answers differ from the CPU "
+                             f"handler, first: {diffs[:2]}")
+    return denied, code500
+
+
 def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
     """Serve ``n`` admissions through the port's webhook on ``device``
     and hold every answer against the CPU exact-interpreter handler."""
@@ -705,8 +1076,7 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
         NamespaceLabelHandler
     from gatekeeper_tpu_torch.webhook.policy import (Batcher,
                                                      ValidationHandler)
-    from gatekeeper_tpu_torch.webhook.server import (WebhookServer,
-                                                     admission_response)
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
 
     bodies, objects = admission_traffic(n)
     namespaces = {o["metadata"]["name"]: o for o in objects
@@ -795,29 +1165,10 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
 
     if device == "cuda":
         profile_grid_batch(client, bodies[:batcher.max_batch], namespaces)
-    ref_client = _client(objects, device="cpu")[0]
-    ref = ValidationHandler(ref_client, namespace_lookup=namespaces.get,
-                            failure_policy="fail")
-    t0 = time.perf_counter()
-    diffs, denied, code500, reordered = [], 0, 0, 0
-    for i, body in enumerate(bodies):
-        v = ref.handle(copy.deepcopy(body))
-        want = _answer(admission_response(v.uid, v.allowed, v.message,
-                                          v.code, v.warnings)["response"])
-        got = _answer(replies[i])
-        denied += not got[0]
-        code500 += got[1] == 500
-        reordered += got != want
-        if _unordered(got) != _unordered(want):
-            diffs.append((i, got, want))
-    log(f"admission: cpu reference handler {time.perf_counter() - t0:.3f}s; "
-        f"{denied} denied, {len(diffs)} differ, {code500} with code 500, "
-        f"{reordered} with the deny lines in another order")
+    denied, code500 = _held_against_cpu("admission", objects, namespaces,
+                                        bodies, replies)
     if errors:
         raise AssertionError(f"query_batch raised: {errors[:3]}")
-    if diffs:
-        raise AssertionError(f"served answers differ from the CPU handler, "
-                             f"first: {diffs[:2]}")
     if code500 or not lanes.get("grid") or not grid_stats:
         raise AssertionError(f"admission not sane: {code500} code-500 "
                              f"answers, lanes {lanes}")
@@ -829,6 +1180,154 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
     if not drained or denied == 0:
         raise AssertionError("admission: server did not drain, or nothing "
                              "was denied")
+    return out
+
+
+def served_phase(n: int, n_objects: int, card: str,
+                 device: str = "cuda") -> dict:
+    """The served process's two threads on one driver and vocab, as the
+    served CLI in snapshot mode runs them: ``n`` admissions through the
+    webhook while the audit loop ticks and resyncs over a churning
+    ``FakeCluster`` of ``n_objects`` (``__main__.build_audit`` and
+    ``start_audit_loop``).  ``device="cpu"`` rehearses it (residency
+    ``on``)."""
+    from gatekeeper_tpu_torch.__main__ import (build_audit,
+                                               start_audit_loop,
+                                               warm_batcher)
+    from gatekeeper_tpu_torch.utils.synthetic import make_cluster_objects
+    from gatekeeper_tpu_torch.webhook.namespacelabel import \
+        NamespaceLabelHandler
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    bodies, objects = admission_traffic(n)
+    namespaces = {o["metadata"]["name"]: o for o in objects
+                  if o.get("kind") == "Namespace"}
+    client, driver, _nt, _nc = _client(objects, device=device)
+    cluster_objects = make_cluster_objects(n_objects, seed=9)
+    args = argparse.Namespace(
+        device=device, constraint_violations_limit=20, collect="reduced",
+        audit_interval=0.25, audit_chunk_size=32768,
+        audit_source="snapshot", snapshot_resync_every=2,
+        snapshot_resync_rotate=0,
+        snapshot_residency="auto" if device == "cuda" else "on")
+    mgr, ingester = build_audit(args, cluster_objects, client, driver)
+    cluster = ingester.source
+    spans = {"audit": [], "audit_tick": [], "audit_resync": []}
+    loop_diffs: list = []  # each loop resync's first difference
+
+    def spanned(name):
+        fn = getattr(mgr, name)
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                spans[name].append((t0, time.perf_counter()))
+                if name == "audit_resync":
+                    loop_diffs.append(mgr.last_resync_diff)
+
+        setattr(mgr, name, run)
+
+    for name in spans:
+        spanned(name)
+    ops = snapshot_churn(cluster_objects, max(8, int(n_objects *
+                                                     CHURN_SHARE * 4)),
+                         seed=6)
+    batcher = Batcher(client).start()
+    try:
+        warm_batcher(client, batcher)
+        server = WebhookServer(
+            validation_handler=ValidationHandler(
+                client, namespace_lookup=namespaces.get, batcher=batcher,
+                failure_policy="fail"),
+            namespace_label_handler=NamespaceLabelHandler(),
+            host="127.0.0.1", port=0, batcher=batcher).start()
+    except BaseException:
+        batcher.stop()
+        ingester.stop()
+        raise
+    auditor = start_audit_loop(mgr)
+    stop_churn = threading.Event()
+
+    def churn():
+        for op, obj in ops:
+            if stop_churn.wait(0.005):
+                return
+            (cluster.apply if op == "apply" else cluster.delete)(obj)
+
+    churner = threading.Thread(target=churn, name="churn", daemon=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not spans["audit"]:  # the loop's first pass builds
+            if time.monotonic() > deadline or not auditor.is_alive():
+                raise AssertionError("served: the audit loop's first pass "
+                                     "never ended")
+            time.sleep(0.05)
+        churner.start()
+        t_burst = time.perf_counter()
+        replies, lat, wall = post_concurrently(server.port, bodies)
+        t_end = time.perf_counter()
+    finally:
+        stop_churn.set()
+        if churner.is_alive():
+            churner.join()
+        mgr.stop()
+        drained = server.stop()
+        auditor.join(timeout=600)
+        batcher.stop()
+    try:
+        if auditor.is_alive():
+            raise AssertionError("served: the audit loop did not stop")
+        during = {name: sum(1 for a, b in sp if a < t_end and b > t_burst)
+                  for name, sp in spans.items()}
+        mgr.audit_tick()  # what the loop had not pumped yet
+        mgr.audit_resync()
+        final_diff = mgr.last_resync_diff
+        snap, residency = mgr.snapshot, mgr.residency
+        lowered = [st for st in snap.routed_stores() if st.lowered]
+        promoted = sum(residency.is_resident(st) for st in lowered)
+        host_chunks = mgr.perf.get("snapshot_host_chunks", 0.0)
+    finally:
+        ingester.stop()
+    vocab = driver.vocab
+    bijection = len(vocab._to_id) == len(vocab._to_str) and all(
+        vocab._to_id[st] == i for i, st in enumerate(vocab._to_str))
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {"admissions": n, "wall_s": wall, "admissions_per_s": n / wall,
+           "p50_ms": lat_ms[len(lat_ms) // 2],
+           "p99_ms": lat_ms[min(len(lat_ms) - 1,
+                                int(0.99 * len(lat_ms)))],
+           "passes_during_burst": during, "churn_operations": len(ops),
+           "loop_resync_diffs": [d for d in loop_diffs if d],
+           "vocab": len(vocab)}
+    log(f"served: {n} admissions in {wall:.3f}s, "
+        f"{out['admissions_per_s']:.1f} admissions/s, p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms beside the "
+        f"audit loop over {n_objects} objects ({len(ops)} churn "
+        f"operations); passes during the burst {during}, in all "
+        f"{ {k: len(v) for k, v in spans.items()} }; loop resync "
+        f"differences {out['loop_resync_diffs']}; final resync diff "
+        f"{final_diff}; {promoted} of {len(lowered)} lowered groups "
+        f"resident, {host_chunks:.0f} host-column chunks; vocab "
+        f"{len(vocab)} strings, bijection {bijection} ({card})")
+    _denied, code500 = _held_against_cpu("served", objects, namespaces,
+                                         bodies, replies)
+    if not during["audit_tick"] or not during["audit_resync"]:
+        raise AssertionError(f"served: the audit loop did not tick and "
+                             f"resync during the burst: {during}")
+    if any("vocab" in d for d in out["loop_resync_diffs"]):
+        raise AssertionError(f"served: a resync took an admission's "
+                             f"strings for its own: "
+                             f"{out['loop_resync_diffs']}")
+    if final_diff is not None or not bijection or code500 or not drained:
+        raise AssertionError(f"served: final resync {final_diff}, vocab "
+                             f"bijection {bijection}, {code500} code-500 "
+                             f"answers, drained {drained}")
+    if promoted != len(lowered) or not lowered or host_chunks:
+        raise AssertionError("served: a group served host columns")
     return out
 
 
@@ -844,16 +1343,41 @@ def main() -> int:
         raise SystemExit("--objects must be in 1..1,000,000")
     if args.admissions < 1:
         raise SystemExit("--admissions must be positive")
+    t_start = time.perf_counter()
+
+    def phase(name):
+        log(f"== {name} (at {time.perf_counter() - t_start:.1f}s)")
+
+    phase("device")
     card = device_phase()["card"]
+    phase("kernels")
     rows, err = kernel_phase()
-    launches, shapes, objects = path_phase(args.objects)
-    shape_phase(rows, err, shapes)
+    phase("path")
+    launches, shapes, objects, relist_runs = path_phase(args.objects)
+    phase("snapshot")
+    snap_launches, snap_shapes, snap_steps = snapshot_phase(
+        objects, relist_runs, card)
+    del relist_runs
+    gc.collect()  # the snapshot worlds' reference cycles, before timing on
+    phase("shapes")
+    shape_phase(rows, err, {
+        name: dict(collections.Counter(shapes[name])
+                   + collections.Counter(snap_shapes[name]))
+        for name in shapes})
+    phase("profile")
     profile_phase(objects)
     del objects
+    phase("admission")
     admission_phase(args.admissions, card)
+    phase("served")
+    served_phase(min(SERVED_ADMISSIONS, args.admissions), SERVED_OBJECTS,
+                 card)
+    log(f"snapshot steps: {json.dumps(snap_steps)}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["snapshot_launches"] = snap_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

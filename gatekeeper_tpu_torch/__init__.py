@@ -13,7 +13,8 @@ YAML loading, the Rego front end and lowering, the columnar flatten, the
 grid evaluator (``ir/program.py``), the driver (``drivers/torch_driver.py``,
 with the batched ``query_batch``), the one-device sweep
 (``parallel/sweep.py``) with both fold kernels (``ops/fold.py``), the serial
-audit schedule (``audit/manager.py``), the webhook (``webhook/``) and
+audit schedule (``audit/manager.py``), the resident snapshot and its device
+residency (``snapshot/``), the webhook (``webhook/``) and
 ``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
 """
 

@@ -1,12 +1,15 @@
-"""Entry point of the port: one audit sweep, or the admission webhook.
+"""Entry point of the port: one audit sweep, or the admission webhook
+beside the audit loop.
 
     python -m gatekeeper_tpu_torch --manifests DIR --once \
         [--collect reduced|masks] [--device cuda|cpu] \
-        [--constraint-violations-limit N]
+        [--constraint-violations-limit N] [--audit-chunk-size N] \
+        [--audit-source relist|snapshot] [--snapshot-residency auto|on|off]
     python -m gatekeeper_tpu_torch --manifests DIR [--port N] \
         [--certs-dir D] [--tls-min-version 1.2|1.3] [--log-denies] \
         [--webhook-small-batch N] [--webhook-failure-policy fail|ignore] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--audit-interval S] [--audit-source ...] \
+        [--snapshot-resync-every N] [--snapshot-resync-rotate K]
 
 Loads ConstraintTemplates, constraints and cluster objects from YAML
 (files or directories, ``--manifests`` repeatable).  ``--device`` is where
@@ -20,9 +23,21 @@ also audits the status objects it writes (one ConstraintTemplatePodStatus
 per template); the port has no controller plane yet, so its object count
 leaves those out.
 
+``--audit-source snapshot`` audits the resident columnar snapshot
+instead of relisting: the manifests populate an in-memory ``FakeCluster``
+that a ``WatchIngester`` watches, the first pass builds the snapshot, and
+with ``--snapshot-residency`` ``auto`` (on a CUDA device) or ``on`` its
+columns and match masks stay on the device.  ``--once`` prints the same
+lines in either mode.
+
 Without ``--once`` the CLI serves ``/v1/admit``, ``/v1/admitlabel`` and
 ``/healthz`` on ``--port`` (0 picks a free port; stderr prints
-``webhook serving on :PORT``) until SIGINT or SIGTERM, then drains.  The
+``webhook serving on :PORT``) until SIGINT or SIGTERM, then drains.  Beside
+the webhook a thread runs ``AuditManager.run_forever()``: a relist sweep
+every ``--audit-interval`` seconds, or in snapshot mode a first full pass,
+then an incremental tick per interval and every
+``--snapshot-resync-every``-th interval the resync differential.  The
+audit thread stops on drain.  The
 namespace of a request is looked up among the manifests' Namespace
 objects.  ``--certs-dir`` serves TLS from its existing ``tls.crt`` and
 ``tls.key``.  Before serving, one grid-lane batch of the batcher's largest
@@ -43,6 +58,7 @@ import sys
 TEMPLATES_GROUP = "templates.gatekeeper.sh"
 CONSTRAINTS_GROUP = "constraints.gatekeeper.sh"
 CONFIG_GROUP = "config.gatekeeper.sh"
+AUDIT_JOIN_S = 120.0  # drain's wait for an audit pass in flight
 
 
 def load_manifests(paths) -> list:
@@ -171,6 +187,31 @@ def main(argv=None) -> int:
                    help="what a failed review answers: 'ignore' fails open "
                         "(allow + warning), 'fail' fails closed (deny, "
                         "code 500) — the reference webhook failurePolicy")
+    p.add_argument("--audit-interval", type=float, default=60.0,
+                   help="seconds between audit passes of a served process")
+    p.add_argument("--audit-chunk-size", type=int, default=500)
+    p.add_argument("--audit-source", default="relist",
+                   choices=["relist", "snapshot"],
+                   help="sweep input: 'relist' lists and flattens every "
+                        "object every pass; 'snapshot' keeps the "
+                        "flattened columns resident between passes, "
+                        "patched by watch events: a full pass evaluates "
+                        "resident columns and each interval's tick only "
+                        "the watch-dirtied rows")
+    p.add_argument("--snapshot-resync-every", type=int, default=10,
+                   help="snapshot mode: every Nth audit interval runs the "
+                        "resync differential (fresh relist asserted equal "
+                        "to the snapshot) instead of a tick; 0 = never")
+    p.add_argument("--snapshot-resync-rotate", type=int, default=0,
+                   help="rotate the resync differential over 1/K of the "
+                        "row keyspace per resync; 0/1 = the full "
+                        "differential every time")
+    p.add_argument("--snapshot-residency", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="snapshot mode: keep each group's columns and "
+                        "match masks on the device, patched by scatter "
+                        "('auto': only on a CUDA device; 'on': on any "
+                        "device; 'off': host columns)")
     args = p.parse_args(argv)
     from gatekeeper_tpu_torch import resolve_device
 
@@ -180,12 +221,20 @@ def main(argv=None) -> int:
     print(f"templates: {len(client.templates())} "
           f"({len(driver.lowered_kinds())} on the device verdict path), "
           f"constraints: {len(client.constraints())}", file=sys.stderr)
-    if args.once:
-        return audit_once(args, objects, client, driver)
-    return serve(args, objects, client)
+    mgr, ingester = build_audit(args, objects, client, driver)
+    try:
+        if args.once:
+            return audit_once(mgr)
+        return serve(args, objects, client, mgr)
+    finally:
+        if ingester is not None:
+            ingester.stop()
 
 
-def audit_once(args, objects, client, driver) -> int:
+def build_audit(args, objects, client, driver) -> tuple:
+    """(AuditManager, WatchIngester or None) as the flags ask: a relisting
+    lister over the manifests, or the resident snapshot fed by a watch on a
+    ``FakeCluster`` that holds them."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
 
@@ -193,11 +242,42 @@ def audit_once(args, objects, client, driver) -> int:
         driver, device=args.device,
         violations_limit=args.constraint_violations_limit,
         collect=args.collect)
-    mgr = AuditManager(
-        client, lister=lambda: iter(objects),
-        config=AuditConfig(
-            violations_limit=args.constraint_violations_limit),
-        evaluator=evaluator)
+    config = AuditConfig(
+        interval_s=args.audit_interval,
+        violations_limit=args.constraint_violations_limit,
+        chunk_size=args.audit_chunk_size,
+        audit_source=args.audit_source,
+        resync_every=args.snapshot_resync_every,
+        resync_rotate=args.snapshot_resync_rotate)
+    if args.audit_source != "snapshot":
+        return AuditManager(client, lister=lambda: iter(objects),
+                            config=config, evaluator=evaluator), None
+    from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                               DeviceResidency,
+                                               SnapshotConfig, WatchIngester,
+                                               gvks_of)
+    from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+    cluster = FakeCluster()
+    for obj in objects:
+        cluster.apply(obj)
+    snapshot = ClusterSnapshot(evaluator, SnapshotConfig())
+    gvks = gvks_of(cluster.list())
+    ingester = WatchIngester(
+        snapshot, cluster, gvks,
+        on_error=lambda e: print(f"snapshot watch subscribe failed: {e}",
+                                 file=sys.stderr)).start()
+    residency = DeviceResidency(evaluator, mode=args.snapshot_residency)
+    print(f"resident snapshot active: watching {len(gvks)} GVKs, resync "
+          f"every {args.snapshot_resync_every} intervals, residency "
+          f"{args.snapshot_residency}", file=sys.stderr)
+    mgr = AuditManager(client, lister=cluster.list, config=config,
+                       evaluator=evaluator, snapshot=snapshot,
+                       residency=residency)
+    return mgr, ingester
+
+
+def audit_once(mgr) -> int:
     run = mgr.audit()
     total = sum(run.total_violations.values())
     print(f"audit: {run.total_objects} objects, {total} violations "
@@ -216,8 +296,27 @@ def audit_once(args, objects, client, driver) -> int:
     return 0
 
 
-def serve(args, objects, client) -> int:
-    """Serve the admission webhook until SIGINT or SIGTERM, then drain."""
+def start_audit_loop(audit_mgr):
+    """``audit_mgr.run_forever()`` on a daemon thread, returned started.
+    It runs beside the webhook's batcher thread, and both intern into the
+    driver's vocab (flatten, parameter tables, vocab-derived tables), so
+    the vocab's lock is armed first."""
+    import threading
+
+    vocab = audit_mgr.evaluator.driver.vocab
+    if vocab._lock is None:
+        vocab._lock = threading.RLock()
+    auditor = threading.Thread(target=audit_mgr.run_forever,
+                               name="audit-loop", daemon=True)
+    auditor.start()
+    return auditor
+
+
+def serve(args, objects, client, audit_mgr) -> int:
+    """Serve the admission webhook, with ``audit_mgr.run_forever()`` on a
+    thread beside it, until SIGINT or SIGTERM; then stop the audit loop and
+    drain.  The batcher thread and the audit thread share the device on its
+    default stream."""
     import os
     import signal
     import threading
@@ -258,6 +357,7 @@ def serve(args, objects, client) -> int:
         batcher.stop()
         raise
     print(f"webhook serving on :{server.port}", file=sys.stderr, flush=True)
+    auditor = start_audit_loop(audit_mgr)
 
     stopping = threading.Event()
 
@@ -270,7 +370,13 @@ def serve(args, objects, client) -> int:
     signal.signal(signal.SIGINT, _on_signal)
     while not stopping.wait(1.0):
         pass
+    audit_mgr.stop()
     drained = server.stop()
+    # a pass in flight finishes first; the loop exits at its next wait
+    auditor.join(timeout=AUDIT_JOIN_S)
+    if auditor.is_alive():
+        print(f"WARNING: audit pass still running after {AUDIT_JOIN_S:.0f}s "
+              f"of drain; abandoned", file=sys.stderr, flush=True)
     batcher.stop()  # idempotent (server.stop drained it already)
     print("drain complete" if drained else
           "WARNING: drain exceeded its budget; in-flight work abandoned",

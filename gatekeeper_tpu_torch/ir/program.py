@@ -148,26 +148,27 @@ def _vpad(v: int) -> int:
 def fn_table(vocab: Vocab, fn: str):
     """[Vpad] (num f32, valid bool) for a string->number builtin, lazily
     extended as the vocab grows."""
-    cache = vocab.__dict__.setdefault("_fn_tables", {})
-    num, valid, upto = cache.get(fn, (None, None, 0))
-    v = len(vocab)
-    if upto < v or num is None:
-        import numpy as _np
+    with vocab.held():
+        cache = vocab.__dict__.setdefault("_fn_tables", {})
+        num, valid, upto = cache.get(fn, (None, None, 0))
+        v = len(vocab)
+        if upto < v or num is None:
+            import numpy as _np
 
-        vp = _vpad(v)
-        new_num = _np.zeros(vp, _np.float32)
-        new_valid = _np.zeros(vp, bool)
-        if num is not None:
-            new_num[:upto] = num[:upto]
-            new_valid[:upto] = valid[:upto]
-        for i in range(upto, v):
-            r = _apply_str_fn(fn, vocab.string(i))
-            if r is not None:
-                new_num[i] = f32_sat(r)
-                new_valid[i] = True
-        num, valid = new_num, new_valid
-        cache[fn] = (num, valid, v)
-    return num, valid
+            vp = _vpad(v)
+            new_num = _np.zeros(vp, _np.float32)
+            new_valid = _np.zeros(vp, bool)
+            if num is not None:
+                new_num[:upto] = num[:upto]
+                new_valid[:upto] = valid[:upto]
+            for i in range(upto, v):
+                r = _apply_str_fn(fn, vocab.string(i))
+                if r is not None:
+                    new_num[i] = f32_sat(r)
+                    new_valid[i] = True
+            num, valid = new_num, new_valid
+            cache[fn] = (num, valid, v)
+        return num, valid
 
 
 _PRED_IMPL = {
@@ -192,11 +193,12 @@ _PRED_IMPL["re_match"] = _re_pred
 def pred_table_row(vocab: Vocab, op: str, needle: str) -> int:
     """Register (op, needle); returns the row index in the op's [T, V]
     matrix (see pred_matrix)."""
-    cache = vocab.__dict__.setdefault("_pred_tables", {})
-    rows, _ = cache.setdefault(op, ({}, []))
-    if needle not in rows:
-        rows[needle] = len(rows)
-    return rows[needle]
+    with vocab.held():
+        cache = vocab.__dict__.setdefault("_pred_tables", {})
+        rows, _ = cache.setdefault(op, ({}, []))
+        if needle not in rows:
+            rows[needle] = len(rows)
+        return rows[needle]
 
 
 def _pred_row_fill(mat, ri: int, op: str, needle: str, strings: list,
@@ -245,36 +247,38 @@ def pred_matrix(vocab: Vocab, op: str):
     stable)."""
     import numpy as _np
 
-    cache = vocab.__dict__.setdefault("_pred_tables", {})
-    rows, memo = cache.setdefault(op, ({}, []))
-    v = len(vocab)
-    if memo:
-        (prev_t, prev_v), mat = memo
-        if prev_t == len(rows) and prev_v >= v and mat.shape[1] >= v:
-            return mat
-        vp = max(_vpad(v), mat.shape[1])
-        new = _np.zeros((max(len(rows), 1), vp), bool)
-        new[: mat.shape[0], : mat.shape[1]] = mat
-        # new needles: full scan; existing needles: only new vocab entries
-        tail = [vocab.string(s) for s in range(prev_v, v)]
-        full = None
-        for needle, ri in rows.items():
-            if ri >= prev_t:
-                if full is None:
-                    full = [vocab.string(s) for s in range(v)]
-                _pred_row_fill(new, ri, op, needle, full, 0)
-            else:
-                _pred_row_fill(new, ri, op, needle, tail, prev_v)
-        mat = new
-    else:
-        vp = _vpad(v)
-        mat = _np.zeros((max(len(rows), 1), vp), bool)
-        strings = [vocab.string(s) for s in range(v)]
-        for needle, ri in rows.items():
-            _pred_row_fill(mat, ri, op, needle, strings, 0)
-    memo.clear()
-    memo.extend(((len(rows), v), mat))
-    return mat
+    with vocab.held():
+        cache = vocab.__dict__.setdefault("_pred_tables", {})
+        rows, memo = cache.setdefault(op, ({}, []))
+        v = len(vocab)
+        if memo:
+            (prev_t, prev_v), mat = memo
+            if prev_t == len(rows) and prev_v >= v and mat.shape[1] >= v:
+                return mat
+            vp = max(_vpad(v), mat.shape[1])
+            new = _np.zeros((max(len(rows), 1), vp), bool)
+            new[: mat.shape[0], : mat.shape[1]] = mat
+            # new needles: full scan; existing needles: only new vocab
+            # entries
+            tail = [vocab.string(s) for s in range(prev_v, v)]
+            full = None
+            for needle, ri in rows.items():
+                if ri >= prev_t:
+                    if full is None:
+                        full = [vocab.string(s) for s in range(v)]
+                    _pred_row_fill(new, ri, op, needle, full, 0)
+                else:
+                    _pred_row_fill(new, ri, op, needle, tail, prev_v)
+            mat = new
+        else:
+            vp = _vpad(v)
+            mat = _np.zeros((max(len(rows), 1), vp), bool)
+            strings = [vocab.string(s) for s in range(v)]
+            for needle, ri in rows.items():
+                _pred_row_fill(mat, ri, op, needle, strings, 0)
+        memo.clear()
+        memo.extend(((len(rows), v), mat))
+        return mat
 
 
 def _needle_xform(needle, s: str) -> str:

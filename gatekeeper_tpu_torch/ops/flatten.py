@@ -20,6 +20,7 @@ Design notes
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -50,10 +51,9 @@ class Vocab:
     def __init__(self):
         self._to_id: dict[str, int] = {"": 0}
         self._to_str: list[str] = [""]
-        # optional mutual exclusion for the Python intern path: the
-        # generation coordinator (drivers/generation.py) compiles on a
-        # background thread against the live vocab, so its interns must
-        # not interleave with a serving thread's.  None (the default)
+        # optional mutual exclusion for interning: the served CLI's audit
+        # thread and the webhook's batcher thread intern into one vocab
+        # (``__main__.start_audit_loop`` arms it).  None (the default)
         # keeps the hot flatten loops branch-cheap and bit-identical.
         self._lock = None
 
@@ -63,6 +63,14 @@ class Vocab:
             with lk:
                 return self._intern(s)
         return self._intern(s)
+
+    def held(self):
+        """The intern lock as a context manager, a no-op while it is not
+        armed.  Code that writes ``_to_id``/``_to_str`` itself (the native
+        columnizers) or extends a vocab-derived table holds it, so it
+        cannot interleave with another thread's intern."""
+        lk = self._lock
+        return contextlib.nullcontext() if lk is None else lk
 
     def _intern(self, s: str) -> int:
         i = self._to_id.get(s)
@@ -227,6 +235,18 @@ def _remap_sid_arrays(batch, remap: "np.ndarray") -> None:
         rm(arr)
 
 
+def _flatten_local(flattener: "Flattener", objects) -> tuple:
+    """(batch, local vocab): ``objects`` flattened against a fresh
+    batch-local vocab, the flattener's own left untouched."""
+    local = Vocab()
+    saved = flattener.vocab
+    flattener.vocab = local
+    try:
+        return flattener.flatten(objects), local
+    finally:
+        flattener.vocab = saved
+
+
 def flatten_phase2(flattener: "Flattener", objects, gids,
                    cache: RowInternCache):
     """Two-phase patch-lane flatten (incremental-audit NEXT 1): phase 1
@@ -254,13 +274,7 @@ def flatten_phase2(flattener: "Flattener", objects, gids,
 
         if native.load_json() is not None:
             return flattener.flatten(objects)
-    local = Vocab()
-    saved = flattener.vocab
-    flattener.vocab = local
-    try:
-        batch = flattener.flatten(objects)
-    finally:
-        flattener.vocab = saved
+    batch, local = _flatten_local(flattener, objects)
     owned = cache.owned_union(gids)
     remap = np.empty(len(local._to_str) + 2, np.int32)
     remap[0] = -2
@@ -269,7 +283,7 @@ def flatten_phase2(flattener: "Flattener", objects, gids,
     for i, s in enumerate(local._to_str):
         g = owned.get(s)
         if g is None:
-            g = saved.intern(s)
+            g = flattener.vocab.intern(s)
             cache.probes += 1
         else:
             cache.hits += 1
@@ -279,6 +293,30 @@ def flatten_phase2(flattener: "Flattener", objects, gids,
         cache.adopt(gid, new_owned)
     _remap_sid_arrays(batch, remap)
     return batch
+
+
+def flatten_resolved(flattener: "Flattener", objects) -> tuple:
+    """Flatten ``objects`` without interning into the flattener's vocab:
+    columnize against a batch-local vocab, then map each local string to
+    its global id by lookup.  Returns ``(batch, missing)``, ``missing``
+    the number of local strings the global vocab does not hold (their
+    sids read -2, the unseen id of :meth:`Vocab.lookup`).
+
+    The resync differential's flatten: the vocab's growth during a resync
+    cannot tell its own interns from another thread's (the served
+    process's batcher interns admissions into the same vocab), while the
+    strings this flatten finds missing are its own."""
+    batch, local = _flatten_local(flattener, objects)
+    remap = np.empty(len(local._to_str) + 2, np.int32)
+    remap[0] = -2
+    remap[1] = -1
+    missing = 0
+    for i, s in enumerate(local._to_str):
+        g = flattener.vocab.lookup(s)
+        missing += g == -2
+        remap[i + 2] = g
+    _remap_sid_arrays(batch, remap)
+    return batch, missing
 
 
 # --- column specs (requested by the lowering pass) ------------------------
@@ -1352,11 +1390,12 @@ class Flattener:
                           self.bucket))
                 for rk in ragged_keysets
             ]
-            extras = mod.extract_extras(
-                list(objects), p_specs, rk_specs,
-                self.vocab._to_id, self.vocab._to_str,
-                batch.n, self.bucket,
-            )
+            with self.vocab.held():
+                extras = mod.extract_extras(
+                    list(objects), p_specs, rk_specs,
+                    self.vocab._to_id, self.vocab._to_str,
+                    batch.n, self.bucket,
+                )
             for pic, idx in zip(parent_idx_cols, extras["parent_idx"]):
                 batch.parent_idx[pic] = ParentIdxColumn(idx)
             for rk, (sid, count) in zip(ragged_keysets,
@@ -1535,15 +1574,17 @@ class Flattener:
     def _call_columnizer(self, mod, items, schema, axes, axis_index,
                          pad_n, nthreads):
         """The raw native call, specs marshalled from the exec schema."""
-        return mod.flatten_json_batch(
-            items,
-            *self._columnizer_specs(schema, axes, axis_index),
-            self.vocab._to_id,
-            self.vocab._to_str,
-            int(pad_n or len(items)),
-            self.bucket,  # ragged bucket, matches round_up()
-            nthreads,
-        )
+        specs = self._columnizer_specs(schema, axes, axis_index)
+        with self.vocab.held():
+            return mod.flatten_json_batch(
+                items,
+                *specs,
+                self.vocab._to_id,
+                self.vocab._to_str,
+                int(pad_n or len(items)),
+                self.bucket,  # ragged bucket, matches round_up()
+                nthreads,
+            )
 
     def _columnize_workers(self, items, schema, axes, axis_index, pad_n):
         """Fan contiguous item spans across the worker pool and merge.
@@ -1639,8 +1680,9 @@ class Flattener:
         if not raw_ok:
             return self._flatten_differential(objects, pad_n, reviews)
         ref_vocab = Vocab()
-        ref_vocab._to_id = dict(self.vocab._to_id)
-        ref_vocab._to_str = list(self.vocab._to_str)
+        with self.vocab.held():
+            ref_vocab._to_id = dict(self.vocab._to_id)
+            ref_vocab._to_str = list(self.vocab._to_str)
         ref = Flattener(self.orig_schema, ref_vocab,
                         use_native=self.use_native, bucket=self.bucket,
                         width_targets=self.width_targets,
@@ -1803,18 +1845,20 @@ class Flattener:
         axes = schema.axes()
         axis_index = {a: i for i, a in enumerate(axes)}
         map_key_specs = list(getattr(schema, "map_keys", []))
-        out = mod.flatten_batch(
-            list(objects),
-            [tuple(s.path) for s in schema.scalars],
-            [a.segments for a in axes],
-            [(axis_index[r.axis], tuple(r.subpath)) for r in schema.raggeds],
-            [tuple(k.path) for k in schema.keysets],
-            [axis_index[mk.axis] for mk in map_key_specs],
-            self.vocab._to_id,
-            self.vocab._to_str,
-            int(pad_n or len(objects)),
-            self.bucket,  # ragged bucket, matches round_up()
-        )
+        with self.vocab.held():
+            out = mod.flatten_batch(
+                list(objects),
+                [tuple(s.path) for s in schema.scalars],
+                [a.segments for a in axes],
+                [(axis_index[r.axis], tuple(r.subpath))
+                 for r in schema.raggeds],
+                [tuple(k.path) for k in schema.keysets],
+                [axis_index[mk.axis] for mk in map_key_specs],
+                self.vocab._to_id,
+                self.vocab._to_str,
+                int(pad_n or len(objects)),
+                self.bucket,  # ragged bucket, matches round_up()
+            )
         n = max(pad_n or 0, len(objects))
         batch = ColumnBatch(n=n, scalars={}, raggeds={}, axis_counts={},
                             keysets={})

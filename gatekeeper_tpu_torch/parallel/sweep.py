@@ -20,9 +20,17 @@ Collect lanes (``collect=``):
   per-constraint first-k + totals (``[idx(k) | valid(k) | count]``), and
   exact-totals chunks also ship the bit-packed grid.
 
-Not ported here: multi-device meshes, the wire byte-packing of columns,
-the resident snapshot lane, the differential collect lane, warm state,
-flatten workers, tracing/metrics/cost attribution.
+Sweep inputs: a chunk of listed objects (``sweep_flatten``), rows of the
+resident snapshot's host columns (``sweep_flatten_from_batch``), or rows
+of a device-resident snapshot group (``sweep_flatten_resident``: the
+columns and match masks already live on the device as the stats-free
+``pack_transfer_cols`` buffers of ``snapshot/device_residency.py``; the
+chunk gathers them by an index vector on the device, and both collect
+lanes fold the gathered grid exactly as they fold a host chunk's).
+
+Not ported here: multi-device meshes, the stats branch of
+``pack_transfer_cols`` (wire narrowing), the differential collect lane,
+warm state, flatten workers, tracing/metrics/cost attribution.
 """
 
 from __future__ import annotations
@@ -52,6 +60,17 @@ COLLECT_LANES = ("reduced", "masks")
 _HIT_STEPS = (0, 16, 64, 256)
 
 _BIT_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)  # np.packbits order: MSB first
+
+# numpy dtype string of a packed column buffer -> its torch dtype on the
+# device.  int64/float64 narrow to int32/float32 as ``ir.convert.to_tensor``
+# narrows every host-lane column (JAX's canonical dtypes), so a resident
+# column holds the same values in the same dtype as its host twin; every
+# other dtype is kept as it is.
+_TORCH_DTYPES = {"|b1": torch.bool, "|i1": torch.int8, "|u1": torch.uint8,
+                 "<i2": torch.int16, "<i4": torch.int32, "<i8": torch.int32,
+                 "<f4": torch.float32, "<f8": torch.float32}
+
+_PARAM_CACHE_CAP = 32  # parameter-table sets kept on the device
 
 
 def hit_bucket(need: int, cap: int) -> int:
@@ -186,6 +205,107 @@ def select_hits(sel: torch.Tensor, idx: torch.Tensor, hit_cap: int,
     return out[:hit_cap].to(torch.int32)
 
 
+def pack_transfer_cols(cols: dict, pad_n: int,
+                       stats: Optional[dict] = None) -> tuple:
+    """Pack every per-object column into ONE ``[pad_n, W]`` buffer per
+    dtype (port of ``gatekeeper_tpu/parallel/sharded.py``, the
+    ``stats=None`` layout only).
+
+    The layout is a grouping by dtype: each column occupies ``w`` columns
+    of its dtype's buffer at offset ``off`` (a ``[pad_n, *tail]`` column
+    flattens to ``w = prod(tail)``), with no narrowing, no constant
+    elision and no dictionary remap, so every row set of one schema packs
+    to the same layout.  The same numpy array under two keys (prefix-axis
+    dedup, ``ops/flatten.dedup_schema``) packs once and becomes an
+    ``alias`` entry.  Table columns (``fn:``/``st:``/``inv:``/``ext:``)
+    are left out.
+
+    Returns ``({dtype_str: buf}, layout)``, layout a tuple of
+    ``(key, sub, dtype_str | "alias", off, tail, w, dtype_str,
+    0 | (alias key, alias sub))``.  ``stats`` selects the wire-narrowing
+    branch, which is not ported (ROADMAP queue 1 item 6): it raises."""
+    if stats is not None:
+        raise NotImplementedError(
+            "pack_transfer_cols: the stats branch (wire narrowing, constant "
+            "elision, dictionary remap) is not ported (ROADMAP queue 1 "
+            "item 6)")
+    parts: dict = {}
+    widths: dict = {}
+    layout: list = []
+    seen: dict = {}  # id(array) -> (key, sub): identity alias dedup
+    for key in sorted(k for k in cols if not is_table_key(k)):
+        val = cols[key]
+        items = sorted(val.items()) if isinstance(val, dict) \
+            else [(None, val)]
+        for sub, a in items:
+            ref = seen.get(id(a))
+            if ref is not None:
+                layout.append((key, sub, "alias", 0, (), 0, a.dtype.str,
+                               ref))
+                continue
+            seen[id(a)] = (key, sub)
+            a = np.ascontiguousarray(a)
+            dt = a.dtype.str
+            tail = a.shape[1:]
+            w = int(np.prod(tail, dtype=np.int64)) if a.ndim > 1 else 1
+            off = widths.get(dt, 0)
+            parts.setdefault(dt, []).append(a.reshape(pad_n, w))
+            layout.append((key, sub, dt, off, tail, w, dt, 0))
+            widths[dt] = off + w
+    bufs = {dt: np.concatenate(ps, axis=1) for dt, ps in parts.items()}
+    return bufs, tuple(layout)
+
+
+def unpack_transfer_cols(bufs: dict, layout: tuple, pad_n: int) -> dict:
+    """The cols dict back from :func:`pack_transfer_cols` buffers (numpy
+    or tensors): every column is a slice of its dtype's buffer viewed to
+    ``[n, *tail]`` (no copy), and an alias entry is the SAME object as
+    the column it names."""
+    cols: dict = {}
+    aliases: list = []
+    for key, sub, wdt, off, tail, w, _dt, extra in layout:
+        if wdt == "alias":
+            aliases.append((key, sub, extra))
+            continue
+        buf = bufs[wdt]
+        arr = buf[:, off: off + w].reshape((buf.shape[0],) + tuple(tail))
+        if sub is None:
+            cols[key] = arr
+        else:
+            cols.setdefault(key, {})[sub] = arr
+    for key, sub, (rkey, rsub) in aliases:
+        src = cols[rkey] if rsub is None else cols[rkey][rsub]
+        if sub is None:
+            cols[key] = src
+        else:
+            cols.setdefault(key, {})[sub] = src
+    return cols
+
+
+def torch_dtype(dtype_str: str) -> torch.dtype:
+    """The device dtype of a packed buffer of numpy dtype ``dtype_str``."""
+    dt = _TORCH_DTYPES.get(dtype_str)
+    if dt is None:
+        raise TypeError(f"no device dtype for packed columns of numpy "
+                        f"dtype {dtype_str!r}")
+    return dt
+
+
+def gather_resident(idx: torch.Tensor, cols_dev: dict, mask_dev,
+                    cols_layout: tuple, pad_n: int) -> tuple:
+    """(cols, mask) of one chunk gathered on the device from a resident
+    group's tall buffers by ``idx`` (int32 ``[pad_n]``, -1 = pad slot).
+    Pad slots gather row 0 (always in bounds) under a False mask column,
+    so they contribute what a host chunk's fill-padded rows under a False
+    mask contribute: nothing.  Gather commutes with the unpack (both are
+    row-wise), so the columns equal those of a host-gathered chunk."""
+    safe = idx.clamp(min=0)
+    gathered = {dt: b.index_select(0, safe) for dt, b in cols_dev.items()}
+    cols = unpack_transfer_cols(gathered, cols_layout, pad_n)
+    mask = mask_dev.index_select(1, safe) & (idx >= 0)[None, :]
+    return cols, mask
+
+
 class _PendingSweep:
     __slots__ = ("result", "kinds", "offsets", "by_kind", "n",
                  "return_bits", "lane", "pad_n", "hit_cap", "flat",
@@ -238,6 +358,27 @@ class _FlatChunk:
         self.programs = programs
 
 
+class _ResidentChunk:
+    """A sweep chunk whose columns and masks already live on the device:
+    the resident group (``snapshot/device_residency.ResidentGroup``) and
+    the store positions to gather.  No host batch, columns or masks."""
+
+    __slots__ = ("rg", "by_kind", "kinds", "positions", "n", "pad_n",
+                 "return_bits", "budget", "programs")
+
+    def __init__(self, rg, positions, n, pad_n, return_bits, budget=None,
+                 programs=None):
+        self.rg = rg
+        self.by_kind = rg.by_kind
+        self.kinds = rg.kinds
+        self.positions = tuple(positions)
+        self.n = n
+        self.pad_n = pad_n
+        self.return_bits = return_bits
+        self.budget = budget
+        self.programs = programs
+
+
 class SweepEvaluator:
     """Runs a TorchDriver's compiled programs over sweep chunks on one
     device.  Reuses the driver's vocab so interned ids agree with the
@@ -265,6 +406,11 @@ class SweepEvaluator:
         # checked by content: they change only when the vocab crosses a
         # bucket or the data version moves
         self._table_dev_cache: dict = {}
+        # parameter tables on the device, keyed by the content of one
+        # dispatch's tables (insertion order kept: the evaluator reads a
+        # table in that order); a warm pass rebuilds identical tables and
+        # uploads none of them
+        self._param_dev_cache: dict = {}
         self._bucket = 2
         # per-phase wall-clock totals (seconds) and byte counts
         self.perf: dict = {}
@@ -376,10 +522,56 @@ class SweepEvaluator:
                           objects, any_gen, n, pad_n, return_bits,
                           budget=budget, programs=programs)
 
+    def sweep_flatten_from_batch(self, constraints: Sequence, batch,
+                                 objects: Sequence[dict],
+                                 return_bits: bool = False,
+                                 alias: Optional[dict] = None, budget=None):
+        """Stage 1 over a PRE-FLATTENED :class:`ColumnBatch` (the resident
+        snapshot's host-column lane): the columns were flattened when the
+        watch patched them in, so only pack/slim happens here.  ``alias``
+        is the producing Flattener's prefix-axis alias map.  Returns the
+        :class:`_FlatChunk` :meth:`sweep_flatten` would."""
+        programs = self.driver._programs
+        by_kind, lowered, _schema = self.sweep_schema(constraints,
+                                                      programs=programs)
+        if not lowered:
+            return {}
+        cols = slim_cols(pack_batch_cols(batch),
+                         self._needs_union(lowered, alias or {},
+                                           programs=programs))
+        n = len(objects)
+        if batch.has_generate_name is not None:
+            any_gen = bool(batch.has_generate_name[:n].any())
+        else:
+            any_gen = any(
+                "generateName" in (o.get("metadata") or {})
+                for o in objects)
+        return _FlatChunk(by_kind, tuple(sorted(lowered)), cols, batch,
+                          objects, any_gen, n, batch.n, return_bits,
+                          budget=budget, programs=programs)
+
+    def sweep_flatten_resident(self, rg, positions,
+                               return_bits: bool = False, budget=None):
+        """Stage 1 for DEVICE-RESIDENT snapshot rows: no flatten, no host
+        gather, no column pack — the chunk is the resident group plus the
+        row positions.  Returns a :class:`_ResidentChunk`, {} for no rows,
+        or None when the mirror's programs are no longer the driver's
+        (the caller then takes the host-column path)."""
+        programs = self.driver._programs
+        if tuple(programs[k].uid for k in rg.kinds
+                 if k in programs) != rg.uids:
+            return None
+        n = len(positions)
+        if n == 0:
+            return {}
+        return _ResidentChunk(rg, positions, n, self._pad(n), return_bits,
+                              budget=budget, programs=programs)
+
     def sweep_dispatch(self, flat):
         """Stage 2 (host -> device): match masks + parameter tables +
-        tensor upload + the device program.  {} passes through."""
-        if not isinstance(flat, _FlatChunk):
+        tensor upload + the device program, or for a resident chunk the
+        device gather + the device program.  {} passes through."""
+        if not isinstance(flat, (_FlatChunk, _ResidentChunk)):
             return flat if isinstance(flat, dict) else {}
         return self._sweep_dispatch_impl(flat, lane=self.collect)
 
@@ -391,7 +583,8 @@ class SweepEvaluator:
                                          "pinned": False, "blast": None}
         return st
 
-    def _table_tensor(self, key: str, val) -> torch.Tensor:
+    def _table_tensor(self, key: str, val,
+                      meter: str = "h2d_bytes") -> torch.Tensor:
         hit = self._table_dev_cache.get(key)
         if hit is not None and (
                 hit[0] is val
@@ -400,8 +593,27 @@ class SweepEvaluator:
             return hit[1]
         dev = to_tensor(val, self.device)
         self._table_dev_cache[key] = (val, dev)
-        self._perf_add("h2d_bytes", float(val.nbytes))
+        self._perf_add(meter, float(val.nbytes))
         return dev
+
+    def _param_tensors(self, tables: list, meter: str) -> list:
+        """The dispatch's parameter tables on the device, from the content
+        cache when one dispatch before built the same tables; a miss
+        uploads them and adds their bytes to ``perf[meter]``."""
+        arrs = [{name: np.asarray(v) for name, v in t.items()}
+                for t in tables]
+        key = tuple(tuple((name, a.dtype.str, a.shape, a.tobytes())
+                          for name, a in t.items()) for t in arrs)
+        hit = self._param_dev_cache.pop(key, None)
+        if hit is None:
+            hit = [{name: to_tensor(a, self.device) for name, a in t.items()}
+                   for t in arrs]
+            self._perf_add(meter, float(sum(a.nbytes for t in arrs
+                                            for a in t.values())))
+        self._param_dev_cache[key] = hit  # re-insert: most recent last
+        while len(self._param_dev_cache) > _PARAM_CACHE_CAP:
+            self._param_dev_cache.pop(next(iter(self._param_dev_cache)))
+        return hit
 
     def _upload_cols(self, cols: dict) -> dict:
         out: dict = {}
@@ -420,49 +632,24 @@ class SweepEvaluator:
         return out
 
     def _sweep_dispatch_impl(self, flat, lane: str = "masks"):
-        by_kind = flat.by_kind
+        if isinstance(flat, _ResidentChunk):
+            # the reduced collect's masks-lane overflow fallback re-enters
+            # here too
+            return self._dispatch_resident_impl(flat, lane=lane)
         kinds = flat.kinds
-        batch = flat.batch
-        objects = flat.objects
-        n, pad_n, return_bits = flat.n, flat.pad_n, flat.return_bits
+        pad_n = flat.pad_n
         progs = flat.programs if flat.programs is not None \
             else self.driver._programs
-        k = self.violations_limit
-        tables = []
-        mask_rows = []
-        offsets = {}
-        c_off = 0
         t0 = time.perf_counter()
-        for kind in kinds:
-            prog = progs[kind]
-            cons = by_kind[kind]
-            # param tables FIRST: they register StrPred needle rows that the
-            # vocab tables below must include
-            tables.append(build_param_table(prog.program, cons,
-                                            self.driver.vocab))
-            mask_rows.append(masks_mod.constraint_masks(
-                cons, batch, self.driver.vocab, objects,
-                any_generate_name=flat.any_gen,
-            ))
-            offsets[kind] = (c_off, c_off + len(cons))
-            c_off += len(cons)
+        tables, offsets, c_off = self._param_tables(flat, progs)
+        mask_rows = [masks_mod.constraint_masks(
+            flat.by_kind[kind], flat.batch, self.driver.vocab, flat.objects,
+            any_generate_name=flat.any_gen) for kind in kinds]
         self._perf_add("masks", time.perf_counter() - t0)
-        complete = bool(return_bits)
-        if lane == "reduced" and complete \
-                and self._hit_state_for(kinds, pad_n)["pinned"]:
-            # dense corpus: complete hit coordinates would outweigh the
-            # bit grid — this (kinds, pad) shape ships masks from now on
-            lane = "masks"
         t0 = time.perf_counter()
-        table_cols: dict = {}
-        for kind in kinds:
-            table_cols.update(vocab_tables(progs[kind].program,
-                                           self.driver.vocab))
-            table_cols.update(self.driver.inventory_cols(
-                kind, programs=progs)[0])
-        cols_dev = self._upload_cols({**flat.cols, **table_cols})
-        params_dev = [{key: to_tensor(v, self.device)
-                       for key, v in t.items()} for t in tables]
+        cols_dev = self._upload_cols({**flat.cols,
+                                      **self._shared_tables(kinds, progs)})
+        params_dev = self._param_tensors(tables, "h2d_bytes")
         # the match mask travels bit-packed ([C, pad_n/8] uint8) and
         # unpacks on the device
         mask_bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
@@ -472,6 +659,84 @@ class SweepEvaluator:
         t0 = time.perf_counter()
         raw = torch.cat([progs[kind].grid(params_dev[i], cols_dev, pad_n)
                          for i, kind in enumerate(kinds)], dim=0)
+        pending = self._fold(flat, raw, mask, lane, offsets, c_off,
+                             "h2d_bytes")
+        self._perf_add("dispatch", time.perf_counter() - t0)
+        return pending
+
+    def _dispatch_resident_impl(self, flat, lane: str = "masks"):
+        """Resident twin of :meth:`_sweep_dispatch_impl`: no host masks
+        (they live in the resident mirror), no column pack, no column
+        upload.  What may still cross to the device is the parameter
+        tables (content cache), the vocab/inventory tables (content
+        cache), the gather index vector (cached per position tuple) and,
+        on the budgeted reduced lane, the budget; each byte lands in
+        ``perf["resident_h2d_bytes"]``, so a warm pass over unchanged rows
+        reads 0."""
+        rg = flat.rg
+        kinds = flat.kinds
+        pad_n = flat.pad_n
+        progs = flat.programs if flat.programs is not None \
+            else self.driver._programs
+        meter = "resident_h2d_bytes"
+        t0 = time.perf_counter()
+        tables, offsets, c_off = self._param_tables(flat, progs)
+        tables_dev = {key: self._table_tensor(key, val, meter)
+                      for key, val in self._shared_tables(kinds,
+                                                          progs).items()}
+        params_dev = self._param_tensors(tables, meter)
+        idx_dev, idx_bytes = rg.chunk_idx(flat.positions, pad_n)
+        self._perf_add(meter, float(idx_bytes))
+        self._perf_add("upload", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cols, mask = gather_resident(idx_dev, rg.cols_dev, rg.mask_dev,
+                                     rg.cols_layout, pad_n)
+        cols.update(tables_dev)
+        raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
+                         for i, kind in enumerate(kinds)], dim=0)
+        pending = self._fold(flat, raw, mask, lane, offsets, c_off, meter)
+        self._perf_add("dispatch", time.perf_counter() - t0)
+        return pending
+
+    def _param_tables(self, flat, progs) -> tuple:
+        """(parameter tables, kind -> (row lo, row hi), C) of one dispatch,
+        in grid order.  Built before :meth:`_shared_tables`: they register
+        StrPred needle rows that the vocab tables must include."""
+        tables = []
+        offsets = {}
+        c_off = 0
+        for kind in flat.kinds:
+            cons = flat.by_kind[kind]
+            tables.append(build_param_table(progs[kind].program, cons,
+                                            self.driver.vocab))
+            offsets[kind] = (c_off, c_off + len(cons))
+            c_off += len(cons)
+        return tables, offsets, c_off
+
+    def _shared_tables(self, kinds, progs) -> dict:
+        """The vocab and inventory lookup tables the kinds' programs
+        read (``fn:``/``st:``/``inv:`` keys)."""
+        out: dict = {}
+        for kind in kinds:
+            out.update(vocab_tables(progs[kind].program, self.driver.vocab))
+            out.update(self.driver.inventory_cols(kind, programs=progs)[0])
+        return out
+
+    def _fold(self, flat, raw, mask, lane: str, offsets: dict, c_off: int,
+              meter: str):
+        """The device side of both chunk kinds from the raw grid and the
+        match mask on: the collect lane's fold, as a :class:`_PendingSweep`
+        with a CUDA event recorded after it.  ``meter`` names the perf
+        key that counts the budget's upload."""
+        by_kind, kinds = flat.by_kind, flat.kinds
+        n, pad_n, return_bits = flat.n, flat.pad_n, flat.return_bits
+        k = self.violations_limit
+        complete = bool(return_bits)
+        if lane == "reduced" and complete \
+                and self._hit_state_for(kinds, pad_n)["pinned"]:
+            # dense corpus: complete hit coordinates would outweigh the
+            # bit grid — this (kinds, pad) shape ships masks from now on
+            lane = "masks"
         if lane == "reduced":
             k_eff = min(k, pad_n)
             if complete:
@@ -494,6 +759,7 @@ class SweepEvaluator:
                 guess = need if blast is None else \
                     min(need, max(_HIT_STEPS[1], 2 * blast))
                 hit_cap = hit_bucket(guess, c_off * k_eff)
+                self._perf_add(meter, float(budget_np.nbytes))
             result = self._reduce(raw, mask, budget_np, complete, hit_cap,
                                   k, pad_n)
             pending = _PendingSweep(result, kinds, offsets, by_kind, n,
@@ -512,7 +778,6 @@ class SweepEvaluator:
         if self.device.type == "cuda":
             pending.event = torch.cuda.Event()
             pending.event.record()
-        self._perf_add("dispatch", time.perf_counter() - t0)
         return pending
 
     def _reduce(self, raw, mask, budget_np, complete: bool, hit_cap: int,
