@@ -34,27 +34,46 @@ Phases (any failure raises and exits non-zero):
    resident columns only (repeated under ``torch.profiler`` for the
    device's idle share), (3) a clean ``audit_tick()``, (4) a 1% churn
    (label edits, ``privileged: true`` on some Pods, deletes and adds)
-   pumped and ticked, (5) ``audit_resync()``; on the reduced lane one more
-   resident dispatch of a gathered chunk with ``return_bits=False``, which
-   launches ``fused_fold``.  Every lowered group must be promoted, no
-   resident chunk may take the host-column path, steps 1 and 2 must equal
-   the path phase's relist run canonically, the repeat of step 2 must
-   upload 0 bytes, the dirty tick must evaluate only dirty rows and upload
-   under 5% of the resident bytes, the resync must find no difference,
-   and the card must equal a CPU snapshot run (``mode="on"``) on the first
-   8,192 objects, step by step.  Prints each step's wall, objects/s,
+   pumped and ticked; on the reduced lane one more resident dispatch of a
+   gathered chunk with ``return_bits=False``, which launches
+   ``fused_fold``.  Every lowered group must be promoted, no resident
+   chunk may take the host-column path, steps 1 and 2 must equal the path
+   phase's relist run canonically, the repeat of step 2 must upload 0
+   bytes, the dirty tick must evaluate only dirty rows and upload under 5%
+   of the resident bytes, and the card must equal a CPU snapshot run
+   (``mode="on"``) on the first 8,192 objects, step by step, where (5)
+   ``audit_resync()`` runs after the churn tick and must find no
+   difference on either device (the resync runs at that depth, not at the
+   full one: at 131,072 objects it took ~44 s per lane).  Prints each
+   step's wall, objects/s,
    snapshot-build (flatten), residency upload/patch and dispatch seconds,
    resident MB and uploaded bytes, and the rows patched;
-6. shapes (after the snapshot phase): as phase 4, at the (C, N, k) the
-   snapshot path launched too;
-7. profile: the reduced-lane audit once more under ``torch.profiler``,
+6. expand: the same objects and templates with the mutation bench's 8
+   mutators (6 the prefilter lowers, 2 host-only) and the reference's
+   ``expand-deployments`` ExpansionTemplate, audited with
+   ``--audit-expand``: every Deployment's implied Pod expands through the
+   batched stage (mutated with ``Source=Generated``) and is audited on the
+   card.  Relist on both collect lanes: the generated chunks must launch
+   ``fused_fold`` (reduced) and ``epilogue`` (masks), counted inside the
+   generator stage only; the implied Pods must add violations to the path
+   phase's totals and no total may fall; both lanes must agree.  Then a
+   resident-snapshot first pass, which must equal the relist canonically
+   and hold ``[Implied by expand-deployments]`` violations in its
+   generated verdicts, and a 1% churn tick.  The card must equal a CPU run
+   on the first 8,192 objects.  Prints each pass's wall, generators,
+   resultants, and the expand and generated-sweep seconds;
+7. shapes (after the snapshot and expand phases): as phase 4, at the
+   (C, N, k) the snapshot and expand paths launched too;
+8. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-8. admission: the library (all 46 templates and their sample
+9. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
    ``Batcher`` at its default window, batch size and interpreter cut-off
-   (with batch stats on) and failurePolicy=Fail.  ``--admissions``
+   (with batch stats on), failurePolicy=Fail and the
+   ``ExpansionSystem`` of the expand phase (each Deployment body's implied
+   Pod reviewed with ``Source=Generated``).  ``--admissions``
    AdmissionReview bodies (the library's ``samples/example_*.yaml``
    objects, then ``make_cluster_objects(..., seed=3)``; every tenth an
    UPDATE that carries an ``oldObject``, every twentieth of the others a
@@ -62,7 +81,8 @@ Phases (any failure raises and exits non-zero):
    are posted by 64 keep-alive clients in 8 load processes.  Every
    response must equal the port's in-process handler on the CPU without a
    batcher (the exact engines: the CEL evaluator and the Rego
-   interpreter); the deny message is compared as its set of lines, since
+   interpreter) and with the same expansion system, and some must carry
+   ``[Implied by expand-deployments]`` lines; the deny message is compared as its set of lines, since
    that handler lists CEL results before Rego ones and the grid lane
    lists them by constraint kind, as in the JAX package.  No answer may
    have code 500, the grid lane must have run, the CEL DELETE route of
@@ -71,20 +91,34 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-9. served: the served process's two threads on one driver and vocab, as
+10. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
-   webhook answers up to 1,024 of the admission bodies while the snapshot
+   webhook answers up to 512 of the admission bodies (cut from 1,024 so
+   the whole run stays well inside its time limit) while the snapshot
    audit loop ticks and resyncs over a ``FakeCluster`` of 4,096 objects
    that churns meanwhile.  Every answer must equal the CPU handler, at
    least one tick and one resync must overlap the burst, no resync may
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-10. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+11. mutate: the admission bodies posted to ``/v1/mutate`` of a
+   ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
+   ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
+   8 processes.  Every answer must equal the per-object
+   ``MutationHandler`` on the CPU, patch bytes included.  Then
+   ``MutationSystem.mutate_batch`` over the same objects on the card (the
+   6 lowered mutators, so the grids decide) must equal per-object
+   ``mutate``, with rows decided by the compiled program.  Prints
+   mutations/s, p50/p99, the outcome-lane histogram and the relevance
+   rows' wall time through ``CompiledProgram.run`` on the card against the
+   host ``_np_eval`` at bursts of 64 and 4,096.  (``/v1/admit`` with the
+   expansion system is served and held in the admission phase);
+12. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``snapshot_launches``
-   the snapshot path's.
+   the snapshot path's, ``expand_launches`` those inside the generator
+   stage of the expand phase.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -117,7 +151,7 @@ CHURN_SHARE = 0.01  # of the objects, per dirty tick of the snapshot phase
 GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
 GRAPH_REPLAYS = 25  # timed replays of that graph (median taken)
 LOAD_PROCS, LOAD_CONNS = 8, 8  # 64 keep-alive clients in 8 processes
-SERVED_ADMISSIONS, SERVED_OBJECTS = 1024, 4096  # the served phase's sizes
+SERVED_ADMISSIONS, SERVED_OBJECTS = 512, 4096  # the served phase's sizes
 
 
 def log(msg: str) -> None:
@@ -377,7 +411,8 @@ def shape_phase(rows, err, shapes) -> None:
                                   "launches": launches, "ms": ms,
                                   "bound_ms": bound_ms})
             log(f"{name} at C={c} N={n} k={k}: {ms:.5f} ms (device), "
-                f"{launches} launches on the relist and snapshot paths, plan "
+                f"{launches} launches on the relist, snapshot and expand "
+                f"paths, plan "
                 f"{fold.fold_plan(n, True)}")
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
@@ -708,18 +743,14 @@ def snapshot_lane(objects, relist_run, collect: str, card: str,
             raise AssertionError(f"snapshot[{collect}]: the churn tick "
                                  f"uploaded {rec4['h2d_bytes']} of "
                                  f"{resident} resident bytes")
-        run5, _ = step("5 resync", mgr.audit_resync)
-        if mgr.last_resync_diff is not None:
-            raise AssertionError(f"snapshot[{collect}]: resync differs: "
-                                 f"{mgr.last_resync_diff}")
         lowered = [s for s in snap.routed_stores() if s.lowered]
         promoted = sum(residency.is_resident(s) for s in lowered)
         host_chunks = mgr.perf.get("snapshot_host_chunks", 0.0)
         log(f"snapshot[{collect}]: {promoted} of {len(lowered)} lowered "
             f"groups resident, "
             f"{mgr.perf.get('snapshot_resident_chunks', 0.0):.0f} resident "
-            f"chunks, {host_chunks:.0f} host-column chunks, resync diff "
-            f"{mgr.last_resync_diff}, residency {residency.stats()}")
+            f"chunks, {host_chunks:.0f} host-column chunks, residency "
+            f"{residency.stats()}")
         if promoted != len(lowered) or not lowered or host_chunks:
             raise AssertionError(f"snapshot[{collect}]: a group served "
                                  f"host columns")
@@ -734,7 +765,7 @@ def snapshot_lane(objects, relist_run, collect: str, card: str,
                 ev.sweep_flatten_resident(rg, positions,
                                           return_bits=False)))
             out["direct"] = (store, positions, got)
-        out["resync_violations"] = sum(run5.total_violations.values())
+        out["churn_violations"] = rec4["violations"]
         return out
     finally:
         ingester.stop()
@@ -742,7 +773,8 @@ def snapshot_lane(objects, relist_run, collect: str, card: str,
 
 def snapshot_cpu_equal(objects) -> None:
     """The card's snapshot lane equals a CPU snapshot run on ``objects``,
-    step by step (full pass, resident pass, churn tick)."""
+    step by step (full pass, resident pass, churn tick, resync), and each
+    resync finds no difference."""
     sums = {}
     for device, mode in (("cuda", "auto"), ("cpu", "on")):
         mgr, cluster, ingester, residency, _snap, _ev = snapshot_world(
@@ -753,6 +785,10 @@ def snapshot_cpu_equal(objects) -> None:
                 objects, max(8, int(len(objects) * CHURN_SHARE))))
             ingester.pump()
             got.append(summary(mgr.audit_tick()))
+            got.append(summary(mgr.audit_resync()))
+            if mgr.last_resync_diff is not None:
+                raise AssertionError(f"snapshot on {device}: resync "
+                                     f"differs: {mgr.last_resync_diff}")
         finally:
             ingester.stop()
         if not residency.upload_count:
@@ -761,7 +797,8 @@ def snapshot_cpu_equal(objects) -> None:
     if sums["cuda"] != sums["cpu"]:
         raise AssertionError("snapshot: the CPU run differs from the card's")
     log(f"snapshot: cpu == cuda on the first {len(objects)} objects, step "
-        f"by step ({[sum(s[1].values()) for s in sums['cpu']]} violations)")
+        f"by step ({[sum(s[1].values()) for s in sums['cpu']]} violations), "
+        f"resync diff None on both")
 
 
 def snapshot_phase(objects, relist_runs, card: str,
@@ -806,8 +843,8 @@ def snapshot_phase(objects, relist_runs, card: str,
                                      f"{kind} differs from host columns")
     log(f"snapshot: the budgeted resident dispatch of {len(positions)} rows "
         f"equals the host-column dispatch ({len(want)} kinds)")
-    if results["reduced"]["resync_violations"] != \
-            results["masks"]["resync_violations"]:
+    if results["reduced"]["churn_violations"] != \
+            results["masks"]["churn_violations"]:
         raise AssertionError("snapshot: reduced and masks lanes disagree")
     if device == "cuda":
         snapshot_cpu_equal(objects[:CPU_PREFIX])
@@ -918,10 +955,11 @@ def admission_traffic(n: int) -> tuple:
 
 
 def _load_worker(port: int, share: list, conns: int, barrier,
-                 results) -> None:
+                 results, path: str = "/v1/admit") -> None:
     """One load process: ``conns`` threads, each posting its part of
-    ``share`` ([(index, body bytes)]) over one keep-alive connection, one
-    request at a time.  Puts [(index, latency s, status, reply bytes)]."""
+    ``share`` ([(index, body bytes)]) to ``path`` over one keep-alive
+    connection, one request at a time.  Puts [(index, latency s, status,
+    reply bytes)]."""
     out = []
     lock = threading.Lock()
 
@@ -930,7 +968,7 @@ def _load_worker(port: int, share: list, conns: int, barrier,
         try:
             for idx, data in part:
                 t0 = time.perf_counter()
-                conn.request("POST", "/v1/admit", body=data, headers={
+                conn.request("POST", path, body=data, headers={
                     "Content-Type": "application/json"})
                 resp = conn.getresponse()
                 reply = resp.read()
@@ -950,16 +988,18 @@ def _load_worker(port: int, share: list, conns: int, barrier,
     results.put(out)
 
 
-def post_concurrently(port: int, bodies: list) -> tuple:
-    """Post every body from LOAD_PROCS processes x LOAD_CONNS keep-alive
-    connections.  Returns (replies by index, latencies s, wall s)."""
+def post_concurrently(port: int, bodies: list,
+                      path: str = "/v1/admit") -> tuple:
+    """Post every body to ``path`` from LOAD_PROCS processes x LOAD_CONNS
+    keep-alive connections.  Returns (replies by index, latencies s, wall
+    s)."""
     ctx = multiprocessing.get_context("spawn")
     barrier = ctx.Barrier(LOAD_PROCS + 1)
     results = ctx.Queue()
     items = [(i, json.dumps(b).encode()) for i, b in enumerate(bodies)]
     procs = [ctx.Process(target=_load_worker,
                          args=(port, items[p::LOAD_PROCS], LOAD_CONNS,
-                               barrier, results), daemon=True)
+                               barrier, results, path), daemon=True)
              for p in range(LOAD_PROCS)]
     for proc in procs:
         proc.start()
@@ -1037,7 +1077,7 @@ def profile_grid_batch(client, bodies, namespaces) -> None:
 
 
 def _held_against_cpu(label: str, objects, namespaces, bodies,
-                      replies) -> tuple:
+                      replies, expansion_system=None) -> tuple:
     """Hold every served answer against the port's in-process handler on
     the CPU without a batcher (the exact engines), the deny message as its
     set of lines.  Raises on a difference; returns (denied, code 500)."""
@@ -1045,8 +1085,12 @@ def _held_against_cpu(label: str, objects, namespaces, bodies,
     from gatekeeper_tpu_torch.webhook.server import admission_response
 
     ref_client = _client(objects, device="cpu")[0]
+    # only given when set, so the served A/B tool can drive a checkout
+    # whose handler predates expansion
+    kw = {} if expansion_system is None else {
+        "expansion_system": expansion_system}
     ref = ValidationHandler(ref_client, namespace_lookup=namespaces.get,
-                            failure_policy="fail")
+                            failure_policy="fail", **kw)
     t0 = time.perf_counter()
     diffs, denied, code500, reordered = [], 0, 0, 0
     for i, body in enumerate(bodies):
@@ -1122,7 +1166,8 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
     server = WebhookServer(
         validation_handler=ValidationHandler(
             client, namespace_lookup=namespaces.get, batcher=batcher,
-            failure_policy="fail"),
+            failure_policy="fail",
+            expansion_system=mutation_systems()[1]),
         namespace_label_handler=NamespaceLabelHandler(),
         host="127.0.0.1", port=0, batcher=batcher).start()
     try:
@@ -1165,8 +1210,16 @@ def admission_phase(n: int, card: str, device: str = "cuda") -> dict:
 
     if device == "cuda":
         profile_grid_batch(client, bodies[:batcher.max_batch], namespaces)
-    denied, code500 = _held_against_cpu("admission", objects, namespaces,
-                                        bodies, replies)
+    denied, code500 = _held_against_cpu(
+        "admission", objects, namespaces, bodies, replies,
+        expansion_system=mutation_systems()[1])
+    implied = sum(IMPLIED in (r.get("status") or {}).get("message", "")
+                  for r in replies.values())
+    out["implied_denials"] = implied
+    log(f"admission: {implied} answers carry {IMPLIED} lines (the implied "
+        f"Pods of Deployment bodies, reviewed with Source=Generated)")
+    if not implied:
+        raise AssertionError("admission: no implied-Pod denial")
     if errors:
         raise AssertionError(f"query_batch raised: {errors[:3]}")
     if code500 or not lanes.get("grid") or not grid_stats:
@@ -1210,7 +1263,7 @@ def served_phase(n: int, n_objects: int, card: str,
         device=device, constraint_violations_limit=20, collect="reduced",
         audit_interval=0.25, audit_chunk_size=32768,
         audit_source="snapshot", snapshot_resync_every=2,
-        snapshot_resync_rotate=0,
+        snapshot_resync_rotate=0, audit_expand=False,
         snapshot_residency="auto" if device == "cuda" else "on")
     mgr, ingester = build_audit(args, cluster_objects, client, driver)
     cluster = ingester.source
@@ -1331,6 +1384,386 @@ def served_phase(n: int, n_objects: int, card: str,
     return out
 
 
+# --- mutation and expansion (the mutate and expand phases) -----------------
+
+# the reference's ExpansionTemplate from Gatekeeper's "Validation of
+# Workload Resources" docs: a Deployment implies the Pod of its template
+EXPAND_DEPLOYMENTS = {
+    "apiVersion": "expansion.gatekeeper.sh/v1alpha1",
+    "kind": "ExpansionTemplate",
+    "metadata": {"name": "expand-deployments"},
+    "spec": {"applyTo": [{"groups": ["apps"], "versions": ["v1"],
+                          "kinds": ["Deployment"]}],
+             "templateSource": "spec.template",
+             "generatedGVK": {"group": "", "version": "v1",
+                              "kind": "Pod"}},
+}
+IMPLIED = "[Implied by expand-deployments]"
+PREFILTER_BURSTS = (64, 4096)  # bursts the prefilter's two routes are timed at
+
+
+def _assign(name, location, value, extra=None) -> dict:
+    params = {"assign": {"value": value}}
+    params.update(extra or {})
+    return {"apiVersion": "mutations.gatekeeper.sh/v1", "kind": "Assign",
+            "metadata": {"name": name},
+            "spec": {"applyTo": [{"groups": [""], "versions": ["v1"],
+                                  "kinds": ["Pod"]}],
+                     "location": location, "parameters": params}}
+
+
+def _assign_meta(name, location, value) -> dict:
+    return {"apiVersion": "mutations.gatekeeper.sh/v1beta1",
+            "kind": "AssignMetadata", "metadata": {"name": name},
+            "spec": {"location": location,
+                     "parameters": {"assign": {"value": value}}}}
+
+
+def mutators() -> list:
+    """The 8-mutator registry of the JAX package's mutation bench: 6 the
+    prefilter lowers (first), 2 host-only (ModifySet, assignIf)."""
+    return [
+        _assign("pull-policy", "spec.containers[name: *].imagePullPolicy",
+                "Always"),
+        _assign("host-network", "spec.hostNetwork", False),
+        _assign("run-as-nonroot", "spec.securityContext.runAsNonRoot",
+                True),
+        _assign("priority", "spec.priority", 100),
+        _assign_meta("owner-label", "metadata.labels.owner",
+                     "platform-team"),
+        _assign_meta("audit-ann", "metadata.annotations.audited", "true"),
+        {"apiVersion": "mutations.gatekeeper.sh/v1", "kind": "ModifySet",
+         "metadata": {"name": "topo-keys"},
+         "spec": {"applyTo": [{"groups": [""], "versions": ["v1"],
+                               "kinds": ["Service"]}],
+                  "location": "spec.topologyKeys",
+                  "parameters": {"operation": "merge",
+                                 "values": {"fromList": ["zone"]}}}},
+        _assign("dns-policy-cond", "spec.dnsPolicy", "ClusterFirst",
+                extra={"assignIf": {"in": ["Default"]}}),
+    ]
+
+
+def mutation_systems(registry=None) -> tuple:
+    """(MutationSystem, ExpansionSystem) as the CLI loads them from
+    manifests: ``registry`` (default: the whole bench registry) and
+    ``expand-deployments``."""
+    from gatekeeper_tpu_torch.__main__ import build_mutation
+
+    return build_mutation((mutators() if registry is None else registry)
+                          + [EXPAND_DEPLOYMENTS])
+
+
+def _fold_counted(fn, launches: dict, shapes: dict):
+    """``fn`` wrapped so the fold kernels' launches and shapes inside its
+    calls add up in ``launches``/``shapes`` (the counters are set to 0
+    just before each call and read just after)."""
+    from gatekeeper_tpu_torch.ops import fold
+
+    def counted(*args, **kwargs):
+        for name in launches:
+            getattr(fold, name).launches = 0
+            getattr(fold, name).shapes.clear()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for name in launches:
+                launches[name] += getattr(fold, name).launches
+                shapes[name].update(getattr(fold, name).shapes)
+
+    return counted
+
+
+def expand_manager(objects, device: str, collect: str, launches=None,
+                   shapes=None, source: str = "relist") -> tuple:
+    """(manager, cluster, ingester): the library audit of ``objects`` with
+    the generator stage on (``--audit-expand``) and the path phase's
+    settings, relisting or (``source="snapshot"``) over a resident snapshot
+    fed by a ``FakeCluster`` watch (cluster and ingester None otherwise).
+    ``launches``/``shapes`` receive the fold kernels' launches inside the
+    generator stage."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+    client, driver, _nt, _nc = _client(objects, device=device)
+    evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
+                               collect=collect)
+    _ms, es = mutation_systems()
+    config = AuditConfig(violations_limit=20, chunk_size=32768,
+                         exact_totals=False, submit_window=4,
+                         expand_generated=True, audit_source=source)
+    kw, cluster, ingester = {}, None, None
+    lister = (lambda: iter(objects))
+    if source == "snapshot":
+        from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                                   DeviceResidency,
+                                                   SnapshotConfig,
+                                                   WatchIngester, gvks_of)
+        from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+        cluster = FakeCluster()
+        for o in objects:
+            cluster.apply(o)
+        snap = ClusterSnapshot(evaluator, SnapshotConfig())
+        ingester = WatchIngester(snap, cluster,
+                                 gvks_of(cluster.list())).start()
+        kw = {"snapshot": snap,
+              "residency": DeviceResidency(evaluator, mode="auto")}
+        lister = cluster.list
+    mgr = AuditManager(client, lister=lister, config=config,
+                       evaluator=evaluator, expansion_system=es, **kw)
+    if launches is not None:
+        for name in ("_sweep_generated", "_snapshot_generated"):
+            setattr(mgr, name, _fold_counted(getattr(mgr, name), launches,
+                                             shapes))
+    return mgr, cluster, ingester
+
+
+def _expand_step(label: str, mgr, fn, device: str, card: str) -> tuple:
+    """(run, record) of one audit pass ``fn`` with the generator stage:
+    wall, objects, violations, and the generator stage's own counts and
+    seconds in this pass."""
+    keys = ("generators", "resultants", "expand", "generated_sweep")
+    perf0 = {k: mgr.perf.get(k, 0.0) for k in keys}
+    t0 = time.perf_counter()
+    run = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "objects": run.total_objects,
+           "violations": sum(run.total_violations.values()),
+           **{k: mgr.perf.get(k, 0.0) - perf0[k] for k in keys}}
+    log(f"expand[{label}]: {rec['objects']} objects, {rec['violations']} "
+        f"violations, {wall:.3f}s; {rec['generators']:.0f} generators, "
+        f"{rec['resultants']:.0f} resultants; expand {rec['expand']:.3f}s, "
+        f"generated sweep {rec['generated_sweep']:.3f}s ({card})")
+    if run.incomplete:
+        raise AssertionError(f"expand[{label}]: incomplete run")
+    return run, rec
+
+
+def expand_audit(objects, device: str):
+    """One relist audit (its ``AuditRun``) with the generator stage, on
+    the reduced lane."""
+    mgr = expand_manager(objects, device, "reduced")[0]
+    return mgr.audit()
+
+
+def expand_phase(objects, plain_totals: dict, card: str,
+                 device: str = "cuda") -> tuple:
+    """``--audit-expand`` over the path phase's objects on both collect
+    lanes (relist), then a resident-snapshot first pass and a 1% churn
+    tick.  Returns (launches, shapes) of the fold kernels inside the
+    generator stage, and the steps' records.  ``device="cpu"`` rehearses
+    it (no launches to count, no card-against-CPU comparison)."""
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    launches = {"fused_fold": 0, "epilogue": 0}
+    shapes = {name: collections.Counter() for name in launches}
+    steps, runs = {}, {}
+    for collect, kernel in (("reduced", "fused_fold"),
+                            ("masks", "epilogue")):
+        before = dict(launches)
+        mgr = expand_manager(objects, device, collect, launches, shapes)[0]
+        run, steps[collect] = _expand_step(collect, mgr, mgr.audit, device,
+                                           card)
+        if device == "cuda" and launches[kernel] <= before[kernel]:
+            raise AssertionError(f"expand[{collect}]: the generated chunks "
+                                 f"never launched {kernel}")
+        extra = {k: v - plain_totals[collect].get(k, 0)
+                 for k, v in run.total_violations.items()}
+        if min(extra.values()) < 0 or sum(extra.values()) <= 0 or \
+                not 0 < steps[collect]["resultants"] \
+                == steps[collect]["generators"]:
+            raise AssertionError(f"expand[{collect}]: the implied Pods "
+                                 f"added no violations: {extra}")
+        steps[collect]["added_violations"] = sum(extra.values())
+        runs[collect] = run
+    if summary(runs["reduced"]) != summary(runs["masks"]):
+        raise AssertionError("expand: reduced and masks lanes disagree")
+    # the resident snapshot with the generator stage: a first pass, then a
+    # 1% churn tick
+    mgr, cluster, ingester = expand_manager(objects, device, "reduced",
+                                            launches, shapes, "snapshot")
+    try:
+        run1, steps["snapshot first pass"] = _expand_step(
+            "snapshot first pass", mgr, mgr.audit, device, card)
+        diff = AuditManager._verdicts_differ_canonical(
+            run1.kept, run1.total_violations, runs["reduced"].kept,
+            runs["reduced"].total_violations, 20)
+        if diff is not None:
+            raise AssertionError(f"expand: the snapshot differs from the "
+                                 f"relist: {diff}")
+        implied = sum(v.message.startswith(IMPLIED)
+                      for per_con in mgr._gen_verdicts.values()
+                      for _count, vs in per_con.values() for v in vs)
+        if not implied:
+            raise AssertionError(f"expand: no {IMPLIED} violations")
+        ops = snapshot_churn(objects, max(8, int(len(objects)
+                                                 * CHURN_SHARE)), seed=11)
+        _churn_apply(cluster, ops)
+        ingester.pump()
+        _run2, steps["snapshot churn tick"] = _expand_step(
+            f"snapshot churn tick ({len(ops)} operations)", mgr,
+            mgr.audit_tick, device, card)
+        rows = mgr.perf.get("last_rows_evaluated", 0.0)
+        if not 0 < rows <= len(ops):
+            raise AssertionError(f"expand: the churn tick evaluated {rows} "
+                                 f"rows for {len(ops)} operations")
+        steps["snapshot first pass"]["implied_violations"] = implied
+        log(f"expand: snapshot == relist canonically; {implied} {IMPLIED} "
+            f"violations in the generated verdicts; churn tick {rows:.0f} "
+            f"rows")
+    finally:
+        ingester.stop()
+    if device == "cuda":
+        prefix = objects[:CPU_PREFIX]
+        on_card = summary(expand_audit(prefix, "cuda"))
+        on_cpu = summary(expand_audit(prefix, "cpu"))
+        if on_card != on_cpu:
+            raise AssertionError("expand: the CPU run differs from the "
+                                 "card's")
+        log(f"expand: cpu == cuda on the first {CPU_PREFIX} objects "
+            f"({sum(on_cpu[1].values())} violations)")
+    log(f"expand: generator-stage launches {launches}, shapes "
+        f"{dict((k, dict(v)) for k, v in shapes.items())}")
+    return launches, {k: dict(v) for k, v in shapes.items()}, steps
+
+
+def _prefilter_times(objs, device: str) -> dict:
+    """Wall ms of the lane's relevance rows for one burst through each
+    route of the prefilter: the compiled programs on the card
+    (``CompiledProgram.run``: upload, torch ops, fetch) and the host numpy
+    ``_np_eval``, over one shared flatten; the two must agree."""
+    from gatekeeper_tpu_torch.mutation.device import (MutationPrefilter,
+                                                      _np_eval)
+
+    ms, _es = mutation_systems(mutators()[:6])
+    pre = MutationPrefilter(device=device)
+    low = [m for m in ms.active() if pre.add_mutator(m)]
+    n = len(objs)
+    _rel, batch = pre.relevance_and_batch(low, objs)
+    progs = [pre._programs[m.id][2] for m in low]
+    out = {}
+    for route, fn in (
+            ("device", lambda: [pre._run_program(p, batch, n)
+                                for p in progs]),
+            ("np_eval", lambda: [np.broadcast_to(np.asarray(_np_eval(
+                p.program.expr, batch, n), bool), (n,)) for p in progs])):
+        rows = fn()
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[route] = (statistics.median(times), rows)
+    for a, b in zip(out["device"][1], out["np_eval"][1]):
+        if not np.array_equal(a, b):
+            raise AssertionError("prefilter: the card's rows differ from "
+                                 "_np_eval's")
+    return {"device_ms": out["device"][0], "np_eval_ms": out["np_eval"][0],
+            "programs": len(progs)}
+
+
+def mutate_phase(n: int, card: str, device: str = "cuda") -> dict:
+    """``/v1/mutate`` (the batched lane behind its microbatcher) served on
+    ``device``, every answer held against the port's per-object CPU
+    handler; then ``mutate_batch`` on the card against per-object
+    ``mutate`` and the prefilter's two routes timed.  (``/v1/admit`` with
+    the expansion system is the admission phase's.)"""
+    from gatekeeper_tpu_torch.mutlane import (BatchedMutationHandler,
+                                              MutationBatcher, MutationLane)
+    from gatekeeper_tpu_torch.webhook.mutation import MutationHandler
+    from gatekeeper_tpu_torch.webhook.server import (WebhookServer,
+                                                     admission_response)
+
+    bodies, objects = admission_traffic(n)
+    namespaces = {o["metadata"]["name"]: o for o in objects
+                  if o.get("kind") == "Namespace"}
+    ms, _es = mutation_systems()
+    lane = MutationLane(ms, device=device)
+    lanes: collections.Counter = collections.Counter()
+    bursts: collections.Counter = collections.Counter()
+    mutate_objects = lane.mutate_objects
+
+    def counted_mutate(objs, **kwargs):
+        out = mutate_objects(objs, **kwargs)
+        lanes.update(o.lane for o in out)
+        bursts[len(objs)] += 1
+        return out
+
+    lane.mutate_objects = counted_mutate
+    mbatcher = MutationBatcher(lane).start()
+    server = WebhookServer(
+        mutation_handler=BatchedMutationHandler(
+            ms, lane=lane, namespace_lookup=namespaces.get,
+            batcher=mbatcher),
+        host="127.0.0.1", port=0, mutation_batcher=mbatcher).start()
+    try:
+        m_replies, m_lat, m_wall = post_concurrently(server.port, bodies,
+                                                     "/v1/mutate")
+    finally:
+        drained = server.stop()
+    out = {"mutations": n, "wall_s": m_wall, "mutations_per_s": n / m_wall,
+           "lanes": dict(lanes),
+           "batch_sizes": dict(sorted(bursts.items()))}
+    lat_ms = sorted(x * 1e3 for x in m_lat)
+    out["p50_ms"] = lat_ms[len(lat_ms) // 2]
+    out["p99_ms"] = lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))]
+    log(f"mutate: {n} mutations in {m_wall:.3f}s, "
+        f"{out['mutations_per_s']:.1f} mutations/s, p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms "
+        f"({LOAD_PROCS * LOAD_CONNS} keep-alive clients), {card}")
+    log(f"mutate: outcome lanes {dict(lanes)}, lane bursts "
+        f"{out['batch_sizes']}")
+    # every /v1/mutate answer against the per-object CPU handler
+    ref_ms = mutation_systems()[0]
+    ref = MutationHandler(ref_ms, namespace_lookup=namespaces.get)
+    diffs, patched, errors = [], 0, 0
+    for i, body in enumerate(bodies):
+        m = ref.handle(copy.deepcopy(body))
+        want = admission_response(m.uid, m.allowed, m.message, m.code,
+                                  warnings=m.warnings,
+                                  patch=m.patch)["response"]
+        patched += "patch" in want
+        errors += bool(m.message)
+        if m_replies[i] != want:
+            diffs.append((i, m_replies[i], want))
+    log(f"mutate: {patched} patched, {errors} with a mutation error, "
+        f"{len(diffs)} differ from the CPU MutationHandler")
+    if diffs or not patched or not drained:
+        raise AssertionError(f"mutate: answers differ from the CPU handler "
+                             f"(first: {diffs[:2]}), or the server did not "
+                             f"drain ({drained})")
+    # mutate_batch on the card: an all-lowered registry takes the grids
+    low_ms, _ = mutation_systems(mutators()[:6])
+    objs = [b["request"]["object"] for b in bodies
+            if b["request"].get("object") is not None]
+    card_objs, ref_objs = copy.deepcopy(objs), copy.deepcopy(objs)
+    t0 = time.perf_counter()
+    changed = low_ms.mutate_batch(card_objs, device=device)
+    batch_s = time.perf_counter() - t0
+    want = [low_ms.mutate(o) for o in ref_objs]
+    pre = low_ms._prefilter
+    log(f"mutate_batch on {device}: {len(objs)} objects, {sum(changed)} "
+        f"changed, {batch_s:.3f}s; prefilter rows {pre.perf}")
+    if changed != want or card_objs != ref_objs:
+        raise AssertionError("mutate_batch on the card differs from "
+                             "per-object mutate")
+    if pre.perf["program_rows"] <= 0:
+        raise AssertionError("mutate_batch: no compiled-program row ran")
+    out["mutate_batch_s"] = batch_s
+    out["prefilter"] = {}
+    for burst in PREFILTER_BURSTS:
+        rec = _prefilter_times(objs[:burst], device)
+        out["prefilter"][burst] = rec
+        log(f"prefilter at burst {burst}: {rec['programs']} relevance "
+            f"programs, card (CompiledProgram.run) {rec['device_ms']:.3f} "
+            f"ms, host _np_eval {rec['np_eval_ms']:.3f} ms (wall, median of "
+            f"7), {card}")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--objects", type=int, default=131072,
@@ -1354,15 +1787,22 @@ def main() -> int:
     rows, err = kernel_phase()
     phase("path")
     launches, shapes, objects, relist_runs = path_phase(args.objects)
+    plain_totals = {c: dict(run.total_violations)
+                    for c, run in relist_runs.items()}
     phase("snapshot")
     snap_launches, snap_shapes, snap_steps = snapshot_phase(
         objects, relist_runs, card)
     del relist_runs
     gc.collect()  # the snapshot worlds' reference cycles, before timing on
+    phase("expand")
+    exp_launches, exp_shapes, exp_steps = expand_phase(objects, plain_totals,
+                                                       card)
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
-                   + collections.Counter(snap_shapes[name]))
+                   + collections.Counter(snap_shapes[name])
+                   + collections.Counter(exp_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -1372,12 +1812,17 @@ def main() -> int:
     phase("served")
     served_phase(min(SERVED_ADMISSIONS, args.admissions), SERVED_OBJECTS,
                  card)
+    phase("mutate")
+    mutate = mutate_phase(args.admissions, card)
     log(f"snapshot steps: {json.dumps(snap_steps)}")
+    log(f"expand steps: {json.dumps(exp_steps)}")
+    log(f"mutate: {json.dumps(mutate)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["snapshot_launches"] = snap_launches[row["name"]]
+        row["expand_launches"] = exp_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,17 @@ in ``csrc/`` and build at first use.  Entry points take ``device=`` and
 default to ``"cuda"``; only a caller that asks for ``"cpu"`` gets the plain
 PyTorch versions of the kernels.
 
-The port covers the library audit sweep and validating admission so far:
-YAML loading, the Rego front end and lowering, the columnar flatten, the
-grid evaluator (``ir/program.py``), the driver (``drivers/torch_driver.py``,
-with the batched ``query_batch``), the one-device sweep
-(``parallel/sweep.py``) with both fold kernels (``ops/fold.py``), the serial
-audit schedule (``audit/manager.py``), the resident snapshot and its device
-residency (``snapshot/``), the webhook (``webhook/``) and
-``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
+The port covers the library audit sweep, validating and mutating
+admission and expansion so far: YAML loading, the Rego and CEL front ends
+and lowering, the columnar flatten, the grid evaluator (``ir/program.py``),
+the driver (``drivers/torch_driver.py``, with the batched
+``query_batch``), the one-device sweep (``parallel/sweep.py``) with both
+fold kernels (``ops/fold.py``), the serial audit schedule with its
+expansion generator stage (``audit/manager.py``), the resident snapshot and
+its device residency (``snapshot/``), mutation (``mutation/``, with the
+device prefilter) and its batched lane (``mutlane/``), expansion
+(``expansion/``), the webhook (``webhook/``: ``/v1/admit``, ``/v1/mutate``)
+and ``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
 """
 
 __version__ = "0.1.0"

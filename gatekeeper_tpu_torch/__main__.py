@@ -4,12 +4,15 @@ beside the audit loop.
     python -m gatekeeper_tpu_torch --manifests DIR --once \
         [--collect reduced|masks] [--device cuda|cpu] \
         [--constraint-violations-limit N] [--audit-chunk-size N] \
-        [--audit-source relist|snapshot] [--snapshot-residency auto|on|off]
+        [--audit-source relist|snapshot] [--snapshot-residency auto|on|off] \
+        [--audit-expand]
     python -m gatekeeper_tpu_torch --manifests DIR [--port N] \
         [--certs-dir D] [--tls-min-version 1.2|1.3] [--log-denies] \
         [--webhook-small-batch N] [--webhook-failure-policy fail|ignore] \
         [--device cuda|cpu] [--audit-interval S] [--audit-source ...] \
-        [--snapshot-resync-every N] [--snapshot-resync-rotate K]
+        [--snapshot-resync-every N] [--snapshot-resync-rotate K] \
+        [--audit-expand] [--mutate-lane batched|host|differential] \
+        [--operation audit|webhook|mutation-webhook ...]
 
 Loads ConstraintTemplates, constraints and cluster objects from YAML
 (files or directories, ``--manifests`` repeatable).  ``--device`` is where
@@ -23,6 +26,15 @@ also audits the status objects it writes (one ConstraintTemplatePodStatus
 per template); the port has no controller plane yet, so its object count
 leaves those out.
 
+Mutators (``mutations.gatekeeper.sh``: Assign, AssignMetadata, ModifySet,
+AssignImage) load into a ``MutationSystem`` and ExpansionTemplates
+(``expansion.gatekeeper.sh``) into an ``ExpansionSystem`` over it.
+``--audit-expand`` adds the audit's generator stage: every generator
+object (a Deployment, under the reference's ``expand-deployments``
+template) expands into its implied resultants, mutated with
+``Source=Generated``, and those are audited on the device too, their
+violations prefixed ``[Implied by <template>]``.
+
 ``--audit-source snapshot`` audits the resident columnar snapshot
 instead of relisting: the manifests populate an in-memory ``FakeCluster``
 that a ``WatchIngester`` watches, the first pass builds the snapshot, and
@@ -30,9 +42,18 @@ with ``--snapshot-residency`` ``auto`` (on a CUDA device) or ``on`` its
 columns and match masks stay on the device.  ``--once`` prints the same
 lines in either mode.
 
-Without ``--once`` the CLI serves ``/v1/admit``, ``/v1/admitlabel`` and
-``/healthz`` on ``--port`` (0 picks a free port; stderr prints
-``webhook serving on :PORT``) until SIGINT or SIGTERM, then drains.  Beside
+Without ``--once`` the CLI serves ``/v1/admit``, ``/v1/mutate``,
+``/v1/admitlabel`` and ``/healthz`` on ``--port`` (0 picks a free port;
+stderr prints ``webhook serving on :PORT``) until SIGINT or SIGTERM, then
+drains.  ``/v1/admit`` reviews each generator object's resultants with it.
+``/v1/mutate`` answers through the batched mutation lane and its
+microbatcher (``--mutate-lane batched``, the default), the per-object
+reference handler (``host``) or the batched lane checked against the
+reference on every batch (``differential``).  ``--operation`` (repeatable;
+default all three) picks what the process runs, as the reference's
+process split does: ``audit`` (the audit loop), ``webhook`` (validation)
+and ``mutation-webhook`` (mutation); ``--once`` audits whatever it is
+given.  Beside
 the webhook a thread runs ``AuditManager.run_forever()``: a relist sweep
 every ``--audit-interval`` seconds, or in snapshot mode a first full pass,
 then an incremental tick per interval and every
@@ -59,6 +80,8 @@ TEMPLATES_GROUP = "templates.gatekeeper.sh"
 CONSTRAINTS_GROUP = "constraints.gatekeeper.sh"
 CONFIG_GROUP = "config.gatekeeper.sh"
 AUDIT_JOIN_S = 120.0  # drain's wait for an audit pass in flight
+# the process split of --operation (reference pkg/operations)
+OPERATIONS = ("audit", "webhook", "mutation-webhook")
 
 
 def load_manifests(paths) -> list:
@@ -155,6 +178,31 @@ def build_client(objects, device: str = "cuda"):
     return client, driver
 
 
+def build_mutation(objects) -> tuple:
+    """(MutationSystem, ExpansionSystem) with every mutator and
+    ExpansionTemplate of ``objects`` installed; the expansion system
+    mutates resultants through the mutation system."""
+    from gatekeeper_tpu_torch.expansion.system import (EXPANSION_GROUP,
+                                                       ExpansionSystem)
+    from gatekeeper_tpu_torch.mutation.mutators import (MUTATIONS_GROUP,
+                                                        MUTATOR_KINDS)
+    from gatekeeper_tpu_torch.mutation.system import MutationSystem
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+
+    mutation_system = MutationSystem()
+    expansion_system = ExpansionSystem(mutation_system=mutation_system)
+    for obj in objects:
+        group, _v, kind = gvk_of(obj)
+        try:
+            if group == MUTATIONS_GROUP and kind in MUTATOR_KINDS:
+                mutation_system.upsert_unstructured(obj)
+            elif group == EXPANSION_GROUP and kind == "ExpansionTemplate":
+                expansion_system.upsert_template(obj)
+        except Exception as e:
+            print(f"{kind} {name_of(obj)} skipped: {e}", file=sys.stderr)
+    return mutation_system, expansion_system
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m gatekeeper_tpu_torch")
     p.add_argument("--manifests", action="append", default=[],
@@ -212,29 +260,60 @@ def main(argv=None) -> int:
                         "match masks on the device, patched by scatter "
                         "('auto': only on a CUDA device; 'on': on any "
                         "device; 'off': host columns)")
+    p.add_argument("--audit-expand", action="store_true",
+                   help="expansion generator stage in the audit sweep: "
+                        "generator objects (per ExpansionTemplate "
+                        "applyTo) expand through the batched stage and "
+                        "their resultants — implied Pods with "
+                        "Source=Generated mutation applied — are audited "
+                        "on the device with the template's "
+                        "enforcementAction override")
+    p.add_argument("--mutate-lane", default="batched",
+                   choices=["batched", "host", "differential"],
+                   help="/v1/mutate serving lane: 'batched' coalesces "
+                        "mutate reviews into one columnar lane pass "
+                        "(host fixed-point fallback for unsupported "
+                        "mutators); 'host' is the per-object reference "
+                        "path; 'differential' runs the batched lane AND "
+                        "asserts it bit-identical to the reference per "
+                        "batch (debugging)")
+    p.add_argument("--operation", action="append", default=[],
+                   choices=OPERATIONS,
+                   help="audit|webhook|mutation-webhook (repeatable; "
+                        "default all)")
     args = p.parse_args(argv)
     from gatekeeper_tpu_torch import resolve_device
 
     resolve_device(args.device)  # no card and no --device cpu: raise now
     objects = load_manifests(args.manifests)
     client, driver = build_client(objects, device=args.device)
+    mutation_system, expansion_system = build_mutation(objects)
     print(f"templates: {len(client.templates())} "
           f"({len(driver.lowered_kinds())} on the device verdict path), "
-          f"constraints: {len(client.constraints())}", file=sys.stderr)
-    mgr, ingester = build_audit(args, objects, client, driver)
+          f"constraints: {len(client.constraints())}, mutators: "
+          f"{len(mutation_system.mutators())}, expansion templates: "
+          f"{len(expansion_system.templates())}", file=sys.stderr)
+    operations = set(args.operation or OPERATIONS)
+    mgr = ingester = None
+    if args.once or "audit" in operations:
+        mgr, ingester = build_audit(args, objects, client, driver,
+                                    expansion_system=expansion_system)
     try:
         if args.once:
             return audit_once(mgr)
-        return serve(args, objects, client, mgr)
+        return serve(args, objects, client, mgr, operations,
+                     mutation_system, expansion_system)
     finally:
         if ingester is not None:
             ingester.stop()
 
 
-def build_audit(args, objects, client, driver) -> tuple:
+def build_audit(args, objects, client, driver,
+                expansion_system=None) -> tuple:
     """(AuditManager, WatchIngester or None) as the flags ask: a relisting
     lister over the manifests, or the resident snapshot fed by a watch on a
-    ``FakeCluster`` that holds them."""
+    ``FakeCluster`` that holds them.  With ``--audit-expand`` the manager
+    expands generator objects through ``expansion_system``."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
 
@@ -248,10 +327,12 @@ def build_audit(args, objects, client, driver) -> tuple:
         chunk_size=args.audit_chunk_size,
         audit_source=args.audit_source,
         resync_every=args.snapshot_resync_every,
-        resync_rotate=args.snapshot_resync_rotate)
+        resync_rotate=args.snapshot_resync_rotate,
+        expand_generated=args.audit_expand)
     if args.audit_source != "snapshot":
         return AuditManager(client, lister=lambda: iter(objects),
-                            config=config, evaluator=evaluator), None
+                            config=config, evaluator=evaluator,
+                            expansion_system=expansion_system), None
     from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
                                                DeviceResidency,
                                                SnapshotConfig, WatchIngester,
@@ -273,7 +354,8 @@ def build_audit(args, objects, client, driver) -> tuple:
           f"{args.snapshot_residency}", file=sys.stderr)
     mgr = AuditManager(client, lister=cluster.list, config=config,
                        evaluator=evaluator, snapshot=snapshot,
-                       residency=residency)
+                       residency=residency,
+                       expansion_system=expansion_system)
     return mgr, ingester
 
 
@@ -312,11 +394,37 @@ def start_audit_loop(audit_mgr):
     return auditor
 
 
-def serve(args, objects, client, audit_mgr) -> int:
-    """Serve the admission webhook, with ``audit_mgr.run_forever()`` on a
-    thread beside it, until SIGINT or SIGTERM; then stop the audit loop and
-    drain.  The batcher thread and the audit thread share the device on its
-    default stream."""
+def mutation_handler(args, mutation_system, namespace_lookup,
+                     excluder) -> tuple:
+    """(handler, MutationBatcher or None) of ``/v1/mutate`` as
+    ``--mutate-lane`` asks: the batched lane behind a started
+    microbatcher, or the per-object reference handler."""
+    if args.mutate_lane == "host":
+        from gatekeeper_tpu_torch.webhook.mutation import MutationHandler
+
+        return MutationHandler(mutation_system,
+                               namespace_lookup=namespace_lookup,
+                               process_excluder=excluder), None
+    from gatekeeper_tpu_torch.mutlane import (BatchedMutationHandler,
+                                              MutationBatcher, MutationLane)
+
+    lane = MutationLane(mutation_system,
+                        differential=args.mutate_lane == "differential",
+                        device=args.device)
+    batcher = MutationBatcher(lane).start()
+    return BatchedMutationHandler(mutation_system, lane=lane,
+                                  namespace_lookup=namespace_lookup,
+                                  process_excluder=excluder,
+                                  batcher=batcher), batcher
+
+
+def serve(args, objects, client, audit_mgr, operations, mutation_system,
+          expansion_system) -> int:
+    """Serve the admission webhook (the ``webhook`` and
+    ``mutation-webhook`` operations), with ``audit_mgr.run_forever()`` on
+    a thread beside it (the ``audit`` operation), until SIGINT or SIGTERM;
+    then stop the audit loop and drain.  The batcher threads and the audit
+    thread share the device on its default stream."""
     import os
     import signal
     import threading
@@ -330,54 +438,79 @@ def serve(args, objects, client, audit_mgr) -> int:
 
     namespaces = {name_of(o): o for o in objects
                   if gvk_of(o) == ("", "v1", "Namespace")}
-    batcher = Batcher(client, small_batch=args.webhook_small_batch).start()
-    try:
-        warm_batcher(client, batcher)
-        certfile = keyfile = None
-        if args.certs_dir:
-            certfile = os.path.join(args.certs_dir, "tls.crt")
-            keyfile = os.path.join(args.certs_dir, "tls.key")
-        server = WebhookServer(
-            validation_handler=ValidationHandler(
-                client,
-                process_excluder=process_excluder(objects),
-                namespace_lookup=namespaces.get,
+    excluder = process_excluder(objects)
+    server = batcher = mutation_batcher = None
+    if operations & {"webhook", "mutation-webhook"}:
+        try:
+            validation = mutation = None
+            if "webhook" in operations:
+                batcher = Batcher(client,
+                                  small_batch=args.webhook_small_batch).start()
+                warm_batcher(client, batcher)
+                validation = ValidationHandler(
+                    client,
+                    process_excluder=excluder,
+                    namespace_lookup=namespaces.get,
+                    batcher=batcher,
+                    log_denies=args.log_denies,
+                    failure_policy=args.webhook_failure_policy,
+                    expansion_system=expansion_system,
+                )
+            if "mutation-webhook" in operations:
+                mutation, mutation_batcher = mutation_handler(
+                    args, mutation_system, namespaces.get, excluder)
+            certfile = keyfile = None
+            if args.certs_dir:
+                certfile = os.path.join(args.certs_dir, "tls.crt")
+                keyfile = os.path.join(args.certs_dir, "tls.key")
+            server = WebhookServer(
+                validation_handler=validation,
+                mutation_handler=mutation,
+                namespace_label_handler=NamespaceLabelHandler(),
+                port=args.port,
+                certfile=certfile,
+                keyfile=keyfile,
+                tls_min_version=args.tls_min_version,
                 batcher=batcher,
-                log_denies=args.log_denies,
-                failure_policy=args.webhook_failure_policy,
-            ),
-            namespace_label_handler=NamespaceLabelHandler(),
-            port=args.port,
-            certfile=certfile,
-            keyfile=keyfile,
-            tls_min_version=args.tls_min_version,
-            batcher=batcher,
-        ).start()
-    except BaseException:
-        batcher.stop()
-        raise
-    print(f"webhook serving on :{server.port}", file=sys.stderr, flush=True)
-    auditor = start_audit_loop(audit_mgr)
+                mutation_batcher=mutation_batcher,
+            ).start()
+        except BaseException:
+            for b in (batcher, mutation_batcher):
+                if b is not None:
+                    b.stop()
+            raise
+        print(f"webhook serving on :{server.port} (operations "
+              f"{sorted(operations)})", file=sys.stderr, flush=True)
+    auditor = start_audit_loop(audit_mgr) if "audit" in operations \
+        else None
 
     stopping = threading.Event()
 
     def _on_signal(signum, frame):
         print(f"signal {signum}: draining", file=sys.stderr, flush=True)
-        server.begin_drain()
+        if server is not None:
+            server.begin_drain()
         stopping.set()
 
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
     while not stopping.wait(1.0):
         pass
-    audit_mgr.stop()
-    drained = server.stop()
-    # a pass in flight finishes first; the loop exits at its next wait
-    auditor.join(timeout=AUDIT_JOIN_S)
-    if auditor.is_alive():
-        print(f"WARNING: audit pass still running after {AUDIT_JOIN_S:.0f}s "
-              f"of drain; abandoned", file=sys.stderr, flush=True)
-    batcher.stop()  # idempotent (server.stop drained it already)
+    drained = True
+    if auditor is not None:
+        audit_mgr.stop()
+    if server is not None:
+        drained = server.stop()
+    if auditor is not None:
+        # a pass in flight finishes first; the loop exits at its next wait
+        auditor.join(timeout=AUDIT_JOIN_S)
+        if auditor.is_alive():
+            print(f"WARNING: audit pass still running after "
+                  f"{AUDIT_JOIN_S:.0f}s of drain; abandoned",
+                  file=sys.stderr, flush=True)
+    for b in (batcher, mutation_batcher):
+        if b is not None:
+            b.stop()  # idempotent (server.stop drained it already)
     print("drain complete" if drained else
           "WARNING: drain exceeded its budget; in-flight work abandoned",
           file=sys.stderr, flush=True)

@@ -5,7 +5,10 @@ relisting lister, and the resident-snapshot lane (``audit_source=
 "snapshot"``: full passes and incremental ticks over
 ``snapshot/store.ClusterSnapshot`` rows, device-resident through
 ``snapshot/device_residency.DeviceResidency`` when one is given, with
-the periodic resync differential), plus the ``run_forever`` loop of both.
+the periodic resync differential), plus the ``run_forever`` loop of both,
+and the expansion generator stage of both (``expand_generated``: generator
+objects expand through ``mutlane.ExpansionStage`` and their resultants
+audit as ``Source=Generated`` chunks).
 Reference flow (pkg/audit/manager.go:258-973): list every auditable object
 (chunked) → review each against all constraints → keep the first K
 violations per constraint (LimitQueue) → write constraint status.
@@ -16,8 +19,7 @@ only the ≤K kept violations per constraint render to messages through the
 exact interpreter.  Kinds the sweep does not cover go to their driver's
 ``query_batch`` (the admission path), on the sweep's device.
 
-Not ported yet: the staged pipeline schedule, the expansion generator
-stage (and the snapshot's generated verdicts), the snapshot spiller, the
+Not ported yet: the staged pipeline schedule, the snapshot spiller, the
 fleet seams, export, metrics, tracing and brownout hooks.
 """
 
@@ -34,7 +36,8 @@ import numpy as np
 from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, Constraint
 from gatekeeper_tpu_torch.client.client import Client
 from gatekeeper_tpu_torch.drivers.base import ReviewCfg
-from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+from gatekeeper_tpu_torch.expansion.aggregate import CHILD_MSG_PREFIX
+from gatekeeper_tpu_torch.match.match import SOURCE_GENERATED, SOURCE_ORIGINAL
 from gatekeeper_tpu_torch.target.review import AugmentedUnstructured
 from gatekeeper_tpu_torch.utils.logging import log_event
 from gatekeeper_tpu_torch.utils.rawjson import peek_kind
@@ -72,6 +75,13 @@ class AuditConfig:
     # proves the store only, the cluster-global verdict differential runs
     # when rotation is off.  0/1 = off
     resync_rotate: int = 0
+    # expansion generator stage (--audit-expand): generator objects
+    # (Deployment etc.) listed by the sweep expand through the batched
+    # mutlane.ExpansionStage and their resultants (implied Pods, with
+    # Source=Generated mutation applied) are audited at sweep scale with
+    # the template's enforcementAction override — policies on the
+    # generated GVK see violations BEFORE any Pod exists (shift-left)
+    expand_generated: bool = False
 
 
 @dataclass
@@ -134,6 +144,7 @@ class AuditManager:
         evaluator=None,  # parallel.sweep.SweepEvaluator (optional)
         snapshot=None,  # snapshot.ClusterSnapshot (audit_source=snapshot)
         residency=None,  # snapshot.DeviceResidency (resident lane)
+        expansion_system=None,  # expansion.ExpansionSystem (expand stage)
     ):
         self.client = client
         self.lister = lister
@@ -144,6 +155,16 @@ class AuditManager:
         # resident chunks and falls back to host columns per group
         # whenever the residency declines
         self.residency = residency
+        self.expansion_system = expansion_system
+        # expansion generator stage state: the batched stage (lazy), the
+        # per-sweep generator-object tee, the Namespace inventory the
+        # expand needs, and — snapshot mode — per-parent-gid generated
+        # verdicts so the stage stays O(churn) like the base rows
+        self._expansion_stage = None
+        self._gen_buf: Optional[list] = None
+        self._gen_ns: dict = {}
+        self._gen_kinds: set = set()
+        self._gen_verdicts: dict = {}
         # first difference of the last resync differential (None =
         # identical)
         self.last_resync_diff: Optional[str] = None
@@ -197,6 +218,8 @@ class AuditManager:
             run.duration_s = time.time() - t0
             return run
 
+        gen_stage = self._gen_stage()
+        self._gen_reset(gen_stage is not None)
         limit = self.config.violations_limit
         kept: dict = {(c.kind, c.name): [] for c in constraints}
         totals: dict = {(c.kind, c.name): 0 for c in constraints}
@@ -206,6 +229,11 @@ class AuditManager:
         self._sweep_serial(constraints, device, kept, totals, limit,
                            counter, run)
         run.total_objects = counter[0]
+        if gen_stage is not None and self._gen_buf:
+            # the generator stage: expanded resultants audit AFTER the
+            # base pass so base kept-ordering is unchanged
+            self._sweep_generated(gen_stage, self._gen_buf, constraints,
+                                  kept, totals, limit, run)
         run.total_violations = totals
         run.kept = kept
         run.duration_s = time.time() - t0
@@ -227,7 +255,10 @@ class AuditManager:
         per-kind-group chunks (parallel/sweep.make_kind_router — the
         match-kinds prefilter of manager.go:427-483 applied per template),
         so objects no template can match skip the device entirely.
-        ``counter[0]`` accumulates listed objects."""
+        ``counter[0]`` accumulates listed objects.  Every listed object
+        passes the generator tee (:meth:`_gen_tee`) when it is armed."""
+        if self._gen_buf is not None:
+            self._gen_buf = []  # one tee per sweep pass
         if use_router:
             from gatekeeper_tpu_torch.parallel.sweep import make_kind_router
 
@@ -236,7 +267,9 @@ class AuditManager:
             bufs: dict = {}  # group -> pending chunk
             for obj in self.lister():
                 counter[0] += 1
-                g = router(peek_kind(obj))
+                k = peek_kind(obj)
+                self._gen_tee(obj, k)
+                g = router(k)
                 if not g:
                     continue  # no template's match reaches this kind
                 buf = bufs.setdefault(g, [])
@@ -254,6 +287,8 @@ class AuditManager:
         else:
             chunk: list = []
             for obj in self.lister():
+                if self._gen_buf is not None:
+                    self._gen_tee(obj, gvk_of(obj)[2])
                 chunk.append(obj)
                 counter[0] += 1
                 if len(chunk) >= self.config.chunk_size:
@@ -397,21 +432,24 @@ class AuditManager:
             fold_oldest()
 
     # --- chunk evaluation ------------------------------------------------
-    def _audit_chunk(self, objects, constraints, kept, totals, limit):
+    def _audit_chunk(self, objects, constraints, kept, totals, limit,
+                     source=SOURCE_ORIGINAL, overrides=None):
         """No-evaluator path: every constraint goes through its template's
-        own driver."""
+        own driver.  ``source``/``overrides`` carry the expansion
+        generator stage's context (Generated reviews, per-object
+        (template, enforcementAction) overrides)."""
         target = self.client.target
         reviews = [
             target.handle_review(
-                AugmentedUnstructured(object=o, source=SOURCE_ORIGINAL)
+                AugmentedUnstructured(object=o, source=source)
             )
             for o in objects
         ]
         self._eval_via_drivers(constraints, objects, reviews, kept, totals,
-                               limit)
+                               limit, overrides=overrides)
 
     def _eval_via_drivers(self, constraints, objects, reviews, kept, totals,
-                          limit):
+                          limit, overrides=None):
         """Evaluate constraints through their own template's driver's
         ``query_batch``.  This is the lane for every constraint the device
         sweep did not cover: non-lowered Rego templates and referential
@@ -426,11 +464,13 @@ class AuditManager:
                 con = self.client.get_constraint(*key)
                 for msg, details in results:
                     if len(kept[key]) < limit:
-                        kept[key].append(
-                            self._violation(con, objects[oi], msg, details))
+                        kept[key].append(self._violation(
+                            con, objects[oi], msg, details,
+                            override=overrides[oi] if overrides else None))
 
     def _eval_rows_via_drivers(self, constraints, objects,
-                               reviews=None) -> dict:
+                               reviews=None,
+                               source=SOURCE_ORIGINAL) -> dict:
         """Exact-lane evaluation with per-row capture:
         ``{oi: {con_key: [(msg, details), ...]}}`` — each constraint
         through its own template's driver's ``query_batch``, on the
@@ -442,7 +482,7 @@ class AuditManager:
         target = self.client.target
         if reviews is None:
             reviews = [target.handle_review(AugmentedUnstructured(
-                object=o, source=SOURCE_ORIGINAL)) for o in objects]
+                object=o, source=source)) for o in objects]
         wanted = {c.key() for c in constraints}
         by_driver: dict[int, tuple] = {}
         for con in constraints:
@@ -507,9 +547,10 @@ class AuditManager:
                 yield con, total, kept_list
 
     def _process_swept(self, swept, objects, constraints, kept, totals,
-                       limit):
+                       limit, source=SOURCE_ORIGINAL, overrides=None):
         """Fold one chunk's device results into the run state and run the
-        non-lowered kinds through the exact engine."""
+        non-lowered kinds through the exact engine.  ``source``/
+        ``overrides`` as in :meth:`_audit_chunk`."""
         target = self.client.target
         review_cache: dict = {}
 
@@ -518,7 +559,7 @@ class AuditManager:
             r = review_cache.get(oi)
             if r is None:
                 r = target.handle_review(AugmentedUnstructured(
-                    object=objects[oi], source=SOURCE_ORIGINAL))
+                    object=objects[oi], source=source))
                 review_cache[oi] = r
             return r
 
@@ -538,21 +579,31 @@ class AuditManager:
             totals[key] += total
             for oi, msg, details in kept_list:
                 if len(kept[key]) < limit:
-                    kept[key].append(
-                        self._violation(con, objects[oi], msg, details))
+                    kept[key].append(self._violation(
+                        con, objects[oi], msg, details,
+                        override=overrides[oi] if overrides else None))
         # everything the device sweep did not cover (non-lowered kinds,
         # inventory-inexact referential kinds) goes through its own
         # driver's exact path
         rest = [c for c in constraints if c.kind not in swept]
         if rest:
             self._eval_via_drivers(rest, objects, get_reviews(), kept,
-                                   totals, limit)
+                                   totals, limit, overrides=overrides)
 
-    def _violation(self, con, obj, msg, details) -> Violation:
+    def _violation(self, con, obj, msg, details,
+                   override=None) -> Violation:
         group, version, kind = gvk_of(obj)
         meta = obj.get("metadata") or {}
         actions = con.actions_for(AUDIT_EP)
         action = actions[0] if actions else con.enforcement_action
+        if override is not None:
+            # expansion generator stage: the [Implied by <template>]
+            # message prefix and the template's enforcementAction
+            # override (reference: expansion/aggregate.go semantics)
+            template_name, override_action = override
+            msg = f"{CHILD_MSG_PREFIX % template_name} {msg}"
+            if override_action:
+                action = override_action
         return Violation(
             constraint=con,
             message=msg,
@@ -565,12 +616,13 @@ class AuditManager:
             details=details,
         )
 
-    def _render_fn(self, review_of=None):
+    def _render_fn(self, review_of=None, source=SOURCE_ORIGINAL):
         """``render(con, obj, cache_key=None)`` -> the exact engine's
         Results for one (constraint, object) hit, through the render
         driver: the same path for both audit sources, so messages and
-        details agree across them.  Reviews are cached per ``cache_key``;
-        ``review_of(cache_key)`` supplies them instead when given."""
+        details agree across them.  Reviews (under ``source``) are cached
+        per ``cache_key``; ``review_of(cache_key)`` supplies them instead
+        when given."""
         target = self.client.target
         driver = self._render_driver()
         cfg = ReviewCfg(enforcement_point=AUDIT_EP)
@@ -585,7 +637,7 @@ class AuditManager:
                     else None
                 if review is None:
                     review = target.handle_review(AugmentedUnstructured(
-                        object=obj, source=SOURCE_ORIGINAL))
+                        object=obj, source=source))
                     if cache_key is not None:
                         cache[cache_key] = review
             return driver.render_query(target.name, con, review, cfg).results
@@ -615,12 +667,17 @@ class AuditManager:
         rechunks = snap.rechunk_count
         if snap.set_constraints(constraints):
             n = snap.rebuild(self.lister)
+            # the verdict store was reset: generated verdicts reset with
+            # it (the full pass recomputes them for every row)
+            self._gen_verdicts.clear()
             log_event("info", "snapshot rebuilt",
                       event_type="snapshot_rebuilt", rows=n,
                       generation=snap.generation)
         elif snap.rechunk_count != rechunks:
             # a template/constraint change was absorbed by re-chunking the
-            # resident rows (zero relist); every row is dirty now
+            # resident rows (zero relist); every row is dirty now, and the
+            # generated verdicts are re-derived with them
+            self._gen_verdicts.clear()
             log_event("info", "snapshot rechunked (no relist)",
                       event_type="snapshot_rechunked",
                       rows=snap.live_count(), generation=snap.generation)
@@ -649,6 +706,9 @@ class AuditManager:
         h2d0 = (ev.perf.get("resident_h2d_bytes", 0.0)
                 + ev.perf.get("h2d_bytes", 0.0)) if ev is not None else 0.0
         self._snapshot_eval(rows, run)
+        # the generator stage rides the same dirty set: only (re)evaluated
+        # parents re-expand, clean parents keep their generated verdicts
+        self._snapshot_generated(rows, constraints, run)
         run.total_objects = snap.live_count()
         totals, kept = self._snapshot_collect(constraints)
         run.total_violations = totals
@@ -766,7 +826,10 @@ class AuditManager:
                 fold_oldest()
 
     def _perf_count(self, name: str) -> None:
-        self.perf[name] = self.perf.get(name, 0.0) + 1.0
+        self._perf_add(name, 1.0)
+
+    def _perf_add(self, name: str, value: float) -> None:
+        self.perf[name] = self.perf.get(name, 0.0) + value
 
     def _fold_snapshot_chunk(self, swept, cons_g, gids, objects) -> None:
         """Replace the verdict-store entries of an evaluated row set:
@@ -827,7 +890,133 @@ class AuditManager:
                     if len(kept[ckey]) < limit:
                         kept[ckey].append(
                             self._violation(con, obj, msg, details))
+        # generated resultants (expansion generator stage): per-parent
+        # entries recomputed whenever the parent row was (re)evaluated,
+        # clean parents keep their last generated verdicts — the same
+        # O(churn) contract the base rows have
+        dead = []
+        for gid, per_con in self._gen_verdicts.items():
+            if snap.obj_of(gid) is None:
+                dead.append(gid)  # parent deleted since the tick
+                continue
+            for ckey, (count, violations) in per_con.items():
+                if ckey not in totals:
+                    continue
+                totals[ckey] += count
+                for v in violations:
+                    if len(kept[ckey]) < limit:
+                        kept[ckey].append(v)
+        for gid in dead:
+            self._gen_verdicts.pop(gid, None)
         return totals, kept
+
+    def _eval_objects_capture(self, constraints, objects, source) -> tuple:
+        """({oi: {con_key: [(msg, details)]}}, lowered_kinds) — evaluate
+        arbitrary objects with per-object capture: device grid + exact
+        render for lowered kinds, driver exact lane for the rest.  The
+        snapshot generator stage's evaluator for generated resultants."""
+        out: dict = {}
+        swept: dict = {}
+        ev = self.evaluator
+        if ev is not None and objects:
+            flat = ev.sweep_flatten(constraints, objects,
+                                    return_bits=True, source=source)
+            if flat:
+                swept = ev.sweep_collect(ev.sweep_dispatch(flat))
+        render = self._render_fn(source=source)
+        k = len(objects)
+        for _kind, (kcons, _idx, _valid, _counts, bits) in swept.items():
+            for ci, con in enumerate(kcons):
+                for oi in violation_rows(bits, ci, k).tolist():
+                    results = render(con, objects[oi], cache_key=oi)
+                    out.setdefault(oi, {}).setdefault(
+                        con.key(), []).extend(
+                        (r.msg, (r.metadata or {}).get("details"))
+                        for r in results)
+        rest = [c for c in constraints if c.kind not in swept]
+        if rest:
+            for oi, per_con in self._eval_rows_via_drivers(
+                    rest, objects, source=source).items():
+                for ckey, results in per_con.items():
+                    out.setdefault(oi, {}).setdefault(
+                        ckey, []).extend(results)
+        return out, set(swept)
+
+    def _snapshot_generated(self, rows_by_store, constraints, run) -> None:
+        """Recompute the generated-resultant verdicts of every parent row
+        that was just (re)evaluated: expand through the batched stage,
+        evaluate resultants with Source=Generated, store per parent gid.
+        A parent that stopped being a generator (or was deleted) simply
+        loses its entry."""
+        stage = self._gen_stage()
+        if stage is None:
+            self._gen_verdicts.clear()
+            return
+        snap = self.snapshot
+        templates = self.expansion_system.templates()
+        gens: list = []
+        for store, rowlist in rows_by_store.items():
+            for gid, pos in rowlist:
+                obj = store.row_obj(pos)
+                self._gen_verdicts.pop(gid, None)
+                if obj is None:
+                    continue
+                if any(t.applies_to(obj) for t in templates):
+                    gens.append((gid, obj))
+        if not gens:
+            return
+        cons_by_key = {c.key(): c for c in constraints}
+        exact = self.config.exact_totals
+        chunk_size = max(1, self.config.chunk_size)
+        for i in range(0, len(gens), chunk_size):
+            part = gens[i:i + chunk_size]
+            namespaces = []
+            for _gid, obj in part:
+                ns = (obj.get("metadata") or {}).get("namespace", "") or ""
+                namespaces.append(snap.namespace(ns) if ns else None)
+            t0 = time.perf_counter()
+            results = stage.expand_batch([o for _g, o in part],
+                                         namespaces)
+            self._perf_add("expand", time.perf_counter() - t0)
+            self._perf_add("generators", len(part))
+            resultants: list = []  # (parent gid, obj, template, action)
+            for (gid, obj), res in zip(part, results):
+                if res.error is not None:
+                    log_event("warning",
+                              "audit expansion failed for a generator "
+                              "object", event_type="audit_expand_failed",
+                              name=(obj.get("metadata") or {})
+                              .get("name", ""), error=str(res.error))
+                    continue
+                resultants.extend(
+                    (gid, r.obj, r.template_name, r.enforcement_action)
+                    for r in res.resultants)
+            self._perf_add("resultants", len(resultants))
+            if not resultants:
+                continue
+            t0 = time.perf_counter()
+            captured, lowered = self._eval_objects_capture(
+                constraints, [r[1] for r in resultants],
+                SOURCE_GENERATED)
+            self._perf_add("generated_sweep", time.perf_counter() - t0)
+            for oi, (gid, robj, tname, action) in enumerate(resultants):
+                for ckey, results in captured.get(oi, {}).items():
+                    con = cons_by_key.get(ckey)
+                    if con is None:
+                        continue
+                    # totals parity with the relist generator stage:
+                    # non-exact device-lowered kinds count violating
+                    # OBJECTS, everything else counts results
+                    count = (len(results)
+                             if exact or con.kind not in lowered else 1)
+                    violations = [
+                        self._violation(con, robj, msg, details,
+                                        override=(tname, action))
+                        for msg, details in results]
+                    slot = self._gen_verdicts.setdefault(
+                        gid, {}).setdefault(ckey, [0, []])
+                    slot[0] += count
+                    slot[1].extend(violations)
 
     def audit_resync(self) -> AuditRun:
         """The periodic resync differential (snapshot mode): drain the
@@ -852,9 +1041,18 @@ class AuditManager:
             totals_f: dict = {c.key(): 0 for c in constraints}
             device = self.evaluator is not None \
                 and self._render_driver() is not None
+            fresh = AuditRun(timestamp=run.timestamp)
+            gen_stage = self._gen_stage()
+            self._gen_reset(gen_stage is not None)
             self._sweep_serial(constraints, device, kept_f, totals_f,
-                               self.config.violations_limit, [0],
-                               AuditRun(timestamp=run.timestamp))
+                               self.config.violations_limit, [0], fresh)
+            if gen_stage is not None and self._gen_buf:
+                # the reference sweep must expand too, or every generated
+                # verdict would read as a divergence
+                self._sweep_generated(gen_stage, self._gen_buf,
+                                      constraints, kept_f, totals_f,
+                                      self.config.violations_limit, fresh)
+            self._gen_reset(False)
             diff = self._verdicts_differ_canonical(
                 run.kept, run.total_violations, kept_f, totals_f,
                 self.config.violations_limit)
@@ -902,6 +1100,169 @@ class AuditManager:
             if len(va) < limit and va != vb:
                 return f"kept violations differ for {key}"
         return None
+
+    # --- expansion generator stage (mutlane/expand_stage.py) -------------
+    def _gen_stage(self):
+        """The batched expansion stage, or None when the generator stage
+        is off or has nothing to do.  Its lane's prefilter runs on the
+        evaluator's device (without an evaluator: ``"cuda"``)."""
+        if not self.config.expand_generated:
+            return None
+        if self.expansion_system is None or \
+                not self.expansion_system.templates():
+            return None
+        if self._expansion_stage is None:
+            from gatekeeper_tpu_torch.mutlane import ExpansionStage
+
+            device = (self.evaluator.device if self.evaluator is not None
+                      else "cuda")
+            self._expansion_stage = ExpansionStage(self.expansion_system,
+                                                   device=device)
+        return self._expansion_stage
+
+    def _gen_reset(self, active: bool) -> None:
+        """Arm (or disarm) the per-sweep generator tee."""
+        self._gen_buf = [] if active else None
+        self._gen_ns = {}
+        self._gen_kinds = set()
+        if active:
+            for t in self.expansion_system.templates():
+                for entry in t.apply_to:
+                    self._gen_kinds.update(entry.get("kinds") or [])
+
+    def _gen_tee(self, obj, kind: str) -> None:
+        """Observe one listed object: collect Namespaces (the expand's
+        namespace context) and generator objects (some template's
+        applyTo covers them).  RawJSON objects only parse when their
+        kind pre-qualifies."""
+        if self._gen_buf is None:
+            return
+        if kind == "Namespace":
+            name = (obj.get("metadata") or {}).get("name", "") or ""
+            if name:
+                self._gen_ns[name] = obj
+            return
+        if kind in self._gen_kinds:
+            if any(t.applies_to(obj)
+                   for t in self.expansion_system.templates()):
+                self._gen_buf.append(obj)
+
+    def _gen_namespace_of(self, obj):
+        ns = (obj.get("metadata") or {}).get("namespace", "") or ""
+        return self._gen_ns.get(ns) if ns else None
+
+    def _expand_bases(self, stage, bases) -> tuple:
+        """Expand a chunk of generator bases through the batched stage;
+        returns (resultants, errors) where each resultant is
+        ``(obj, template_name, enforcement_override)``."""
+        namespaces = [self._gen_namespace_of(b) for b in bases]
+        results = stage.expand_batch(bases, namespaces)
+        resultants: list = []
+        errors: list = []
+        for base, res in zip(bases, results):
+            if res.error is not None:
+                errors.append((base, res.error))
+                continue
+            resultants.extend((r.obj, r.template_name,
+                               r.enforcement_action)
+                              for r in res.resultants)
+        return resultants, errors
+
+    def _sweep_generated(self, stage, bases, constraints, kept, totals,
+                         limit, run=None) -> None:
+        """The generator stage of a relist sweep: expand the tee'd
+        generator objects in chunks, then audit every resultant at sweep
+        scale — device grid for lowered kinds (flattened with
+        Source=Generated so source-scoped matches hold), driver exact
+        lane for the rest — folding into the same kept/totals with the
+        template's enforcementAction override and the reference's
+        ``[Implied by <template>]`` message prefix."""
+        chunk_size = max(1, self.config.chunk_size)
+        for i in range(0, len(bases), chunk_size):
+            part = bases[i:i + chunk_size]
+            t0 = time.perf_counter()
+            resultants, errors = self._expand_bases(stage, part)
+            self._perf_add("expand", time.perf_counter() - t0)
+            self._perf_add("generators", len(part))
+            self._perf_add("resultants", len(resultants))
+            for base, err in errors:
+                # mirrors the webhook's ExpansionError handling:
+                # surfaced, never silently dropped, run keeps going
+                log_event("warning",
+                          "audit expansion failed for a generator object",
+                          event_type="audit_expand_failed",
+                          name=(base.get("metadata") or {}).get("name", ""),
+                          error=str(err))
+            t0 = time.perf_counter()
+            self._eval_generated_chunks(resultants, constraints, kept,
+                                        totals, limit, run)
+            self._perf_add("generated_sweep", time.perf_counter() - t0)
+
+    def _eval_generated_chunks(self, resultants, constraints, kept,
+                               totals, limit, run) -> None:
+        """Evaluate expanded resultants (Source=Generated) grouped the
+        way the base sweep groups objects (kind-bucketed router on the
+        device path)."""
+        chunk_size = max(1, self.config.chunk_size)
+        retries = max(0, self.config.chunk_retries)
+        ev = self.evaluator
+        device = ev is not None and self._render_driver() is not None
+
+        def fold(objs, cons, overrides):
+            last = None
+            for attempt in range(retries + 1):
+                try:
+                    if run is not None and attempt > 0:
+                        run.retried_chunks += 1
+                    if device:
+                        flat = ev.sweep_flatten(
+                            cons, objs,
+                            return_bits=self.config.exact_totals,
+                            source=SOURCE_GENERATED,
+                            budget=lambda con: limit - len(
+                                kept.get(con.key(), ())))
+                        swept = ev.sweep_collect(ev.sweep_dispatch(flat))
+                        self._process_swept(swept, objs, cons, kept,
+                                            totals, limit,
+                                            source=SOURCE_GENERATED,
+                                            overrides=overrides)
+                    else:
+                        self._audit_chunk(objs, cons, kept, totals,
+                                          limit, source=SOURCE_GENERATED,
+                                          overrides=overrides)
+                    return
+                except Exception as e:  # noqa: PERF203
+                    last = e
+            if run is not None:
+                run.failed_chunks += 1
+                run.incomplete = True
+            log_event("warning",
+                      "generated-object audit chunk dropped after "
+                      "exhausting retries",
+                      event_type="audit_chunk_failed", phase="generated",
+                      error=str(last))
+
+        if device:
+            from gatekeeper_tpu_torch.parallel.sweep import make_kind_router
+
+            router = make_kind_router(constraints)
+            bufs: dict = {}
+            for obj, tname, action in resultants:
+                g = router(gvk_of(obj)[2])
+                if not g:
+                    continue  # no template's match reaches this kind
+                bufs.setdefault(g, []).append((obj, tname, action))
+            for g, entries in bufs.items():
+                cons_g = [c for c in constraints if c.kind in g]
+                for j in range(0, len(entries), chunk_size):
+                    part = entries[j:j + chunk_size]
+                    fold([e[0] for e in part], cons_g,
+                         [(e[1], e[2]) for e in part])
+        else:
+            for j in range(0, len(resultants), chunk_size):
+                part = resultants[j:j + chunk_size]
+                fold([e[0] for e in part], constraints,
+                     [(e[1], e[2]) for e in part])
 
     # --- status writeback (reference: writeAuditResults, manager.go:947) -
     def _write_statuses(self, run: AuditRun, constraints):

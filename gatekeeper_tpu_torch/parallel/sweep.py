@@ -49,6 +49,7 @@ from gatekeeper_tpu_torch.ir.program import (build_param_table, col_key,
                                              is_table_key, needed_fields,
                                              pack_batch_cols, slim_cols,
                                              vocab_tables)
+from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
 from gatekeeper_tpu_torch.ops import fold
 from gatekeeper_tpu_torch.ops.flatten import Flattener, Schema
 
@@ -338,10 +339,12 @@ class _FlatChunk:
     """A host-flattened (not yet dispatched) sweep chunk."""
 
     __slots__ = ("by_kind", "kinds", "cols", "batch", "objects", "any_gen",
-                 "n", "pad_n", "return_bits", "budget", "programs")
+                 "n", "pad_n", "return_bits", "source", "budget",
+                 "programs")
 
     def __init__(self, by_kind, kinds, cols, batch, objects, any_gen, n,
-                 pad_n, return_bits, budget=None, programs=None):
+                 pad_n, return_bits, source=SOURCE_ORIGINAL, budget=None,
+                 programs=None):
         self.by_kind = by_kind
         self.kinds = kinds
         self.cols = cols
@@ -351,6 +354,11 @@ class _FlatChunk:
         self.n = n
         self.pad_n = pad_n
         self.return_bits = return_bits
+        # review source ("Original"/"Generated") the chunk's match masks
+        # evaluate under, as its reviews do: listed objects are Original,
+        # the expansion generator stage's resultants Generated, so
+        # source-scoped constraints match each correctly
+        self.source = source
         # reduced lane, budgeted variant: con -> remaining run-level kept
         # slots, evaluated at dispatch; None = full render cap
         self.budget = budget
@@ -495,9 +503,12 @@ class SweepEvaluator:
         return by_kind, lowered, schema
 
     def sweep_flatten(self, constraints: Sequence, objects: Sequence[dict],
-                      return_bits: bool = False, budget=None):
+                      return_bits: bool = False, budget=None,
+                      source: str = SOURCE_ORIGINAL):
         """Stage 1 (host): schema union + flatten + column pack/slim.
-        Returns a :class:`_FlatChunk`, or {} when no kind is lowered."""
+        Returns a :class:`_FlatChunk`, or {} when no kind is lowered.
+        ``source`` is the review source every object of the chunk is
+        matched under."""
         programs = self.driver._programs  # capture the programs once
         by_kind, lowered, schema = self.sweep_schema(constraints,
                                                      programs=programs)
@@ -520,7 +531,7 @@ class SweepEvaluator:
                 for o in objects)
         return _FlatChunk(by_kind, tuple(sorted(lowered)), cols, batch,
                           objects, any_gen, n, pad_n, return_bits,
-                          budget=budget, programs=programs)
+                          source=source, budget=budget, programs=programs)
 
     def sweep_flatten_from_batch(self, constraints: Sequence, batch,
                                  objects: Sequence[dict],
@@ -642,9 +653,11 @@ class SweepEvaluator:
             else self.driver._programs
         t0 = time.perf_counter()
         tables, offsets, c_off = self._param_tables(flat, progs)
+        sources = [flat.source] * len(flat.objects)
         mask_rows = [masks_mod.constraint_masks(
             flat.by_kind[kind], flat.batch, self.driver.vocab, flat.objects,
-            any_generate_name=flat.any_gen) for kind in kinds]
+            sources=sources, any_generate_name=flat.any_gen)
+            for kind in kinds]
         self._perf_add("masks", time.perf_counter() - t0)
         t0 = time.perf_counter()
         cols_dev = self._upload_cols({**flat.cols,

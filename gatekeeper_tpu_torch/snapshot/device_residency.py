@@ -45,6 +45,7 @@ import torch
 from gatekeeper_tpu_torch.ir import masks as masks_mod
 from gatekeeper_tpu_torch.ir.program import (extdata_key_cols,
                                              pack_batch_cols, slim_cols)
+from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
 from gatekeeper_tpu_torch.parallel.sweep import (pack_transfer_cols,
                                                  torch_dtype)
 from gatekeeper_tpu_torch.utils.logging import log_event
@@ -209,9 +210,10 @@ class DeviceResidency:
         else:
             any_gen = any("generateName" in (o.get("metadata") or {})
                           for o in objects)
+        sources = [SOURCE_ORIGINAL] * len(objects)
         rows = [masks_mod.constraint_masks(
             rg.by_kind[kind], batch, self.evaluator.driver.vocab,
-            objects, any_generate_name=any_gen)
+            objects, sources=sources, any_generate_name=any_gen)
             for kind in rg.kinds]
         return np.concatenate(rows, axis=0)[:, : len(objects)]
 

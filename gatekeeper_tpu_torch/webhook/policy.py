@@ -2,10 +2,11 @@
 
 Port of ``gatekeeper_tpu/webhook/policy.py``.  Flow:
 - self-management bypass for the gatekeeper service account (policy.go:142)
-- gatekeeper-resource meta-validation fast path (templates and constraints
-  validated structurally, policy.go:359-401)
+- gatekeeper-resource meta-validation fast path (templates, constraints,
+  expansion templates and mutators validated structurally,
+  policy.go:359-401)
 - namespace exclusion via the process excluder (policy.go:170)
-- review of the request
+- review of the request (+ expansion resultants, policy.go:602-646)
 - deny/warn partition by enforcement action incl. scoped (policy.go:256-353)
 
 Requests funnel into a **microbatching lane** (:class:`Batcher`) that
@@ -14,9 +15,7 @@ lowered kinds evaluate as one verdict grid per template on the device.
 
 Not ported yet: overload/QoS, shadow, the flight recorder, cost
 attribution, tracing, deadlines, metrics, the snapshot lookup, the fleet
-cluster label, validation traces and expansion.  Mutators and
-ExpansionTemplates cannot be validated until their modules are ported:
-they are admitted with a warning that says so.
+cluster label and validation traces.
 """
 
 from __future__ import annotations
@@ -31,16 +30,22 @@ from typing import Optional
 from gatekeeper_tpu_torch.apis.constraints import CONSTRAINTS_GROUP, WEBHOOK_EP
 from gatekeeper_tpu_torch.apis.templates import (ConstraintTemplate,
                                                  TemplateError)
-from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
-from gatekeeper_tpu_torch.target.review import AdmissionRequest, AugmentedReview
+from gatekeeper_tpu_torch.expansion import aggregate
+from gatekeeper_tpu_torch.expansion.system import (EXPANSION_GROUP,
+                                                   ExpansionError,
+                                                   ExpansionTemplate)
+from gatekeeper_tpu_torch.match.match import SOURCE_GENERATED, SOURCE_ORIGINAL
+from gatekeeper_tpu_torch.mutation.mutators import (
+    MUTATIONS_GROUP, MUTATOR_KINDS,
+    from_unstructured as mutator_from_unstructured)
+from gatekeeper_tpu_torch.target.review import (AdmissionRequest,
+                                                AugmentedReview,
+                                                AugmentedUnstructured)
 from gatekeeper_tpu_torch.utils.logging import log_deny
 from gatekeeper_tpu_torch.utils.unstructured import gvk_of
 
 GATEKEEPER_SA_PREFIX = "system:serviceaccount:gatekeeper-system:"
 TEMPLATES_GROUP = "templates.gatekeeper.sh"
-EXPANSION_GROUP = "expansion.gatekeeper.sh"
-MUTATIONS_GROUP = "mutations.gatekeeper.sh"
-MUTATOR_KINDS = ("Assign", "AssignMetadata", "ModifySet", "AssignImage")
 
 
 @dataclass
@@ -79,8 +84,12 @@ class ValidationHandler:
         batcher: Optional["Batcher"] = None,
         log_denies: bool = False,
         failure_policy: str = "fail",  # "ignore" | "fail"
+        expansion_system=None,  # expansion.ExpansionSystem
     ):
         self.client = client
+        # generator objects' resultants are reviewed with the request
+        # (Source=Generated) and fold into its answer
+        self.expansion_system = expansion_system
         self.process_excluder = process_excluder
         self.namespace_lookup = namespace_lookup or (lambda name: None)
         self.batcher = batcher
@@ -134,7 +143,33 @@ class ValidationHandler:
                 message=f"review failed: {e}",
             )
 
+        expansion_warnings: list = []
+        if self.expansion_system is not None and req.object:
+            try:
+                resultants = self.expansion_system.expand(
+                    dict(req.object), namespace=ns_obj,
+                    username=username, source=SOURCE_ORIGINAL,
+                )
+            except ExpansionError as e:
+                # the reference errors the request, which fails open under
+                # failurePolicy=ignore (policy.go:626-631) — surface a warning
+                resultants = []
+                expansion_warnings.append(f"expansion failed: {e}")
+            for r in resultants:
+                r_aug = AugmentedUnstructured(
+                    object=r.obj, namespace=ns_obj, source=SOURCE_GENERATED
+                )
+                r_resp = self.client.review(
+                    r_aug, enforcement_point=WEBHOOK_EP
+                )
+                aggregate.override_enforcement_action(
+                    r.enforcement_action, r_resp
+                )
+                aggregate.aggregate_responses(r.template_name, responses,
+                                              r_resp)
+
         denies, warns = self._partition(responses)
+        warns = warns + expansion_warnings
         if self.log_denies and denies:
             for result in responses.results():
                 actions = (result.scoped_enforcement_actions
@@ -180,12 +215,6 @@ class ValidationHandler:
         group, _, kind = gvk_of(obj)
         if req.operation == "DELETE":
             return ValidationResponse(allowed=True, uid=req.uid)
-        if (group == EXPANSION_GROUP and kind == "ExpansionTemplate") or \
-                (group == MUTATIONS_GROUP and kind in MUTATOR_KINDS):
-            return ValidationResponse(
-                allowed=True, uid=req.uid,
-                warnings=[f"{kind} not validated: mutation/expansion not "
-                          f"ported"])
         try:
             if group == TEMPLATES_GROUP and kind == "ConstraintTemplate":
                 self.client.create_crd(obj)  # dry-run compile (policy.go:430)
@@ -197,6 +226,10 @@ class ValidationHandler:
                         f"source")
             elif group == CONSTRAINTS_GROUP:
                 self.client.validate_constraint(obj)
+            elif group == EXPANSION_GROUP and kind == "ExpansionTemplate":
+                ExpansionTemplate.from_unstructured(obj)
+            elif group == MUTATIONS_GROUP and kind in MUTATOR_KINDS:
+                mutator_from_unstructured(obj)
         except Exception as e:
             return ValidationResponse(
                 allowed=False, message=str(e), code=422, uid=req.uid

@@ -2,16 +2,19 @@
 
 Port of ``gatekeeper_tpu/webhook/server.py``: a threaded stdlib HTTP
 server speaking the AdmissionReview v1 protocol on ``/v1/admit`` (the
-validating handler, webhook/policy.py) and ``/v1/admitlabel`` (the
-namespace-label guard, webhook/namespacelabel.py), with ``/healthz`` for
-readiness.  TLS is optional (``certfile``/``keyfile``).
+validating handler, webhook/policy.py), ``/v1/mutate`` (the mutating
+handler, webhook/mutation.py or the batched mutlane/webhook.py; its answer
+carries a base64 JSONPatch) and ``/v1/admitlabel`` (the namespace-label
+guard, webhook/namespacelabel.py), with ``/healthz`` for readiness.  TLS
+is optional (``certfile``/``keyfile``).
 
-Not ported yet: ``/v1/mutate``, ``/metrics`` and the ``/debug/*`` surface
-(they answer 404), tracing, mTLS, SO_REUSEPORT workers and cert rotation.
+Not ported yet: ``/metrics`` and the ``/debug/*`` surface (they answer
+404), tracing, mTLS, SO_REUSEPORT workers and cert rotation.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import ssl
 import threading
@@ -20,19 +23,25 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 ADMIT_PATH = "/v1/admit"
+MUTATE_PATH = "/v1/mutate"
 ADMIT_LABEL_PATH = "/v1/admitlabel"
 HEALTH_PATH = "/healthz"
 MAX_BODY_BYTES = 64 * 1024 * 1024  # the apiserver's admission payload bound
 
 
 def admission_response(uid: str, allowed: bool, message: str = "",
-                       code: int = 200, warnings=None) -> dict:
+                       code: int = 200, warnings=None, patch=None) -> dict:
     resp: dict = {"uid": uid, "allowed": allowed}
     if message or code != 200:
         resp["status"] = {"code": code if not allowed else 200,
                           "message": message}
     if warnings:
         resp["warnings"] = list(warnings)
+    if patch is not None:
+        resp["patchType"] = "JSONPatch"
+        resp["patch"] = base64.b64encode(
+            json.dumps(patch).encode()
+        ).decode()
     return {
         "apiVersion": "admission.k8s.io/v1",
         "kind": "AdmissionReview",
@@ -45,16 +54,20 @@ class WebhookServer:
         self,
         validation_handler=None,
         namespace_label_handler=None,
+        mutation_handler=None,
         host: str = "127.0.0.1",
         port: int = 8443,  # 0 binds an ephemeral port (see .port)
         certfile: Optional[str] = None,
         keyfile: Optional[str] = None,
         tls_min_version: str = "1.3",  # reference --webhook-tls-min-version
         batcher=None,  # Batcher to drain inside stop() (zero-loss shutdown)
+        mutation_batcher=None,  # MutationBatcher, drained the same way
     ):
         self.validation_handler = validation_handler
         self.namespace_label_handler = namespace_label_handler
+        self.mutation_handler = mutation_handler
         self.batcher = batcher
+        self.mutation_batcher = mutation_batcher
         # graceful drain: once set, /healthz answers 503 {"draining": true}
         # and every reply closes its connection
         self._draining = threading.Event()
@@ -125,6 +138,8 @@ class WebhookServer:
                 try:
                     if self.path == ADMIT_PATH:
                         self._admit(body, uid)
+                    elif self.path == MUTATE_PATH:
+                        self._mutate(body, uid)
                     elif self.path == ADMIT_LABEL_PATH:
                         self._admit_label(body, uid)
                     else:
@@ -145,6 +160,16 @@ class WebhookServer:
                 v = h.handle(body)
                 self._reply(200, admission_response(
                     v.uid or uid, v.allowed, v.message, v.code, v.warnings))
+
+            def _mutate(self, body, uid):
+                h = outer.mutation_handler
+                if h is None:
+                    self._reply(200, admission_response(uid, True))
+                    return
+                m = h.handle(body)
+                self._reply(200, admission_response(
+                    m.uid or uid, m.allowed, m.message, m.code,
+                    warnings=m.warnings, patch=m.patch))
 
             def _admit_label(self, body, uid):
                 h = outer.namespace_label_handler
@@ -206,24 +231,25 @@ class WebhookServer:
 
     def stop(self, drain_timeout: float = 5.0) -> bool:
         """Zero-loss shutdown: stop accepting, then drain in-flight
-        handlers AND the batcher queue within ``drain_timeout`` before
-        closing.  Returns True when the drain completed inside the
-        budget."""
+        handlers AND both batcher queues (validating and mutating) within
+        ``drain_timeout`` before closing.  Returns True when the drain
+        completed inside the budget."""
         t0 = time.perf_counter()
         self.begin_drain()
+        batchers = [b for b in (self.batcher, self.mutation_batcher)
+                    if b is not None]
         self._server.shutdown()  # listener stops accepting
         deadline = t0 + max(0.0, drain_timeout)
         while time.perf_counter() < deadline:
-            if self.inflight() == 0 and (
-                    self.batcher is None or self.batcher.queue_depth() == 0):
+            if self.inflight() == 0 and all(
+                    b.queue_depth() == 0 for b in batchers):
                 break
             time.sleep(0.005)
         drained = self.inflight() == 0
-        if self.batcher is not None:
+        for b in batchers:
             # nothing new can arrive: drain whatever is still queued
-            self.batcher.stop(timeout=max(0.1,
-                                          deadline - time.perf_counter()))
-            drained = drained and self.batcher.queue_depth() == 0
+            b.stop(timeout=max(0.1, deadline - time.perf_counter()))
+            drained = drained and b.queue_depth() == 0
         self._server.server_close()
         if self._thread:
             self._thread.join(timeout=2)

@@ -213,13 +213,17 @@ def test_fast_paths_match_jax(env):
 
 
 def test_mutator_is_admitted_with_a_warning(env):
-    """Mutators cannot be validated until the mutation slice is ported."""
-    _jc, tc, _td, _bodies, _ns = env
+    """Mutators are validated structurally, as in the JAX package: an
+    Assign without a location is denied with code 422 and the JAX
+    handler's message (no "not validated" warning any more)."""
+    jc, tc, _td, _bodies, _ns = env
     assign = {"apiVersion": "mutations.gatekeeper.sh/v1", "kind": "Assign",
               "metadata": {"name": "a"}, "spec": {}}
-    v = tpolicy.ValidationHandler(tc).handle(admission_body(assign, "m"))
-    assert _verdict(v) == (True, 200, "", [
-        "Assign not validated: mutation/expansion not ported"])
+    body = admission_body(assign, "m")
+    v = tpolicy.ValidationHandler(tc).handle(copy.deepcopy(body))
+    want = jpolicy.ValidationHandler(jc).handle(copy.deepcopy(body))
+    assert _verdict(v) == _verdict(want)
+    assert _verdict(v)[:2] == (False, 422) and not v.warnings
 
 
 @pytest.mark.parametrize("policy", ["fail", "ignore"])
@@ -277,7 +281,8 @@ def _call(conn, method, path, body=None):
 
 def test_http_round_trip_matches_jax(env, server):
     """One keep-alive connection: /v1/admit twice (a deny and an allow),
-    then /v1/admitlabel, /healthz and the unported paths."""
+    then /v1/admitlabel, /healthz, /v1/mutate without a mutation handler
+    and the unported paths."""
     jc, _tc, _td, _bodies, namespaces = env
     jh = jpolicy.ValidationHandler(jc, namespace_lookup=namespaces.get)
     allowed = []
@@ -299,10 +304,12 @@ def test_http_round_trip_matches_jax(env, server):
     assert _call(server, "POST", "/v1/admitlabel", body) == (200, want)
     assert want["response"]["status"]["code"] == 403
     assert _call(server, "GET", "/healthz") == (200, {"ready": True})
-    for method, path in (("GET", "/metrics"), ("POST", "/v1/mutate"),
-                         ("GET", "/debug/traces")):
-        assert _call(server, method, path, {} if method == "POST"
-                     else None)[0] == 404
+    # /v1/mutate is served; without a mutation handler it admits, as the
+    # JAX server does
+    assert _call(server, "POST", "/v1/mutate", body) == (
+        200, jresponse("label", True))
+    for method, path in (("GET", "/metrics"), ("GET", "/debug/traces")):
+        assert _call(server, method, path)[0] == 404
 
 
 def test_tls_round_trip(tmp_path):
