@@ -62,11 +62,36 @@ Phases (any failure raises and exits non-zero):
    generated verdicts, and a 1% churn tick.  The card must equal a CPU run
    on the first 8,192 objects.  Prints each pass's wall, generators,
    resultants, and the expand and generated-sweep seconds;
-7. shapes (after the snapshot and expand phases): as phase 4, at the
-   (C, N, k) the snapshot and expand paths launched too;
-8. profile: the reduced-lane audit once more under ``torch.profiler``,
+7. extdata: the library plus the reference docs' two image templates
+   (``K8sExtData``, one ``external_data`` call over every container
+   image, failing on ``response.errors``; ``K8sDigest``, one call per
+   container, failing when the resolved digest differs), each with a
+   constraint on v1 Pods, and two Provider manifests loaded by the CLI's
+   ``build_extdata`` with the transport swapped for an in-process stub
+   (``RegistryStub``: ``trusted`` errors outside ``openpolicyagent/``,
+   ``digest`` pins; 1 ms per send; no network).  The relist of the path
+   phase's objects with the batched lane on both collect lanes: the lanes
+   must agree, both extdata kinds must ride the Pod group's fold launches
+   (counted, with their (C, N)), their totals must equal a count made in
+   Python from the objects and the stub's rule, the cold pass may send at
+   most ceil(unique keys / 256) per provider per chunk (and each key
+   once), and a warm repeat must send nothing.  At the first 8,192
+   objects, the image templates alone with exact totals, the batched
+   (grid), perkey (interpreter) and differential lanes on the card and
+   the batched lane on the CPU must agree canonically; with the library,
+   a resident snapshot's first pass must equal the batched relist, the
+   residency logging its decline of the extdata group.  Then the
+   first 1,024 admission bodies to ``/v1/admit`` and to ``/v1/mutate``
+   (the ``pin-image`` Assign, failurePolicy Ignore), every answer equal
+   to the CPU handler under the perkey lane.  Prints walls,
+   ``perf["extdata"]`` seconds, sends and keys per provider (cold and
+   warm), per-key against batched sends and seconds, and rates with
+   p50/p99;
+8. shapes (after the snapshot, expand and extdata phases): as phase 4, at
+   the (C, N, k) the snapshot, expand and extdata paths launched too;
+9. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-9. admission: the library (all 46 templates and their sample
+10. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -91,7 +116,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-10. served: the served process's two threads on one driver and vocab, as
+11. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -102,7 +127,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-11. mutate: the admission bodies posted to ``/v1/mutate`` of a
+12. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -114,11 +139,13 @@ Phases (any failure raises and exits non-zero):
    rows' wall time through ``CompiledProgram.run`` on the card against the
    host ``_np_eval`` at bursts of 64 and 4,096.  (``/v1/admit`` with the
    expansion system is served and held in the admission phase);
-12. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+13. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``snapshot_launches``
    the snapshot path's, ``expand_launches`` those inside the generator
-   stage of the expand phase.
+   stage of the expand phase, ``extdata_launches`` those of the extdata
+   phase's cold relist (the reduced lane's ``fused_fold``, the masks
+   lane's ``epilogue``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -131,12 +158,12 @@ import copy
 import gc
 import http.client
 import json
-import multiprocessing
 import statistics
 import threading
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -418,10 +445,13 @@ def shape_phase(rows, err, shapes) -> None:
         row["max_abs_err"] = err[row["name"]]
 
 
-def _client(objects, device: str = "cuda"):
+def _client(objects, device: str = "cuda", extdata: bool = False,
+            library: bool = True):
     """(client, driver, templates, constraints) as the CLI builds them:
     a ``TorchDriver`` with a ``CELDriver`` beside it, the whole library
-    loaded, every template lowered."""
+    loaded (unless ``library`` is False), every template lowered; with
+    ``extdata`` also the two image templates of the extdata phase, each
+    with its constraint on v1 Pods."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
     from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
@@ -433,12 +463,20 @@ def _client(objects, device: str = "cuda"):
     driver = TorchDriver(device=device, cel_driver=cel)
     client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    nt, nc = load_library(client)
+    nt, nc = load_library(client) if library else (0, 0)
+    if extdata:
+        for kind, rules in EXT_TEMPLATES:
+            client.add_template(_ext_template(kind, rules))
+        for con in EXT_CONSTRAINTS:
+            client.add_constraint(copy.deepcopy(con))
+        nt, nc = nt + len(EXT_TEMPLATES), nc + len(EXT_CONSTRAINTS)
+        if not set(EXT_KINDS) <= set(driver.lowered_kinds()):
+            raise AssertionError("extdata templates did not lower")
     if driver.fallback_kinds():
         raise AssertionError(
             f"templates fell back to the interpreter: "
             f"{driver.fallback_kinds()}")
-    if driver._cel_kinds != set(CEL_TEMPLATE_KINDS):
+    if library and driver._cel_kinds != set(CEL_TEMPLATE_KINDS):
         raise AssertionError(f"CEL kinds {sorted(driver._cel_kinds)}")
     for o in objects:
         if o.get("kind") == "Ingress":
@@ -954,69 +992,97 @@ def admission_traffic(n: int) -> tuple:
     return bodies, objects
 
 
-def _load_worker(port: int, share: list, conns: int, barrier,
-                 results, path: str = "/v1/admit") -> None:
-    """One load process: ``conns`` threads, each posting its part of
-    ``share`` ([(index, body bytes)]) to ``path`` over one keep-alive
-    connection, one request at a time.  Puts [(index, latency s, status,
-    reply bytes)]."""
-    out = []
-    lock = threading.Lock()
+# One load process: ``conns`` threads, each posting its part of the share
+# to ``path`` over one keep-alive connection, one request at a time.  It
+# reads its share ([[index, body text]]) as one line of stdin, says "ready",
+# posts on the next line of stdin and writes [[index, latency s, status,
+# reply text]] to stdout.  Standard library only, so it starts in tens of
+# milliseconds: no numpy, no torch.
+_LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+port, path, conns = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+share = json.loads(sys.stdin.readline())
+out, lock = [], threading.Lock()
 
-    def client(part):
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-        try:
-            for idx, data in part:
-                t0 = time.perf_counter()
-                conn.request("POST", path, body=data, headers={
-                    "Content-Type": "application/json"})
-                resp = conn.getresponse()
-                reply = resp.read()
-                dt = time.perf_counter() - t0
-                with lock:
-                    out.append((idx, dt, resp.status, reply))
-        finally:
-            conn.close()
+def client(part):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        for idx, body in part:
+            t0 = time.perf_counter()
+            conn.request("POST", path, body=body.encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            reply = resp.read()
+            dt = time.perf_counter() - t0
+            with lock:
+                out.append((idx, dt, resp.status, reply.decode()))
+    finally:
+        conn.close()
 
-    threads = [threading.Thread(target=client, args=(share[c::conns],))
-               for c in range(conns)]
-    barrier.wait(timeout=300)
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    results.put(out)
+threads = [threading.Thread(target=client, args=(share[c::conns],))
+           for c in range(conns)]
+print("ready", flush=True)
+sys.stdin.readline()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump(out, sys.stdout)
+"""
+LOAD_DEADLINE_S = 600.0
 
 
 def post_concurrently(port: int, bodies: list,
                       path: str = "/v1/admit") -> tuple:
     """Post every body to ``path`` from LOAD_PROCS processes x LOAD_CONNS
     keep-alive connections.  Returns (replies by index, latencies s, wall
-    s)."""
-    ctx = multiprocessing.get_context("spawn")
-    barrier = ctx.Barrier(LOAD_PROCS + 1)
-    results = ctx.Queue()
-    items = [(i, json.dumps(b).encode()) for i, b in enumerate(bodies)]
-    procs = [ctx.Process(target=_load_worker,
-                         args=(port, items[p::LOAD_PROCS], LOAD_CONNS,
-                               barrier, results, path), daemon=True)
-             for p in range(LOAD_PROCS)]
-    for proc in procs:
-        proc.start()
-    try:
-        barrier.wait(timeout=300)
-        t0 = time.perf_counter()
-        rows = []
-        for _ in procs:  # drain the queue before joining the writers
-            rows.extend(results.get(timeout=600))
-        wall = time.perf_counter() - t0
+    s).  Each process runs ``_LOAD_CLIENT`` under this interpreter and is
+    waited for (or killed past ``LOAD_DEADLINE_S``) before this returns, so
+    no client outlives the call."""
+    items = [(i, json.dumps(b)) for i, b in enumerate(bodies)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LOAD_CLIENT, str(port), path,
+         str(LOAD_CONNS)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True) for _ in range(LOAD_PROCS)]
+
+    def kill_all():
         for proc in procs:
-            proc.join(timeout=60)
-    finally:
-        for proc in procs:
-            if proc.is_alive():
+            if proc.poll() is None:
                 proc.kill()
-                proc.join()
+
+    watchdog = threading.Timer(LOAD_DEADLINE_S, kill_all)
+    watchdog.daemon = True
+    watchdog.start()
+    t_start = time.perf_counter()
+    try:
+        for p, proc in enumerate(procs):
+            proc.stdin.write(json.dumps(items[p::LOAD_PROCS]) + "\n")
+            proc.stdin.flush()
+        for p, proc in enumerate(procs):
+            if proc.stdout.readline() != "ready\n":
+                raise AssertionError(f"load process {p} did not start")
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.stdin.write("go\n")
+            proc.stdin.close()
+        rows = []
+        for p, proc in enumerate(procs):
+            text = proc.stdout.read()
+            if proc.wait() != 0 or not text:
+                raise AssertionError(
+                    f"load process {p} exited {proc.returncode}")
+            rows.extend(json.loads(text))
+        wall = time.perf_counter() - t0
+        log(f"load processes: ready {t0 - t_start:.3f}s, posting and "
+            f"joined {wall:.3f}s")
+    finally:
+        watchdog.cancel()
+        kill_all()
+        for proc in procs:
+            proc.wait()
+            proc.stdout.close()
+            if not proc.stdin.closed:
+                proc.stdin.close()
     replies = {}
     for idx, _dt, status, reply in rows:
         if status != 200:
@@ -1077,14 +1143,15 @@ def profile_grid_batch(client, bodies, namespaces) -> None:
 
 
 def _held_against_cpu(label: str, objects, namespaces, bodies,
-                      replies, expansion_system=None) -> tuple:
+                      replies, expansion_system=None,
+                      extdata: bool = False) -> tuple:
     """Hold every served answer against the port's in-process handler on
     the CPU without a batcher (the exact engines), the deny message as its
     set of lines.  Raises on a difference; returns (denied, code 500)."""
     from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
     from gatekeeper_tpu_torch.webhook.server import admission_response
 
-    ref_client = _client(objects, device="cpu")[0]
+    ref_client = _client(objects, device="cpu", extdata=extdata)[0]
     # only given when set, so the served A/B tool can drive a checkout
     # whose handler predates expansion
     kw = {} if expansion_system is None else {
@@ -1764,6 +1831,510 @@ def mutate_phase(n: int, card: str, device: str = "cuda") -> dict:
     return out
 
 
+# --- external data -----------------------------------------------------------
+# The reference docs' image-verification setup: two Providers behind an
+# in-process stub, the validation template that batches every container
+# image into one external_data call, a per-container digest template, and
+# the Assign that pins each image through the digest provider.
+EXT_RULES_ERRORS = """
+package k8sextdata
+
+violation[{"msg": msg}] {
+  images := [img | img = input.review.object.spec.containers[_].image]
+  response := external_data({"provider": "trusted", "keys": images})
+  response_with_error(response)
+  msg := sprintf("invalid images: %v", [response.errors])
+}
+
+response_with_error(response) {
+  count(response.errors) > 0
+}
+
+response_with_error(response) {
+  count(response.system_error) > 0
+}
+"""
+EXT_RULES_DIGEST = """
+package k8sdigest
+
+violation[{"msg": msg}] {
+  container := input.review.object.spec.containers[_]
+  resp := external_data({"provider": "digest", "keys": [container.image]})
+  item := resp.responses[_]
+  item[1] != container.image
+  msg := sprintf("image %v is not pinned to its digest", [container.image])
+}
+"""
+EXT_TEMPLATES = (("K8sExtData", EXT_RULES_ERRORS),
+                 ("K8sDigest", EXT_RULES_DIGEST))
+EXT_KINDS = tuple(k for k, _r in EXT_TEMPLATES)
+EXT_CONSTRAINTS = [
+    {"apiVersion": "constraints.gatekeeper.sh/v1beta1", "kind": kind,
+     "metadata": {"name": name},
+     "spec": {"match": {"kinds": [{"apiGroups": [""], "kinds": ["Pod"]}]}}}
+    for kind, name in (("K8sExtData", "trusted-images"),
+                       ("K8sDigest", "pinned-images"))]
+EXT_PROVIDERS = [
+    {"apiVersion": "externaldata.gatekeeper.sh/v1beta1", "kind": "Provider",
+     "metadata": {"name": name},
+     "spec": {"url": f"https://{name}.registry.svc:8443/v1/resolve",
+              "timeout": 5, "caBundle": "c3R1Yg=="}}
+    for name in ("trusted", "digest")]
+PIN_IMAGE = {
+    "apiVersion": "mutations.gatekeeper.sh/v1",
+    "kind": "Assign",
+    "metadata": {"name": "pin-image"},
+    "spec": {
+        "applyTo": [{"groups": [""], "versions": ["v1"], "kinds": ["Pod"]}],
+        "location": "spec.containers[name:*].image",
+        "parameters": {"assign": {"externalData": {
+            "provider": "digest", "dataSource": "ValueAtLocation",
+            "failurePolicy": "Ignore"}}},
+    },
+}
+TRUSTED_PREFIX = "openpolicyagent/"  # the library's allowed repo
+EXT_MAX_KEYS = 256  # --extdata-max-keys
+EXT_SEND_WAIT_S = 0.001  # the stub's fixed wait per transport send
+EXT_ADMISSIONS = 1024  # admission and mutation bodies of the phase
+
+
+def _ext_template(kind: str, rules: str) -> dict:
+    return {"apiVersion": "templates.gatekeeper.sh/v1",
+            "kind": "ConstraintTemplate",
+            "metadata": {"name": kind.lower()},
+            "spec": {"crd": {"spec": {"names": {"kind": kind}}},
+                     "targets": [{"target": "admission.k8s.gatekeeper.sh",
+                                  "rego": rules}]}}
+
+
+class RegistryStub:
+    """The Providers' transport (``send_fn``), in process: ``trusted``
+    answers an error for an image outside ``TRUSTED_PREFIX``, ``digest``
+    answers a pinned image itself and ``image@sha256:<crc32>`` otherwise
+    (a digest stable across processes).  Each send waits
+    ``EXT_SEND_WAIT_S``; sends and keys count per provider."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.sends: collections.Counter = collections.Counter()
+        self.keys: collections.Counter = collections.Counter()
+
+    def __call__(self, provider, keys):
+        with self.lock:
+            self.sends[provider.name] += 1
+            self.keys[provider.name] += len(keys)
+        time.sleep(EXT_SEND_WAIT_S)
+        items = []
+        for k in keys:
+            if provider.name == "trusted":
+                items.append({"key": k, "value": k}
+                             if k.startswith(TRUSTED_PREFIX)
+                             else {"key": k, "error": f"untrusted: {k}"})
+            else:
+                items.append({"key": k, "value": k if "@sha256:" in k else
+                              f"{k}@sha256:{zlib.crc32(k.encode()):08x}"})
+        return {"response": {"items": items, "systemError": ""}}
+
+    def counts(self) -> dict:
+        with self.lock:
+            return {"sends": dict(self.sends), "keys": dict(self.keys)}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: {p: v - before[k].get(p, 0) for p, v in after[k].items()}
+            for k in after}
+
+
+def extdata_lane(mode: str) -> tuple:
+    """(lane, cache, stub): the CLI's provider cache and lane
+    (``__main__.build_extdata`` over the two Provider manifests, installed
+    for the process) in ``mode``, the transport swapped for the stub."""
+    from gatekeeper_tpu_torch.__main__ import build_extdata
+
+    stub = RegistryStub()
+    cache, lane = build_extdata(EXT_PROVIDERS, mode=mode,
+                                max_keys=EXT_MAX_KEYS)
+    cache.send_fn = stub
+    return lane, cache, stub
+
+
+def extdata_expected(objects) -> tuple:
+    """({constraint key: violating Pods}, unique image keys), counted in
+    plain Python from the objects and the stub's rule."""
+    trusted = digest = 0
+    keys: set = set()
+    for o in objects:
+        if o.get("kind") != "Pod" or o.get("apiVersion") != "v1":
+            continue
+        imgs = [c.get("image") for c in
+                (o.get("spec") or {}).get("containers") or []
+                if isinstance(c, dict)]
+        imgs = [i for i in imgs if isinstance(i, str)]
+        keys.update(imgs)
+        trusted += any(not i.startswith(TRUSTED_PREFIX) for i in imgs)
+        digest += any("@sha256:" not in i for i in imgs)
+    return {("K8sExtData", "trusted-images"): trusted,
+            ("K8sDigest", "pinned-images"): digest}, keys
+
+
+def extdata_manager(objects, device: str, collect: str,
+                    source: str = "relist", dispatches=None,
+                    library: bool = True) -> tuple:
+    """(manager, evaluator, residency, ingester): the library (unless
+    ``library`` is False) plus both image templates audited through
+    ``AuditManager`` with the path phase's settings, relisting or over a
+    resident snapshot (``DeviceResidency`` ``auto``; ``on`` when the CPU
+    rehearses it).  Without the library the totals are exact (every hit
+    rendered and counted), so a kind swept on the grid and the same kind
+    on the interpreter count alike; with it they are the grid's
+    violating-object counts.  ``dispatches`` receives (kinds, C, padded N)
+    of every device dispatch."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+    client, driver, _nt, _nc = _client(objects, device=device, extdata=True,
+                                       library=library)
+    evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
+                               collect=collect)
+    if dispatches is not None:
+        dispatch = evaluator.sweep_dispatch
+
+        def recorded_dispatch(flat):
+            if getattr(flat, "kinds", None):
+                dispatches.append((flat.kinds, sum(
+                    len(flat.by_kind[k]) for k in flat.kinds), flat.pad_n))
+            return dispatch(flat)
+
+        evaluator.sweep_dispatch = recorded_dispatch
+    config = AuditConfig(violations_limit=20, chunk_size=32768,
+                         exact_totals=not library, submit_window=4,
+                         audit_source=source)
+    if source == "relist":
+        return AuditManager(client, lister=lambda: iter(objects),
+                            config=config, evaluator=evaluator), \
+            evaluator, None, None
+    from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                               DeviceResidency,
+                                               SnapshotConfig, WatchIngester,
+                                               gvks_of)
+    from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+    cluster = FakeCluster()
+    for o in objects:
+        cluster.apply(o)
+    snap = ClusterSnapshot(evaluator, SnapshotConfig())
+    ingester = WatchIngester(snap, cluster, gvks_of(cluster.list())).start()
+    residency = DeviceResidency(evaluator,
+                                mode="auto" if device == "cuda" else "on")
+    mgr = AuditManager(client, lister=cluster.list, config=config,
+                       evaluator=evaluator, snapshot=snap,
+                       residency=residency)
+    return mgr, evaluator, residency, ingester
+
+
+def _canon_diff(a, b):
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    return AuditManager._verdicts_differ_canonical(
+        a.kept, a.total_violations, b.kept, b.total_violations, 20)
+
+
+def extdata_relist(objects, card: str, device: str = "cuda") -> tuple:
+    """The relist of ``objects`` with the batched lane on both collect
+    lanes (a cold lane each), then a warm repeat on the reduced lane.
+    Returns (launches, shapes, records)."""
+    from gatekeeper_tpu_torch.ops import fold
+
+    want, keys = extdata_expected(objects)
+    bound_per_chunk = -(-len(keys) // EXT_MAX_KEYS)
+    launches, shapes, recs, runs = {}, {}, {}, {}
+    for collect, kernel in (("reduced", "fused_fold"),
+                            ("masks", "epilogue")):
+        t_setup = time.perf_counter()
+        lane, _cache, stub = extdata_lane("batched")
+        dispatches: list = []
+        mgr, ev, _r, _i = extdata_manager(objects, device, collect,
+                                          dispatches=dispatches)
+        setup_s = time.perf_counter() - t_setup
+        for wrapper in (fold.fused_fold, fold.epilogue):
+            wrapper.launches = 0
+            wrapper.shapes.clear()
+        t0 = time.perf_counter()
+        run = mgr.audit()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[kernel] = getattr(fold, kernel).launches
+        shapes[kernel] = dict(getattr(fold, kernel).shapes)
+        cold = stub.counts()
+        with_ext = sorted({(c, n) for kinds, c, n in dispatches
+                           if set(EXT_KINDS) <= set(kinds)})
+        n_ext = sum(set(EXT_KINDS) <= set(kinds)
+                    for kinds, _c, _n in dispatches)
+        got = {k: run.total_violations.get(k) for k in want}
+        rec = {"wall_s": wall, "setup_s": setup_s,
+               "objects": run.total_objects,
+               "violations": sum(run.total_violations.values()),
+               "extdata_s": ev.perf.get("extdata", 0.0),
+               "launches": launches[kernel], "ext_dispatches": n_ext,
+               "ext_shapes": with_ext, "cold": cold,
+               "extdata_totals": {f"{k[0]}/{k[1]}": v
+                                  for k, v in got.items()},
+               "unique_keys": len(keys), "lane_perf": dict(lane.perf)}
+        log(f"extdata relist[{collect}]: {run.total_objects} objects, "
+            f"{rec['violations']} violations, {wall:.3f}s (set-up "
+            f"{setup_s:.3f}s), extdata "
+            f"{rec['extdata_s']:.3f}s; {kernel} launches "
+            f"{launches[kernel]}, {n_ext} of {len(dispatches)} dispatches "
+            f"carry both extdata kinds' rows at (C, N) {with_ext}; cold "
+            f"sends {cold['sends']} keys {cold['keys']} for "
+            f"{len(keys)} unique keys; totals {rec['extdata_totals']} "
+            f"({card})")
+        if run.incomplete or n_ext <= 0 or device == "cuda" and (
+                launches[kernel] <= 0 or len(dispatches) != launches[kernel]):
+            raise AssertionError(f"extdata relist[{collect}]: incomplete, "
+                                 f"or the extdata rows rode no {kernel} "
+                                 f"launch")
+        if got != want:
+            raise AssertionError(f"extdata relist[{collect}]: totals {got} "
+                                 f"!= {want} counted from the objects")
+        for p in ("trusted", "digest"):
+            if not 0 < cold["sends"].get(p, 0) <= n_ext * bound_per_chunk \
+                    or cold["keys"].get(p) != len(keys):
+                raise AssertionError(
+                    f"extdata relist[{collect}]: provider {p} took "
+                    f"{cold['sends'].get(p)} sends and "
+                    f"{cold['keys'].get(p)} keys for {len(keys)} unique "
+                    f"keys over {n_ext} chunks")
+        if collect == "reduced":
+            t0 = time.perf_counter()
+            run2 = mgr.audit()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rec["warm_wall_s"] = time.perf_counter() - t0
+            rec["warm"] = _delta(stub.counts(), cold)
+            log(f"extdata relist[{collect}] warm repeat: "
+                f"{rec['warm_wall_s']:.3f}s, sends {rec['warm']['sends']}")
+            if any(rec["warm"]["sends"].values()) or \
+                    summary(run2) != summary(run):
+                raise AssertionError("extdata: the warm repeat sent keys "
+                                     "or changed the result")
+        recs[collect] = rec
+        runs[collect] = run
+    if summary(runs["reduced"]) != summary(runs["masks"]):
+        raise AssertionError("extdata: reduced and masks lanes disagree")
+    return launches, shapes, recs
+
+
+def extdata_modes(objects, card: str, device: str = "cuda") -> dict:
+    """On the first CPU_PREFIX objects, the two image templates alone with
+    exact totals: the batched lane (grid), the perkey lane (interpreter)
+    and the differential lane on the card and the batched lane on the CPU
+    must agree canonically.  Then with the library: a resident snapshot's
+    first pass must equal the batched relist, its Pod group declined by
+    the residency (extdata joins keep host columns).  ``device="cpu"``
+    rehearses it."""
+    prefix = objects[:CPU_PREFIX]
+    recs, runs = {}, {}
+    for label, mode, dev in (("batched", "batched", device),
+                             ("perkey", "perkey", device),
+                             ("differential", "differential", device),
+                             ("cpu", "batched", "cpu")):
+        _lane, _cache, stub = extdata_lane(mode)
+        dispatches: list = []
+        mgr, _ev, _r, _i = extdata_manager(prefix, dev, "reduced",
+                                           dispatches=dispatches,
+                                           library=False)
+        t0 = time.perf_counter()
+        runs[label] = mgr.audit()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        swept = any(set(EXT_KINDS) & set(kinds)
+                    for kinds, _c, _n in dispatches)
+        recs[label] = {"wall_s": time.perf_counter() - t0,
+                       "ext_on_grid": swept, **stub.counts()}
+        log(f"extdata[{label}] at {len(prefix)} objects: "
+            f"{recs[label]['wall_s']:.3f}s, extdata kinds on the grid "
+            f"{swept}, sends {recs[label]['sends']}, keys "
+            f"{recs[label]['keys']}")
+        if swept != (mode != "perkey"):
+            raise AssertionError(f"extdata[{label}]: the extdata kinds "
+                                 f"rode the grid: {swept}")
+    for label in ("perkey", "differential", "cpu"):
+        diff = _canon_diff(runs[label], runs["batched"])
+        if diff is not None:
+            raise AssertionError(f"extdata: {label} differs from batched: "
+                                 f"{diff}")
+    if not all(runs["batched"].total_violations.values()):
+        raise AssertionError("extdata: an image constraint has no hit")
+    extdata_lane("batched")
+    relist_run = extdata_manager(prefix, device, "reduced")[0].audit()
+    mgr, _ev, residency, ingester = extdata_manager(prefix, device,
+                                                    "reduced", "snapshot")
+    try:
+        t0 = time.perf_counter()
+        snap_run = mgr.audit()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        recs["snapshot"] = {"wall_s": time.perf_counter() - t0,
+                            "host_chunks": mgr.perf.get(
+                                "snapshot_host_chunks", 0.0),
+                            "resident_chunks": mgr.perf.get(
+                                "snapshot_resident_chunks", 0.0)}
+    finally:
+        ingester.stop()
+    declined = [r for r in residency._logged_reasons
+                if "external-data joins" in r]
+    diff = _canon_diff(snap_run, relist_run)
+    log(f"extdata: snapshot first pass {recs['snapshot']['wall_s']:.3f}s, "
+        f"{recs['snapshot']['host_chunks']:.0f} host-column chunks, "
+        f"{recs['snapshot']['resident_chunks']:.0f} resident; residency "
+        f"declined: {declined}; == relist: {diff is None}")
+    if diff is not None or not declined or \
+            not recs["snapshot"]["host_chunks"]:
+        raise AssertionError(f"extdata: snapshot first pass differs ({diff})"
+                             f" or the residency kept the extdata group")
+    log(f"extdata: batched == perkey == differential == cpu at "
+        f"{len(prefix)} objects (exact totals "
+        f"{dict(runs['batched'].total_violations)}); snapshot == relist "
+        f"({sum(snap_run.total_violations.values())} violations with the "
+        f"library); per-key {recs['perkey']['sends']} sends "
+        f"{recs['perkey']['wall_s']:.3f}s against batched "
+        f"{recs['batched']['sends']} sends {recs['batched']['wall_s']:.3f}s "
+        f"({card})")
+    return recs
+
+
+def _rate(n: int, lat, wall: float) -> dict:
+    lat_ms = sorted(x * 1e3 for x in lat)
+    return {"n": n, "wall_s": wall, "per_s": n / wall,
+            "p50_ms": lat_ms[len(lat_ms) // 2],
+            "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))]}
+
+
+def extdata_serve(n_traffic: int, card: str, device: str = "cuda") -> dict:
+    """The first EXT_ADMISSIONS admission bodies to ``/v1/admit`` (the
+    library plus both image templates, batched lane) and then to
+    ``/v1/mutate`` (``pin-image``, batched lane), each answer held against
+    the CPU handler under the perkey lane."""
+    from gatekeeper_tpu_torch.__main__ import build_mutation, warm_batcher
+    from gatekeeper_tpu_torch.mutlane import (BatchedMutationHandler,
+                                              MutationBatcher, MutationLane)
+    from gatekeeper_tpu_torch.webhook.mutation import MutationHandler
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import (WebhookServer,
+                                                     admission_response)
+
+    t_serve = time.perf_counter()
+
+    def mark(what):
+        log(f"extdata serve: {what} at {time.perf_counter() - t_serve:.3f}s")
+
+    bodies, objects = admission_traffic(n_traffic)
+    bodies, objects = bodies[:EXT_ADMISSIONS], objects[:EXT_ADMISSIONS]
+    namespaces = {o["metadata"]["name"]: o for o in objects
+                  if o.get("kind") == "Namespace"}
+    out = {}
+    # /v1/admit
+    lane, _cache, stub = extdata_lane("batched")
+    client, _driver, _nt, _nc = _client(objects, device=device, extdata=True)
+    batcher = Batcher(client).start()
+    warm_batcher(client, batcher)
+    server = WebhookServer(
+        validation_handler=ValidationHandler(
+            client, namespace_lookup=namespaces.get, batcher=batcher,
+            failure_policy="fail"),
+        host="127.0.0.1", port=0, batcher=batcher).start()
+    try:
+        replies, lat, wall = post_concurrently(server.port, bodies)
+    finally:
+        drained = server.stop()
+    mark("admit served, server stopped")
+    out["admit"] = {**_rate(len(bodies), lat, wall), **stub.counts(),
+                    "lanes": dict(batcher.lane_counts)}
+    ext_denials = sum("[trusted-images]" in (r.get("status") or {}).get(
+        "message", "") for r in replies.values())
+    log(f"extdata admit: {len(bodies)} admissions in {wall:.3f}s, "
+        f"{out['admit']['per_s']:.1f} admissions/s, p50 "
+        f"{out['admit']['p50_ms']:.3f} ms, p99 {out['admit']['p99_ms']:.3f}"
+        f" ms; lanes {out['admit']['lanes']}; sends {stub.counts()}; "
+        f"{ext_denials} denials name trusted-images ({card})")
+    extdata_lane("perkey")
+    _denied, code500 = _held_against_cpu("extdata admit", objects,
+                                         namespaces, bodies, replies,
+                                         extdata=True)
+    if code500 or not drained or not ext_denials or \
+            not out["admit"]["lanes"].get("grid"):
+        raise AssertionError("extdata admit: not sane")
+    mark("admit held against the CPU")
+    # /v1/mutate
+    lane, cache, stub = extdata_lane("batched")
+    ms = build_mutation([PIN_IMAGE], provider_cache=cache)[0]
+    mlane = MutationLane(ms, device=device)
+    mbatcher = MutationBatcher(mlane).start()
+    server = WebhookServer(
+        mutation_handler=BatchedMutationHandler(
+            ms, lane=mlane, namespace_lookup=namespaces.get,
+            batcher=mbatcher),
+        host="127.0.0.1", port=0, mutation_batcher=mbatcher).start()
+    try:
+        m_replies, m_lat, m_wall = post_concurrently(server.port, bodies,
+                                                     "/v1/mutate")
+    finally:
+        drained = server.stop()
+    mark("mutate served, server stopped")
+    out["mutate"] = {**_rate(len(bodies), m_lat, m_wall), **stub.counts()}
+    _lane, ref_cache, _stub = extdata_lane("perkey")
+    ref = MutationHandler(build_mutation([PIN_IMAGE],
+                                         provider_cache=ref_cache)[0],
+                          namespace_lookup=namespaces.get)
+    diffs, patched = [], 0
+    for i, body in enumerate(bodies):
+        m = ref.handle(copy.deepcopy(body))
+        want = admission_response(m.uid, m.allowed, m.message, m.code,
+                                  warnings=m.warnings,
+                                  patch=m.patch)["response"]
+        patched += "patch" in want
+        if m_replies[i] != want:
+            diffs.append((i, m_replies[i], want))
+    log(f"extdata mutate: {len(bodies)} mutations in {m_wall:.3f}s, "
+        f"{out['mutate']['per_s']:.1f} mutations/s, p50 "
+        f"{out['mutate']['p50_ms']:.3f} ms, p99 "
+        f"{out['mutate']['p99_ms']:.3f} ms; {patched} patched, "
+        f"{len(diffs)} differ from the CPU MutationHandler (perkey); sends "
+        f"{out['mutate']['sends']} ({card})")
+    if diffs or not patched or not drained:
+        raise AssertionError(f"extdata mutate: answers differ (first: "
+                             f"{diffs[:2]}) or no patch or no drain")
+    return out
+
+
+def extdata_phase(objects, n_traffic: int, card: str,
+                  device: str = "cuda") -> tuple:
+    """External data on the card: the relist on both collect lanes, the
+    lane modes and the snapshot at CPU_PREFIX objects, then admission and
+    mutation.  Returns (launches, shapes, records).  ``device="cpu"``
+    rehearses it (no launches to count)."""
+    from gatekeeper_tpu_torch.extdata import lane as extlane
+
+    t0 = time.perf_counter()
+    try:
+        launches, shapes, recs = extdata_relist(objects, card, device)
+        t1 = time.perf_counter()
+        recs["modes"] = extdata_modes(objects, card, device)
+        t2 = time.perf_counter()
+        recs["serve"] = extdata_serve(n_traffic, card, device)
+    finally:
+        extlane.uninstall()
+    t3 = time.perf_counter()
+    recs["phase_s"] = {"relist": t1 - t0, "modes": t2 - t1,
+                       "serve": t3 - t2, "all": t3 - t0}
+    log(f"extdata: phase {t3 - t0:.1f}s (relist {t1 - t0:.1f}s, modes "
+        f"{t2 - t1:.1f}s, admit and mutate {t3 - t2:.1f}s)")
+    return launches, shapes, recs
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--objects", type=int, default=131072,
@@ -1798,11 +2369,16 @@ def main() -> int:
     exp_launches, exp_shapes, exp_steps = expand_phase(objects, plain_totals,
                                                        card)
     gc.collect()
+    phase("extdata")
+    ext_launches, ext_shapes, ext_steps = extdata_phase(
+        objects, args.admissions, card)
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
                    + collections.Counter(snap_shapes[name])
-                   + collections.Counter(exp_shapes[name]))
+                   + collections.Counter(exp_shapes[name])
+                   + collections.Counter(ext_shapes.get(name, {})))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -1817,12 +2393,14 @@ def main() -> int:
     log(f"snapshot steps: {json.dumps(snap_steps)}")
     log(f"expand steps: {json.dumps(exp_steps)}")
     log(f"mutate: {json.dumps(mutate)}")
+    log(f"extdata steps: {json.dumps(ext_steps, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["snapshot_launches"] = snap_launches[row["name"]]
         row["expand_launches"] = exp_launches[row["name"]]
+        row["extdata_launches"] = ext_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,10 @@ fold kernels (``ops/fold.py``), the serial audit schedule with its
 expansion generator stage (``audit/manager.py``), the resident snapshot and
 its device residency (``snapshot/``), mutation (``mutation/``, with the
 device prefilter) and its batched lane (``mutlane/``), expansion
-(``expansion/``), the webhook (``webhook/``: ``/v1/admit``, ``/v1/mutate``)
-and ``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
+(``expansion/``), the webhook (``webhook/``: ``/v1/admit``, ``/v1/mutate``),
+external data (``externaldata/``, ``extdata/``: the provider cache and the
+batched join lane, whose ``ext:`` tables the grid reads) and
+``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,8 @@ beside the audit loop.
         [--snapshot-resync-every N] [--snapshot-resync-rotate K] \
         [--audit-expand] [--mutate-lane batched|host|differential] \
         [--operation audit|webhook|mutation-webhook ...]
+    (both modes also take [--extdata-lane batched|perkey|differential]
+    [--extdata-max-keys N] [--extdata-fanout N])
 
 Loads ConstraintTemplates, constraints and cluster objects from YAML
 (files or directories, ``--manifests`` repeatable).  ``--device`` is where
@@ -34,6 +36,20 @@ object (a Deployment, under the reference's ``expand-deployments``
 template) expands into its implied resultants, mutated with
 ``Source=Generated``, and those are audited on the device too, their
 violations prefixed ``[Implied by <template>]``.
+
+Provider manifests (``externaldata.gatekeeper.sh`` ``Provider``) load
+into one ``ProviderCache``; a Provider that fails validation (a URL that
+is not https, no ``caBundle``) is reported on stderr and not loaded.  One
+``ExtDataLane`` over that cache (``--extdata-lane``, default ``batched``)
+is installed for the process: templates that call ``external_data`` join
+``ext:`` tables on the device grid at admission and in the audit, their
+keys deduped per batch and fetched in bulk (``--extdata-max-keys`` per
+transport send, ``--extdata-fanout`` providers at once), and
+``externalData`` Assign placeholders at ``/v1/mutate`` resolve through the
+same lane.  ``perkey`` keeps external-data templates on the interpreter
+with one provider call per key; ``differential`` runs the batched lane and
+checks it against the per-key path.  stderr prints ``extdata lane: MODE``
+when the mode is not ``batched``.
 
 ``--audit-source snapshot`` audits the resident columnar snapshot
 instead of relisting: the manifests populate an in-memory ``FakeCluster``
@@ -178,10 +194,44 @@ def build_client(objects, device: str = "cuda"):
     return client, driver
 
 
-def build_mutation(objects) -> tuple:
+def build_extdata(objects, mode: str = "batched", max_keys: int = 256,
+                  fanout: int = 4) -> tuple:
+    """(ProviderCache, ExtDataLane): every Provider manifest of
+    ``objects`` loaded into one cache, and a lane over it in ``mode``,
+    installed for the process (the webhook's batches, the audit sweep and
+    the mutation placeholders all join through it).  A Provider that
+    ``Provider.from_unstructured`` refuses is reported on stderr and not
+    loaded."""
+    from gatekeeper_tpu_torch.extdata import lane as extlane
+    from gatekeeper_tpu_torch.externaldata.providers import (PROVIDER_GROUP,
+                                                             ProviderCache,
+                                                             ProviderError)
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+
+    cache = ProviderCache()
+    lane = extlane.ExtDataLane(cache, mode=mode, max_keys_per_call=max_keys,
+                               fanout=fanout)
+    extlane.install(lane)
+    for obj in objects:
+        group, _v, kind = gvk_of(obj)
+        if group != PROVIDER_GROUP or kind != "Provider":
+            continue
+        try:
+            cache.upsert(obj)
+        except ProviderError as e:
+            print(f"Provider {name_of(obj)} skipped: {e}", file=sys.stderr)
+            continue
+        # a lane wired to another cache still drops the provider's columns
+        lane.invalidate(name_of(obj))
+    return cache, lane
+
+
+def build_mutation(objects, provider_cache=None) -> tuple:
     """(MutationSystem, ExpansionSystem) with every mutator and
     ExpansionTemplate of ``objects`` installed; the expansion system
-    mutates resultants through the mutation system."""
+    mutates resultants through the mutation system, and external-data
+    placeholders resolve per key through ``provider_cache`` where no
+    batched lane is active."""
     from gatekeeper_tpu_torch.expansion.system import (EXPANSION_GROUP,
                                                        ExpansionSystem)
     from gatekeeper_tpu_torch.mutation.mutators import (MUTATIONS_GROUP,
@@ -189,7 +239,7 @@ def build_mutation(objects) -> tuple:
     from gatekeeper_tpu_torch.mutation.system import MutationSystem
     from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
 
-    mutation_system = MutationSystem()
+    mutation_system = MutationSystem(provider_cache=provider_cache)
     expansion_system = ExpansionSystem(mutation_system=mutation_system)
     for obj in objects:
         group, _v, kind = gvk_of(obj)
@@ -277,6 +327,26 @@ def main(argv=None) -> int:
                         "path; 'differential' runs the batched lane AND "
                         "asserts it bit-identical to the reference per "
                         "batch (debugging)")
+    p.add_argument("--extdata-lane", default="batched",
+                   choices=["batched", "perkey", "differential"],
+                   help="external-data resolution lane: 'batched' dedupes "
+                        "provider keys across each admission burst / audit "
+                        "chunk, bulk-fetches per provider into resident "
+                        "columns and joins verdicts on device; 'perkey' "
+                        "keeps the per-key ProviderCache reference path "
+                        "(external-data templates stay on the exact "
+                        "interpreter); 'differential' runs batched AND "
+                        "asserts verdicts + resolved values bit-identical "
+                        "to per-key")
+    p.add_argument("--extdata-max-keys", type=int, default=256,
+                   help="max keys per bulk provider call (the batched "
+                        "lane chunks larger deduped miss lists into "
+                        "multiple transport sends)")
+    p.add_argument("--extdata-fanout", type=int, default=4,
+                   help="per-provider concurrency of the batched lane's "
+                        "bulk fetches: a chunk referencing N providers "
+                        "lands their miss lists across this many threads "
+                        "(1 = strictly serial, the pre-fanout behavior)")
     p.add_argument("--operation", action="append", default=[],
                    choices=OPERATIONS,
                    help="audit|webhook|mutation-webhook (repeatable; "
@@ -286,8 +356,14 @@ def main(argv=None) -> int:
 
     resolve_device(args.device)  # no card and no --device cpu: raise now
     objects = load_manifests(args.manifests)
+    provider_cache, _lane = build_extdata(
+        objects, mode=args.extdata_lane, max_keys=args.extdata_max_keys,
+        fanout=args.extdata_fanout)
+    if args.extdata_lane != "batched":
+        print(f"extdata lane: {args.extdata_lane}", file=sys.stderr)
     client, driver = build_client(objects, device=args.device)
-    mutation_system, expansion_system = build_mutation(objects)
+    mutation_system, expansion_system = build_mutation(
+        objects, provider_cache=provider_cache)
     print(f"templates: {len(client.templates())} "
           f"({len(driver.lowered_kinds())} on the device verdict path), "
           f"constraints: {len(client.constraints())}, mutators: "

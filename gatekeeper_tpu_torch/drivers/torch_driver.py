@@ -22,11 +22,14 @@ labor:
 - ``render_query`` renders a device-detected hit through the CEL
   evaluator (CEL kinds) or the interpreter, the latter with the inventory
   restricted to join candidates where provably safe.
+- External-data joins (``external_data`` in a lowered template) read
+  ``ext:<provider>:{ok,val}`` tables that ``extdata_cols`` builds through
+  the attached or process-active ``ExtDataLane`` (extdata/lane.py); without
+  a lane, or in its ``perkey`` mode, such kinds run through the
+  interpreter, whose builtin resolves per key.
 
-Not ported yet: generation swaps, the compile cache, the external-data
-lane, cost attribution, tracing and metrics.  Kinds with external-data
-joins therefore never ride the device grid (``extdata_ready`` is False
-for them) and run through the interpreter.
+Not ported yet: generation swaps, the compile cache, cost attribution,
+tracing and metrics.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from gatekeeper_tpu_torch.ir.program import (CompiledProgram, LowerError,
                                              build_param_table, expr_nodes,
                                              extdata_key_cols,
                                              walk_join_values)
-from gatekeeper_tpu_torch.ops.flatten import (Flattener, RaggedCol,
+from gatekeeper_tpu_torch.ops.flatten import (K_STR, Flattener, RaggedCol,
                                               ScalarCol, Schema, Vocab,
                                               _axis_items, _walk)
 from gatekeeper_tpu_torch.target.review import GkReview
@@ -119,6 +122,9 @@ class TorchDriver:
         # device->host transfer accounting for query_batch (grid fetches),
         # the admission-side twin of the sweep evaluator's perf["d2h_bytes"]
         self.perf: dict = {}
+        # extdata/lane.ExtDataLane: explicit attachment wins over the
+        # process-active lane (see _active_extdata)
+        self.extdata_lane = None
 
     def lowering_stats(self) -> dict:
         """Device-coverage summary: how much of the loaded template set
@@ -291,15 +297,94 @@ class TorchDriver:
         route the kind through the interpreter for this data version."""
         return self.inventory_cols(kind, programs=programs)[1]
 
+    # --- external-data join tables (extdata/lane.py) --------------------
+    def _active_extdata(self):
+        """The lane this driver joins through: an explicitly attached one
+        or the process/context-active lane (--extdata-lane)."""
+        if self.extdata_lane is not None:
+            return self.extdata_lane
+        from gatekeeper_tpu_torch.extdata import lane as lane_mod
+
+        return lane_mod.active()
+
     def extdata_ready(self, kind: str, programs=None) -> bool:
-        """True when the kind has no external-data joins: the port has no
-        external-data lane yet, so such kinds stay on the interpreter."""
+        """True when the kind may ride the device grid as far as external
+        data goes: no external-data joins at all, or an active lane in a
+        device-join mode (batched/differential) with extractable key
+        columns.  The perkey mode (the authoritative reference) and
+        lane-less processes route external-data kinds through the
+        interpreter, whose ``external_data`` builtin resolves per key."""
         prog = (programs if programs is not None
                 else self._programs).get(kind)
         if prog is None:
             return True
         keymap, extractable = extdata_key_cols(prog.program)
-        return not keymap and extractable
+        if not keymap and extractable:
+            return True
+        lane = self._active_extdata()
+        return extractable and lane is not None and lane.device_join()
+
+    def extdata_cols(self, kind: str, batch, programs=None) -> tuple:
+        """(cols, ready): vocab-padded ``ext:`` join tables covering every
+        key THIS batch's subject columns reference.  Per provider the key
+        strings dedupe across the whole batch off the flattened sid
+        arrays, the lane bulk-fetches the misses (one transport call per
+        ``max_keys_per_call`` chunk; warm columns make none), and the
+        resident column serves the arrays.  Value strings intern here, so
+        callers build vocab-derived tables (``vocab_tables``, the StrPred
+        needle rows) AFTER this call."""
+        prog = (programs if programs is not None
+                else self._programs).get(kind)
+        if prog is None:
+            return {}, True
+        keymap, extractable = extdata_key_cols(prog.program)
+        if not keymap and extractable:
+            return {}, True
+        lane = self._active_extdata()
+        if lane is None or not lane.device_join() or not extractable:
+            return {}, False
+        requests: dict = {}
+        for provider in sorted(keymap):
+            sids: set = set()
+            for spec in keymap[provider]:
+                col = batch.scalars.get(spec)
+                if col is None:
+                    col = batch.raggeds.get(spec)
+                if col is None:
+                    continue  # column absent from this batch's schema
+                s = col.sid[col.kind == K_STR]
+                if s.size:
+                    sids.update(int(x) for x in np.unique(s) if x >= 0)
+            requests[provider] = sorted(self.vocab.string(s) for s in sids)
+        if len(requests) > 1:
+            # land every provider's misses in one fan-out, then build the
+            # tables from the warm columns (the build interns value strings
+            # and stays on this thread)
+            lane.ensure_many(requests)
+        cols: dict = {}
+        for provider, keys in requests.items():
+            cols.update(lane.tables_for(provider, keys, self.vocab))
+        return cols, True
+
+    def extdata_differential(self, target, kind, cons, reviews, grid,
+                             mask, cfg) -> None:
+        """``--extdata-lane differential``: the grid's verdicts must match
+        the exact interpreter (whose external_data builtin resolved through
+        the same lane, checked per key) on every live (constraint, review)
+        mask cell."""
+        from gatekeeper_tpu_torch.extdata.lane import ExtDataDivergence
+
+        for ci, con in enumerate(cons):
+            for oi in np.nonzero(mask[ci, : len(reviews)])[0].tolist():
+                ref = self._interp.query(target, [con], reviews[oi], cfg)
+                want = bool(ref.results)
+                got = bool(grid[ci, oi])
+                if want != got:
+                    r = reviews[oi]
+                    raise ExtDataDivergence(
+                        f"extdata differential: {kind}/{con.name} on "
+                        f"{r.request.namespace}/{r.request.name}: "
+                        f"device={got} interpreter={want}")
 
     def query(self, target, constraints, review, cfg=None) -> QueryResponse:
         cel_cons = [c for c in constraints if c.kind in self._cel_kinds]
@@ -525,9 +610,15 @@ class TorchDriver:
             prog = programs[kind]
             cons = by_kind[kind]
             table = build_param_table(prog.program, cons, self.vocab)
+            # extdata tables BEFORE run: the build interns value strings
+            # that the vocab tables inside run must cover
+            ext_cols, _ext_ok = self.extdata_cols(kind, batch,
+                                                  programs=programs)
+            extra = self.inventory_cols(kind, programs=programs)[0]
+            if ext_cols:
+                extra = {**extra, **ext_cols}
             grid = prog.run(batch, table, vocab=self.vocab,
-                            extra_cols=self.inventory_cols(
-                                kind, programs=programs)[0],
+                            extra_cols=extra,
                             device=dev,
                             dev_cache=self._dev_cache,
                             batch_cache=batch_memo)
@@ -539,6 +630,11 @@ class TorchDriver:
             self.perf["d2h_bytes"] = (self.perf.get("d2h_bytes", 0.0)
                                       + grid.nbytes)
             grid = grid[:, : batch.n] & mask
+            if ext_cols:
+                lane = self._active_extdata()
+                if lane is not None and lane.mode == "differential":
+                    self.extdata_differential(target, kind, cons, reviews,
+                                              grid, mask, cfg)
             if kind in cel_kinds and cel_delete_idx:
                 for ci, con in enumerate(cons):
                     for oi in cel_delete_idx:

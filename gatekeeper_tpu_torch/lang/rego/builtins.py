@@ -901,9 +901,14 @@ def _print(*args):
 @builtin("external_data")
 def _external_data(req):
     # reference: the frameworks' external_data builtin (validation-side
-    # external data).  The JAX package resolves it through its extdata
-    # lane; the port has no such lane yet, so the builtin raises.
-    from gatekeeper_tpu_torch.lang.rego.interp import RegoError
+    # external data).  Resolution rides the active extdata lane
+    # (extdata/lane.py): batched = resident-column bulk join, perkey =
+    # the authoritative single-key reference, differential = both with
+    # the resolved values asserted identical.  The host response here is
+    # the exact oracle the grid join (ir/nodes.ExtDataOk /
+    # ExtDataValueSid) must agree with.  With no lane every key is a
+    # per-key error, so the policy fails closed through its own errors
+    # rule.
+    from gatekeeper_tpu_torch.extdata.lane import builtin_fetch
 
-    raise RegoError("external_data: the external-data lane is not ported "
-                    "to PyTorch yet")
+    return builtin_fetch(req)

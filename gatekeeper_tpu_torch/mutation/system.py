@@ -11,11 +11,14 @@ Reference: pkg/mutation/system.go —
   (system_external_data.go)
 
 Port of ``gatekeeper_tpu/mutation/system.py``.  ``mutate_batch`` runs the
-prefilter's ``[M, N]`` grids on ``device`` (default ``"cuda"``).  The
-batched external-data lane is not ported: placeholders resolve through a
-``provider_cache`` when one is given, else by the no-provider semantics of
-their failurePolicy (UseDefault gives the default, Ignore the original
-value, Fail raises).
+prefilter's ``[M, N]`` grids on ``device`` (default ``"cuda"``).
+External-data placeholders resolve through the active ``ExtDataLane``
+(extdata/lane.py) when one is installed in a device-join mode (batched or
+differential): one deduped lane resolution per provider per object, then
+the failurePolicy.  Otherwise they resolve per key through the
+``provider_cache`` (the reference path, and the ``perkey`` mode's), or,
+with no cache, by the no-provider semantics of their failurePolicy
+(UseDefault gives the default, Ignore the original value, Fail raises).
 """
 
 from __future__ import annotations
@@ -219,25 +222,66 @@ class MutationSystem:
                         collect(v)
 
         collect(obj)
-        if self.provider_cache is not None and len(pending) > 1:
+        # batched external-data join (extdata/lane.py): with a device-join
+        # lane active, every placeholder's key dedupes into ONE lane
+        # resolution per provider (warm columns = zero transport); the
+        # per-key prefetch+resolve below stays the authoritative reference
+        # (and the perkey lane mode's path)
+        resolved = None
+        lane = self._extdata_lane()
+        if lane is not None and pending:
+            resolved = lane.resolve_placeholders(pending)
+        elif self.provider_cache is not None and len(pending) > 1:
             self.provider_cache.prefetch(
                 (ph.provider, ph.original_value) for ph in pending)
+
+        def resolve(ph):
+            if resolved is not None:
+                return self._apply_failure_policy(
+                    ph, resolved.get((ph.provider, ph.original_value)))
+            return self._resolve_one(ph)
 
         def walk(node):
             if isinstance(node, dict):
                 for k, v in list(node.items()):
                     if isinstance(v, ExternalDataPlaceholder):
-                        node[k] = self._resolve_one(v)
+                        node[k] = resolve(v)
                     else:
                         walk(v)
             elif isinstance(node, list):
                 for i, v in enumerate(node):
                     if isinstance(v, ExternalDataPlaceholder):
-                        node[i] = self._resolve_one(v)
+                        node[i] = resolve(v)
                     else:
                         walk(v)
 
         walk(obj)
+
+    def _extdata_lane(self):
+        """The batched lane, when one is active in a device-join mode
+        (batched/differential); None keeps the per-key reference path."""
+        from gatekeeper_tpu_torch.extdata import lane as lane_mod
+
+        lane = lane_mod.active()
+        if lane is not None and lane.device_join():
+            return lane
+        return None
+
+    def _apply_failure_policy(self, ph, value_err):
+        """Failure-policy semantics over a lane-resolved (value, error)
+        pair: exactly ProviderCache.resolve's Fail | Ignore | UseDefault
+        behavior, so the batched and per-key paths mutate identically."""
+        from gatekeeper_tpu_torch.externaldata.providers import ProviderError
+
+        value, err = (value_err if value_err is not None
+                      else (None, "external data: key not resolved"))
+        if not err:
+            return value
+        if ph.failure_policy == "UseDefault":
+            return ph.default
+        if ph.failure_policy == "Ignore":
+            return ph.original_value
+        raise ProviderError(err)
 
     def _resolve_one(self, ph) -> Any:
         if self.provider_cache is None:

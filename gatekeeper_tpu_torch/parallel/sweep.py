@@ -661,7 +661,8 @@ class SweepEvaluator:
         self._perf_add("masks", time.perf_counter() - t0)
         t0 = time.perf_counter()
         cols_dev = self._upload_cols({**flat.cols,
-                                      **self._shared_tables(kinds, progs)})
+                                      **self._shared_tables(kinds, progs,
+                                                            flat.batch)})
         params_dev = self._param_tensors(tables, "h2d_bytes")
         # the match mask travels bit-packed ([C, pad_n/8] uint8) and
         # unpacks on the device
@@ -726,10 +727,22 @@ class SweepEvaluator:
             c_off += len(cons)
         return tables, offsets, c_off
 
-    def _shared_tables(self, kinds, progs) -> dict:
-        """The vocab and inventory lookup tables the kinds' programs
-        read (``fn:``/``st:``/``inv:`` keys)."""
+    def _shared_tables(self, kinds, progs, batch=None) -> dict:
+        """The lookup tables the kinds' programs read: the external-data
+        join tables of ``batch`` (``ext:`` keys; a resident chunk has no
+        host batch, and the residency declines groups with such joins),
+        then the vocab and inventory tables (``fn:``/``st:``/``inv:``).
+        The ``ext:`` tables come FIRST: the lane's bulk fetch lands the
+        chunk's deduped keys and the table build interns value strings,
+        which the vocab tables built after must cover."""
         out: dict = {}
+        if batch is not None:
+            t0 = time.perf_counter()
+            for kind in kinds:
+                out.update(self.driver.extdata_cols(kind, batch,
+                                                    programs=progs)[0])
+            if out:
+                self._perf_add("extdata", time.perf_counter() - t0)
         for kind in kinds:
             out.update(vocab_tables(progs[kind].program, self.driver.vocab))
             out.update(self.driver.inventory_cols(kind, programs=progs)[0])
