@@ -23,10 +23,42 @@ Phases (any failure raises and exits non-zero):
    rows of both CEL kinds must have ridden at least one of those launches
    and each CEL constraint must have violations, and a CPU run of the port
    (plain versions) must equal the card's run on the first 8,192 objects;
-4. shapes: at every distinct (C, N, k) that the path launched a kernel
+4. pipeline: the audit's host path, on the path phase's objects, reduced
+   lane: (a0) a dict lister on the default schedule (``auto``, which
+   resolves to serial: the port's stages share the interpreter lock) and
+   (a) that lister on the serial schedule, twice each in ABBA order; (b) a lister of
+   ``RawJSON`` objects (serialized before the timer starts), serial,
+   ``flatten_lane="raw"``; (c) that lister on the staged pipeline
+   (``pipeline="on"``), raw lane, W flatten worker processes (W =
+   min(4, effective cores - 2), at least 2); (d) on the first 8,192
+   objects, ``pipeline="differential"`` with the ``RawJSON`` lister and W
+   workers on both collect lanes; then (c)'s manager once more, warm,
+   under ``torch.profiler``.  Every run must equal the path phase's run
+   canonically ((d): its card run of the first 8,192 objects), (a0)'s
+   walls may sum to at most 1.3 times (a)'s (the host's run-to-run
+   noise), (d) must
+   set ``pipeline_differential_ok``, (c) must run pipelined and (c) and
+   (d) must not degrade to serial, both native columnizers must have
+   built, no chunk of (b) or (c) may take a lane other than ``raw`` /
+   ``raw+workers``, every chunk of (c) that the columnizer's thread clamp
+   splits must have used the workers, the vocab must be a bijection after
+   (c), both fold kernels must launch inside the pipelined sweeps
+   (counted), and the profiled run must show device events and its
+   host-to-device copies must not
+   exceed one per dtype buffer and one for the mask per chunk, plus the
+   counted misses of the table and parameter caches.  Prints each run's
+   wall, objects/s, ``flatten``, ``c_columnize``, ``wire_pack``,
+   ``upload``, ``h2d_bytes``, ``h2d_copies`` and ``fold_render``, the
+   chunks per lane, the pipeline's per-stage busy/wait/stall and
+   occupancy, ``device_wait_s`` and ``device_idle_fraction``, and
+   ``os.cpu_count()`` and the effective core count.  Every relist run
+   under the default schedule, in this and the path, profile, expand and
+   extdata phases, must have run the schedule ``auto`` resolves to, and
+   none may have degraded to serial;
+5. shapes: at every distinct (C, N, k) that the path launched a kernel
    with, both kernels held bit for bit against their plain versions on an
    edge grid and on a random grid, then timed;
-5. snapshot: the same objects and templates through the resident
+6. snapshot: the same objects and templates through the resident
    snapshot (``--audit-source snapshot``): per collect lane a
    ``FakeCluster``, a ``ClusterSnapshot``, a ``WatchIngester`` and
    ``DeviceResidency(mode="auto")`` on the card; (1) a first ``audit()``
@@ -48,7 +80,7 @@ Phases (any failure raises and exits non-zero):
    step's wall, objects/s,
    snapshot-build (flatten), residency upload/patch and dispatch seconds,
    resident MB and uploaded bytes, and the rows patched;
-6. expand: the same objects and templates with the mutation bench's 8
+7. expand: the same objects and templates with the mutation bench's 8
    mutators (6 the prefilter lowers, 2 host-only) and the reference's
    ``expand-deployments`` ExpansionTemplate, audited with
    ``--audit-expand``: every Deployment's implied Pod expands through the
@@ -62,7 +94,7 @@ Phases (any failure raises and exits non-zero):
    generated verdicts, and a 1% churn tick.  The card must equal a CPU run
    on the first 8,192 objects.  Prints each pass's wall, generators,
    resultants, and the expand and generated-sweep seconds;
-7. extdata: the library plus the reference docs' two image templates
+8. extdata: the library plus the reference docs' two image templates
    (``K8sExtData``, one ``external_data`` call over every container
    image, failing on ``response.errors``; ``K8sDigest``, one call per
    container, failing when the resolved digest differs), each with a
@@ -87,11 +119,12 @@ Phases (any failure raises and exits non-zero):
    ``perf["extdata"]`` seconds, sends and keys per provider (cold and
    warm), per-key against batched sends and seconds, and rates with
    p50/p99;
-8. shapes (after the snapshot, expand and extdata phases): as phase 4, at
-   the (C, N, k) the snapshot, expand and extdata paths launched too;
-9. profile: the reduced-lane audit once more under ``torch.profiler``,
+9. shapes (after the pipeline, snapshot, expand and extdata phases): as
+   phase 5, at the (C, N, k) the pipeline, snapshot, expand and extdata
+   paths launched too;
+10. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-10. admission: the library (all 46 templates and their sample
+11. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -116,7 +149,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-11. served: the served process's two threads on one driver and vocab, as
+12. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -127,7 +160,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-12. mutate: the admission bodies posted to ``/v1/mutate`` of a
+13. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -137,11 +170,14 @@ Phases (any failure raises and exits non-zero):
    ``mutate``, with rows decided by the compiled program.  Prints
    mutations/s, p50/p99, the outcome-lane histogram and the relevance
    rows' wall time through ``CompiledProgram.run`` on the card against the
-   host ``_np_eval`` at bursts of 64 and 4,096.  (``/v1/admit`` with the
-   expansion system is served and held in the admission phase);
-13. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+   host ``_np_eval`` at bursts of 64 and 4,096, and one burst of each size
+   through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
+   ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
+   the expansion system is served and held in the admission phase);
+14. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
-   ``launches`` counts the relist path's launches, ``snapshot_launches``
+   ``launches`` counts the relist path's launches, ``pipeline_launches``
+   those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
    the snapshot path's, ``expand_launches`` those inside the generator
    stage of the expand phase, ``extdata_launches`` those of the extdata
    phase's cold relist (the reduced lane's ``fused_fold``, the masks
@@ -484,6 +520,21 @@ def _client(objects, device: str = "cuda", extdata: bool = False,
     return client, driver, nt, nc
 
 
+def _schedule_held(label: str, perf: dict) -> None:
+    """A relist under the default schedule (``pipeline="auto"``) ran the
+    schedule that ``auto`` resolves to, and no pipelined pass failed: the
+    manager reruns a failed pipelined pass serially and only counts it in
+    ``degraded_to_serial``, so without this check a fault would pass."""
+    from gatekeeper_tpu_torch.pipeline import resolve_schedule
+
+    want = 1.0 if resolve_schedule("auto", True) == "pipelined" else 0.0
+    if perf.get("pipelined", 0.0) != want or perf.get("degraded_to_serial"):
+        raise AssertionError(
+            f"{label}: schedule {perf.get('pipelined')} where auto resolves "
+            f"to {want}, degraded_to_serial "
+            f"{perf.get('degraded_to_serial')}")
+
+
 def audit(objects, device: str, collect: str, dispatches=None) -> tuple:
     """One library audit through the port's entry points: (run, phases,
     seconds).  ``dispatches`` (a list) receives (kinds, C, padded N) of
@@ -516,6 +567,7 @@ def audit(objects, device: str, collect: str, dispatches=None) -> tuple:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     phases = {**evaluator.perf, **mgr.perf}
+    _schedule_held(f"audit[{collect}]", mgr.perf)
     return run, phases, dt
 
 
@@ -558,6 +610,10 @@ def path_phase(n_objects: int) -> tuple:
             {k: round(v, 6) for k, v in sorted(phases.items())}))
         if run.incomplete or run.total_objects != n_objects or total <= 0:
             raise AssertionError(f"audit[{collect}] result is not sane")
+        lanes = _lanes(phases)
+        if set(lanes) != {"dict"}:
+            raise AssertionError(f"audit[{collect}]: chunks left the native "
+                                 f"dict columnizer: {lanes}")
         # the CEL rows ride the fold launches of their kind group
         with_cel = [(c, n) for kinds, c, n in dispatches
                     if set(CEL_TEMPLATE_KINDS) <= set(kinds)]
@@ -587,7 +643,251 @@ def path_phase(n_objects: int) -> tuple:
         raise AssertionError("CPU run of the port differs from the card's")
     log(f"cpu == cuda on the first {CPU_PREFIX} objects "
         f"({sum(on_cpu[1].values())} violations)")
-    return launches, shapes, objects, runs
+    return launches, shapes, objects, runs, on_card
+
+
+# --- the audit's host path: schedules, lanes, worker processes --------------
+PIPE_DIFF_PREFIX = 8192  # objects of the differential runs (d)
+# the default schedule's relists may take at most this share of the serial
+# ones' wall, summed over two runs of each in ABBA order: single relists of
+# these objects on the H100 host, same code, differed by up to 21% (11.118
+# against 13.466 s); the pipelined default took 1.21-1.56x
+DEFAULT_WALL_NOISE = 1.3
+_PIPE_KEYS = ("flatten", "fl_c_columnize", "wire_pack", "upload",
+              "h2d_bytes", "h2d_copies", "dispatch", "collect")
+
+
+def pipeline_audit(objects, listed, collect: str, pipeline: str,
+                   flatten_lane: str = "auto", flatten_workers: int = 0,
+                   device: str = "cuda") -> tuple:
+    """(manager, evaluator) of one library relist over ``listed`` (dicts
+    or pre-serialized ``RawJSON``) with the path phase's settings and the
+    given schedule, columnizer lane and flatten worker processes; the
+    client's inventory comes from ``objects``."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+    client, driver, _nt, _nc = _client(objects, device=device)
+    evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
+                               collect=collect, flatten_lane=flatten_lane,
+                               flatten_workers=flatten_workers)
+    mgr = AuditManager(client, lister=lambda: iter(listed),
+                       config=AuditConfig(violations_limit=20,
+                                          chunk_size=32768,
+                                          exact_totals=False,
+                                          submit_window=4,
+                                          pipeline=pipeline),
+                       evaluator=evaluator)
+    return mgr, evaluator
+
+
+def _pipelined_counted(mgr, launches: dict, shapes: dict) -> None:
+    """Count the fold kernels' launches and shapes inside ``mgr``'s
+    pipelined sweeps only (not its serial ones)."""
+    mgr._sweep_pipelined = _fold_counted(mgr._sweep_pipelined, launches,
+                                         shapes)
+
+
+def _lanes(perf: dict) -> dict:
+    return {k.split("/", 1)[1]: int(v) for k, v in perf.items()
+            if k.startswith("flatten_chunks/")}
+
+
+def _pipe_record(label: str, mgr, ev, run, wall: float, cores: tuple,
+                 card: str) -> dict:
+    perf = {**ev.perf, **mgr.perf}
+    rec = {"wall_s": wall, "objects": run.total_objects,
+           "objects_per_s": run.total_objects / wall,
+           "fold_render": perf.get("fold_render", 0.0),
+           "lanes": _lanes(ev.perf),
+           "fanout_chunks": int(ev.perf.get("flatten_fanout_chunks", 0)),
+           **{k: perf.get(k, 0.0) for k in _PIPE_KEYS}}
+    log(f"pipeline[{label}]: {run.total_objects} objects, "
+        f"{sum(run.total_violations.values())} violations, {wall:.3f}s, "
+        f"{rec['objects_per_s']:.1f} objects/s; " + ", ".join(
+            f"{k} {rec[k]:.6f}" for k in _PIPE_KEYS + ("fold_render",))
+        + f"; lanes {rec['lanes']}; os.cpu_count() {cores[0]}, "
+        f"effective {cores[1]}; {card}")
+    if mgr.pipe_stats is not None:
+        rec["pipe"] = mgr.pipe_stats
+        log(f"pipeline[{label}]: stages " + json.dumps(mgr.pipe_stats))
+    return rec
+
+
+def _vocab_bijection(vocab) -> bool:
+    return len(vocab._to_str) == len(vocab._to_id) and all(
+        vocab._to_id[s] == i for i, s in enumerate(vocab._to_str))
+
+
+def _htod_copies(prof) -> int:
+    """Host-to-device memcpy events the profiler saw on the device."""
+    return sum(e.count for e in _device_events(prof) if "HtoD" in e.key)
+
+
+def pipeline_phase(objects, relist_runs, prefix_summary, card: str,
+                   device: str = "cuda") -> tuple:
+    """The relist on the path phase's objects under each host path:
+    (a0) a dict lister on the default schedule (``auto``) and (a) that
+    lister, serial, twice each in ABBA order, where (a0)'s walls may sum to
+    DEFAULT_WALL_NOISE times (a)'s at most; (b) a ``RawJSON`` lister (serialized
+    before the timer starts), serial, ``flatten_lane="raw"``; (c) the
+    ``RawJSON`` lister pipelined, raw lane, W flatten worker processes;
+    (d) on the first PIPE_DIFF_PREFIX objects, ``pipeline="differential"``
+    with the ``RawJSON`` lister and W workers on both collect lanes; then
+    (c) once more, warm and under ``torch.profiler``, for the
+    host-to-device copies.  Returns (launches, shapes) of the fold
+    kernels inside the pipelined sweeps, and the runs' records.
+    ``device="cpu"`` rehearses it (no profile, no launches)."""
+    import os
+
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig
+    from gatekeeper_tpu_torch.ops import native
+    from gatekeeper_tpu_torch.ops.flatten import shutdown_flatten_pools
+    from gatekeeper_tpu_torch.pipeline import effective_cpu_count
+    from gatekeeper_tpu_torch.utils.rawjson import as_raw
+
+    cores = (os.cpu_count(), effective_cpu_count())
+    workers = max(2, min(4, cores[1] - 2))
+    if native.load() is None or native.load_json() is None:
+        raise AssertionError("pipeline: a native columnizer did not build")
+    t0 = time.perf_counter()
+    raws = [as_raw(o) for o in objects]
+    log(f"pipeline: {len(raws)} objects serialized in "
+        f"{time.perf_counter() - t0:.3f}s; flatten workers {workers}; "
+        f"os.cpu_count() {cores[0]}, effective {cores[1]}")
+    launches = {"fused_fold": 0, "epilogue": 0}
+    shapes = {name: collections.Counter() for name in launches}
+    want = summary(relist_runs["reduced"])
+    default = AuditConfig().pipeline
+    records = {}
+    try:
+        for label, listed, pipeline, lane, w in (
+                ("a0 dict default", objects, default, "auto", 0),
+                ("a dict serial", objects, "off", "auto", 0),
+                ("a' dict serial", objects, "off", "auto", 0),
+                ("a0' dict default", objects, default, "auto", 0),
+                ("b raw serial", raws, "off", "raw", 0),
+                ("c raw pipelined", raws, "on", "raw", workers)):
+            mgr, ev = pipeline_audit(objects, listed, "reduced", pipeline,
+                                     lane, w, device=device)
+            _pipelined_counted(mgr, launches, shapes)
+            gc.collect()  # the last run's garbage, before the timer
+            t0 = time.perf_counter()
+            run = mgr.audit()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            records[label] = rec = _pipe_record(label, mgr, ev, run, wall,
+                                                cores, card)
+            if summary(run) != want or run.incomplete:
+                raise AssertionError(f"pipeline[{label}]: differs from the "
+                                     f"path phase's relist")
+            if lane == "raw" and not set(rec["lanes"]) <= {"raw",
+                                                           "raw+workers"}:
+                raise AssertionError(f"pipeline[{label}]: a chunk missed "
+                                     f"the raw lane: {rec['lanes']}")
+            if pipeline == "on":
+                if mgr.perf.get("pipelined") != 1.0 or \
+                        mgr.perf.get("degraded_to_serial"):
+                    raise AssertionError(f"pipeline[{label}]: not pipelined "
+                                         f"or degraded: {mgr.perf}")
+                if rec["lanes"].get("raw+workers", 0) != \
+                        rec["fanout_chunks"] or not rec["fanout_chunks"] \
+                        or ev.perf.get("fl_worker_fallbacks"):
+                    raise AssertionError(
+                        f"pipeline[{label}]: chunks missed the workers: "
+                        f"{rec['lanes']}, {rec['fanout_chunks']} chunks "
+                        f"fan out")
+                if not _vocab_bijection(ev.driver.vocab):
+                    raise AssertionError(f"pipeline[{label}]: the vocab is "
+                                         f"not a bijection")
+                piped = (mgr, ev)
+            if label.startswith("a0"):
+                _schedule_held(f"pipeline[{label}]", mgr.perf)
+        # the main path's schedule (the default) is no slower than serial
+        ratio = sum(records[k]["wall_s"] for k in ("a0 dict default",
+                                                   "a0' dict default")) / \
+            sum(records[k]["wall_s"] for k in ("a dict serial",
+                                               "a' dict serial"))
+        log(f"pipeline: the default schedule's walls over the serial ones' "
+            f"{ratio:.3f} (at most {DEFAULT_WALL_NOISE})")
+        if device == "cuda" and ratio > DEFAULT_WALL_NOISE:
+            raise AssertionError(f"pipeline: the default schedule takes "
+                                 f"{ratio:.3f}x the serial relist's wall")
+        # (d) the differential schedule on both collect lanes
+        prefix, raw_prefix = objects[:PIPE_DIFF_PREFIX], \
+            raws[:PIPE_DIFF_PREFIX]
+        diff_runs = {}
+        for collect in ("reduced", "masks"):
+            label = f"d differential {collect}"
+            mgr, ev = pipeline_audit(prefix, raw_prefix, collect,
+                                     "differential", "raw", workers,
+                                     device=device)
+            _pipelined_counted(mgr, launches, shapes)
+            t0 = time.perf_counter()
+            run = mgr.audit()
+            wall = time.perf_counter() - t0
+            records[label] = _pipe_record(label, mgr, ev, run, wall, cores,
+                                          card)
+            if mgr.perf.get("pipeline_differential_ok") != 1.0 or \
+                    mgr.pipe_stats is None or \
+                    mgr.perf.get("degraded_to_serial"):
+                raise AssertionError(f"pipeline[{label}]: {mgr.perf}")
+            diff_runs[collect] = summary(run)
+        if not diff_runs["reduced"] == diff_runs["masks"] == prefix_summary:
+            raise AssertionError("pipeline[d]: the differential runs differ "
+                                 "from the path phase's prefix run")
+        if device == "cuda":
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"pipeline: a fold kernel was never "
+                                     f"launched in the pipelined runs: "
+                                     f"{launches}")
+            records["copies"] = pipeline_copies(*piped, cores, card)
+    finally:
+        shutdown_flatten_pools()
+    log(f"pipeline: launches inside the pipelined sweeps {launches}, "
+        f"shapes {dict((k, dict(v)) for k, v in shapes.items())}")
+    return launches, {k: dict(v) for k, v in shapes.items()}, records
+
+
+def pipeline_copies(mgr, ev, cores: tuple, card: str) -> dict:
+    """Run (c)'s manager once more, warm, under ``torch.profiler``: the
+    host-to-device copies the device saw must not exceed, summed over the
+    relist's chunks, one per dtype buffer plus the mask's, plus the
+    counted misses of the table and parameter caches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev.perf_reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run = mgr.audit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    p = ev.perf
+    chunks = int(p.get("h2d_mask_copies", 0))
+    allowed = int(p.get("h2d_col_buffers", 0) + chunks
+                  + p.get("h2d_table_misses", 0)
+                  + p.get("h2d_param_misses", 0))
+    seen = _htod_copies(prof)
+    rec = {"chunks": chunks, "col_buffers": int(p.get("h2d_col_buffers", 0)),
+           "table_misses": int(p.get("h2d_table_misses", 0)),
+           "param_misses": int(p.get("h2d_param_misses", 0)),
+           "counted": int(p.get("h2d_copies", 0)), "allowed": allowed,
+           "profiler_htod": seen, "wall_s": wall}
+    log(f"pipeline[c warm, profiled]: {run.total_objects} objects in "
+        f"{wall:.3f}s; host-to-device copies: profiler {seen}, counted "
+        f"{rec['counted']}, allowed {allowed} ({chunks} chunks, "
+        f"{rec['col_buffers']} dtype buffers, {chunks} masks, "
+        f"{rec['table_misses']} table and {rec['param_misses']} parameter "
+        f"cache misses); {card}")
+    if not _device_events(prof):
+        raise AssertionError("pipeline: the profiler reported no device "
+                             "events, so the copy gate cannot be held")
+    if not 0 < seen <= allowed or rec["counted"] != allowed:
+        raise AssertionError(f"pipeline: {seen} host-to-device copies for "
+                             f"{allowed} allowed")
+    return rec
 
 
 def snapshot_churn(objects, n: int, seed: int = 5) -> list:
@@ -1331,7 +1631,9 @@ def served_phase(n: int, n_objects: int, card: str,
         audit_interval=0.25, audit_chunk_size=32768,
         audit_source="snapshot", snapshot_resync_every=2,
         snapshot_resync_rotate=0, audit_expand=False,
-        snapshot_residency="auto" if device == "cuda" else "on")
+        snapshot_residency="auto" if device == "cuda" else "on",
+        pipeline="auto", pipeline_flatten_workers=0, flatten_lane="auto",
+        flatten_workers=0)
     mgr, ingester = build_audit(args, cluster_objects, client, driver)
     cluster = ingester.source
     spans = {"audit": [], "audit_tick": [], "audit_resync": []}
@@ -1606,6 +1908,7 @@ def _expand_step(label: str, mgr, fn, device: str, card: str) -> tuple:
         f"generated sweep {rec['generated_sweep']:.3f}s ({card})")
     if run.incomplete:
         raise AssertionError(f"expand[{label}]: incomplete run")
+    _schedule_held(f"expand[{label}]", mgr.perf)
     return run, rec
 
 
@@ -1828,7 +2131,36 @@ def mutate_phase(n: int, card: str, device: str = "cuda") -> dict:
             f"programs, card (CompiledProgram.run) {rec['device_ms']:.3f} "
             f"ms, host _np_eval {rec['np_eval_ms']:.3f} ms (wall, median of "
             f"7), {card}")
+    out["ingest"] = {burst: mutate_ingest(ms, objs[:burst], device, card)
+                     for burst in PREFILTER_BURSTS}
     return out
+
+
+def mutate_ingest(ms, objs, device: str, card: str) -> dict:
+    """One burst through ``MutationLane`` under each ingest lane on
+    ``device`` (``--mutate-ingest``: the dict walker, raw bytes, and
+    raw-then-dict asserted column for column): the outcomes of ``raw``
+    and ``differential`` must equal the dict lane's.  Returns each lane's
+    wall seconds (one call, after a compile call on 8 objects)."""
+    from gatekeeper_tpu_torch.mutlane import MutationLane
+
+    walls, outs = {}, {}
+    for ingest in ("dict", "raw", "differential"):
+        lane = MutationLane(ms, device=device, ingest=ingest)
+        lane.mutate_objects(copy.deepcopy(objs[:8]))
+        work = copy.deepcopy(objs)
+        t0 = time.perf_counter()
+        res = lane.mutate_objects(work, want_objects=True)
+        walls[ingest] = time.perf_counter() - t0
+        outs[ingest] = [(o.changed, o.patch, o.error, o.obj, o.lane,
+                         o.iterations) for o in res]
+    log(f"mutate ingest at burst {len(objs)}: " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
+        + f" (wall, one call), {card}")
+    if not outs["raw"] == outs["differential"] == outs["dict"]:
+        raise AssertionError(f"mutate ingest at burst {len(objs)}: the raw "
+                             f"lanes' outcomes differ from the dict lane's")
+    return walls
 
 
 # --- external data -----------------------------------------------------------
@@ -2064,6 +2396,7 @@ def extdata_relist(objects, card: str, device: str = "cuda") -> tuple:
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _schedule_held(f"extdata[{collect}]", mgr.perf)
         launches[kernel] = getattr(fold, kernel).launches
         shapes[kernel] = dict(getattr(fold, kernel).shapes)
         cold = stub.counts()
@@ -2112,6 +2445,7 @@ def extdata_relist(objects, card: str, device: str = "cuda") -> tuple:
             if device == "cuda":
                 torch.cuda.synchronize()
             rec["warm_wall_s"] = time.perf_counter() - t0
+            _schedule_held("extdata[warm]", mgr.perf)
             rec["warm"] = _delta(stub.counts(), cold)
             log(f"extdata relist[{collect}] warm repeat: "
                 f"{rec['warm_wall_s']:.3f}s, sends {rec['warm']['sends']}")
@@ -2149,6 +2483,7 @@ def extdata_modes(objects, card: str, device: str = "cuda") -> dict:
         runs[label] = mgr.audit()
         if dev == "cuda":
             torch.cuda.synchronize()
+        _schedule_held(f"extdata[{label}]", mgr.perf)
         swept = any(set(EXT_KINDS) & set(kinds)
                     for kinds, _c, _n in dispatches)
         recs[label] = {"wall_s": time.perf_counter() - t0,
@@ -2357,9 +2692,14 @@ def main() -> int:
     phase("kernels")
     rows, err = kernel_phase()
     phase("path")
-    launches, shapes, objects, relist_runs = path_phase(args.objects)
+    launches, shapes, objects, relist_runs, prefix_summary = path_phase(
+        args.objects)
     plain_totals = {c: dict(run.total_violations)
                     for c, run in relist_runs.items()}
+    phase("pipeline")
+    pipe_launches, pipe_shapes, pipe_records = pipeline_phase(
+        objects, relist_runs, prefix_summary, card)
+    gc.collect()
     phase("snapshot")
     snap_launches, snap_shapes, snap_steps = snapshot_phase(
         objects, relist_runs, card)
@@ -2376,6 +2716,7 @@ def main() -> int:
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
+                   + collections.Counter(pipe_shapes[name])
                    + collections.Counter(snap_shapes[name])
                    + collections.Counter(exp_shapes[name])
                    + collections.Counter(ext_shapes.get(name, {})))
@@ -2394,10 +2735,12 @@ def main() -> int:
     log(f"expand steps: {json.dumps(exp_steps)}")
     log(f"mutate: {json.dumps(mutate)}")
     log(f"extdata steps: {json.dumps(ext_steps, default=str)}")
+    log(f"pipeline runs: {json.dumps(pipe_records, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["pipeline_launches"] = pipe_launches[row["name"]]
         row["snapshot_launches"] = snap_launches[row["name"]]
         row["expand_launches"] = exp_launches[row["name"]]
         row["extdata_launches"] = ext_launches[row["name"]]

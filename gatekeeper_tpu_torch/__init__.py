@@ -13,8 +13,9 @@ admission and expansion so far: YAML loading, the Rego and CEL front ends
 and lowering, the columnar flatten, the grid evaluator (``ir/program.py``),
 the driver (``drivers/torch_driver.py``, with the batched
 ``query_batch``), the one-device sweep (``parallel/sweep.py``) with both
-fold kernels (``ops/fold.py``), the serial audit schedule with its
-expansion generator stage (``audit/manager.py``), the resident snapshot and
+fold kernels (``ops/fold.py``), the serial and staged-pipeline audit
+schedules (``audit/manager.py`` over ``pipeline/``) with the expansion
+generator stage, the resident snapshot and
 its device residency (``snapshot/``), mutation (``mutation/``, with the
 device prefilter) and its batched lane (``mutlane/``), expansion
 (``expansion/``), the webhook (``webhook/``: ``/v1/admit``, ``/v1/mutate``),

@@ -14,7 +14,10 @@ beside the audit loop.
         [--audit-expand] [--mutate-lane batched|host|differential] \
         [--operation audit|webhook|mutation-webhook ...]
     (both modes also take [--extdata-lane batched|perkey|differential]
-    [--extdata-max-keys N] [--extdata-fanout N])
+    [--extdata-max-keys N] [--extdata-fanout N]
+    [--pipeline auto|on|off|differential] [--pipeline-flatten-workers N]
+    [--flatten-workers N] [--flatten-lane auto|dict|raw|py|differential]
+    [--mutate-ingest dict|raw|differential])
 
 Loads ConstraintTemplates, constraints and cluster objects from YAML
 (files or directories, ``--manifests`` repeatable).  ``--device`` is where
@@ -50,6 +53,21 @@ same lane.  ``perkey`` keeps external-data templates on the interpreter
 with one provider call per key; ``differential`` runs the batched lane and
 checks it against the per-key path.  stderr prints ``extdata lane: MODE``
 when the mode is not ``batched``.
+
+The relist sweep's schedule is ``--pipeline``: ``on`` runs the staged
+host pipeline (flatten, dispatch, collect and fold on threads of their
+own), ``off`` the serial schedule, ``differential`` both, raising on any
+difference; ``auto`` (the default) resolves to serial, because the
+port's stages share the interpreter lock and the pipeline measured
+slower (``pipeline.resolve_schedule``).  The snapshot source always
+evaluates serially.  stderr prints the schedule that runs and the
+effective core count.
+``--pipeline-flatten-workers`` sets the flatten stage's threads.
+``--flatten-lane`` picks the sweep's columnizer (``raw`` serializes the
+listed objects once and columnizes the bytes in C with the interpreter
+lock released), ``--flatten-workers N`` fans raw-lane chunks over N
+worker processes, and ``--mutate-ingest`` picks the ``/v1/mutate``
+burst's columnizer.
 
 ``--audit-source snapshot`` audits the resident columnar snapshot
 instead of relisting: the manifests populate an in-memory ``FakeCluster``
@@ -347,6 +365,53 @@ def main(argv=None) -> int:
                         "bulk fetches: a chunk referencing N providers "
                         "lands their miss lists across this many threads "
                         "(1 = strictly serial, the pre-fanout behavior)")
+    p.add_argument("--mutate-ingest", default="dict",
+                   choices=["dict", "raw", "differential"],
+                   help="/v1/mutate burst columnizer: 'dict' keeps the "
+                        "dict-walk lane byte-for-byte; 'raw' serializes "
+                        "each burst once and feeds the raw-bytes "
+                        "threaded C columnizer (GIL released) — match "
+                        "walks and patch emission still read the dict "
+                        "objects, so outcomes are lane-invariant; "
+                        "'differential' runs raw THEN dict per batch "
+                        "and asserts the columns bit-identical")
+    p.add_argument("--pipeline", default="auto",
+                   choices=["auto", "on", "off", "differential"],
+                   help="audit sweep schedule: 'on' runs the staged "
+                        "host pipeline (list->flatten->dispatch->collect"
+                        "->fold on separate threads, bounded queues); "
+                        "'off' the serial eager-poll schedule; 'auto' "
+                        "resolves to serial (the stages share the "
+                        "interpreter lock, so they do not overlap); "
+                        "'differential' runs both and asserts "
+                        "bit-identical output (debugging)")
+    p.add_argument("--pipeline-flatten-workers", type=int, default=0,
+                   help="threads in the pipeline's flatten stage; 0 = "
+                        "auto (2 when the host has >=4 effective cores). "
+                        "The C columnizer already shards each chunk over "
+                        "an internal pthread pool; extra workers overlap "
+                        "the Python assembly slices across chunks")
+    p.add_argument("--flatten-workers", type=int, default=0,
+                   help="multiprocess flatten worker pool for sweep "
+                        "chunks: fan contiguous RawJSON byte spans of "
+                        "each chunk across N worker PROCESSES (each runs "
+                        "the C columnizer against a batch-local vocab; "
+                        "results merge into the shared vocab on the "
+                        "flattening thread, bit-identical to in-process "
+                        "— see ops/flatten.FlattenWorkerPool). 0 = the "
+                        "exact in-process path (the 1-core default); "
+                        "with --flatten-lane differential the worker "
+                        "pool is additionally asserted column- and "
+                        "vocab-identical per chunk")
+    p.add_argument("--flatten-lane", default="auto",
+                   choices=["auto", "dict", "raw", "py", "differential"],
+                   help="sweep columnizer lane: 'auto' feeds raw JSON "
+                        "bytes from the lister straight through the "
+                        "threaded C columnizer when available (falling "
+                        "back to the GIL-bound dict walker, then "
+                        "Python); 'raw'/'dict'/'py' force a lane; "
+                        "'differential' runs raw THEN dict per chunk "
+                        "and asserts bit-identical columns (debugging)")
     p.add_argument("--operation", action="append", default=[],
                    choices=OPERATIONS,
                    help="audit|webhook|mutation-webhook (repeatable; "
@@ -382,6 +447,11 @@ def main(argv=None) -> int:
     finally:
         if ingester is not None:
             ingester.stop()
+        if args.flatten_workers:
+            from gatekeeper_tpu_torch.ops.flatten import \
+                shutdown_flatten_pools
+
+            shutdown_flatten_pools()  # the worker processes exit with us
 
 
 def build_audit(args, objects, client, driver,
@@ -392,15 +462,24 @@ def build_audit(args, objects, client, driver,
     expands generator objects through ``expansion_system``."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.pipeline import (effective_cpu_count,
+                                               resolve_schedule)
 
     evaluator = SweepEvaluator(
         driver, device=args.device,
         violations_limit=args.constraint_violations_limit,
-        collect=args.collect)
+        collect=args.collect, flatten_lane=args.flatten_lane,
+        flatten_workers=args.flatten_workers)
+    relist = args.audit_source == "relist"
+    print(f"audit schedule: {resolve_schedule(args.pipeline, relist)} "
+          f"(--pipeline {args.pipeline}, {effective_cpu_count()} effective "
+          f"cores)", file=sys.stderr)
     config = AuditConfig(
         interval_s=args.audit_interval,
         violations_limit=args.constraint_violations_limit,
         chunk_size=args.audit_chunk_size,
+        pipeline=args.pipeline,
+        pipeline_flatten_workers=args.pipeline_flatten_workers,
         audit_source=args.audit_source,
         resync_every=args.snapshot_resync_every,
         resync_rotate=args.snapshot_resync_rotate,
@@ -486,7 +565,7 @@ def mutation_handler(args, mutation_system, namespace_lookup,
 
     lane = MutationLane(mutation_system,
                         differential=args.mutate_lane == "differential",
-                        device=args.device)
+                        device=args.device, ingest=args.mutate_ingest)
     batcher = MutationBatcher(lane).start()
     return BatchedMutationHandler(mutation_system, lane=lane,
                                   namespace_lookup=namespace_lookup,

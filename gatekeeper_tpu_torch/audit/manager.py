@@ -1,7 +1,7 @@
 """Audit sweep: the enforcement point that reviews every cluster object.
 
-Port of ``gatekeeper_tpu/audit/manager.py``: the serial schedule over a
-relisting lister, and the resident-snapshot lane (``audit_source=
+Port of ``gatekeeper_tpu/audit/manager.py``: the serial and the staged
+pipeline schedules over a relisting lister, and the resident-snapshot lane (``audit_source=
 "snapshot"``: full passes and incremental ticks over
 ``snapshot/store.ClusterSnapshot`` rows, device-resident through
 ``snapshot/device_residency.DeviceResidency`` when one is given, with
@@ -19,8 +19,17 @@ only the ≤K kept violations per constraint render to messages through the
 exact interpreter.  Kinds the sweep does not cover go to their driver's
 ``query_batch`` (the admission path), on the sweep's device.
 
-Not ported yet: the staged pipeline schedule, the snapshot spiller, the
-fleet seams, export, metrics, tracing and brownout hooks.
+The relist's schedule (``AuditConfig.pipeline``): the serial one lists,
+flattens and dispatches on the caller's thread and folds each chunk whose
+CUDA event has fired; the staged pipeline (``pipeline/executor.py``)
+lists on the caller's thread and runs flatten, dispatch, collect and
+fold_render on threads of their own with bounded queues, so chunk K's
+flatten overlaps chunk K-1's device work and fold.  Both fold chunks in
+submission order, so their totals, kept lists and messages are identical.
+The snapshot lane evaluates serially, as in the JAX package.
+
+Not ported yet: the snapshot spiller, the fleet seams, export, metrics,
+tracing and brownout hooks.
 """
 
 from __future__ import annotations
@@ -54,13 +63,34 @@ class AuditConfig:
     # 2), which requires rendering every hit through the interpreter.
     # False counts violating objects from the device grid.
     exact_totals: bool = True
+    # sweep schedule (--pipeline): 'on' takes the staged host pipeline
+    # (pipeline/executor.py — flatten, dispatch, collect and fold on
+    # their own threads with bounded queues, so chunk K's flatten
+    # overlaps chunk K-1's collect/fold); 'off' and 'auto' the serial
+    # one ('auto': the stages share the interpreter lock, see
+    # pipeline.resolve_schedule); 'differential' runs BOTH schedules and
+    # asserts bit-identical output (totals, kept order, messages)
+    pipeline: str = "auto"
+    # threads in the flatten stage; 0 = auto (2 on hosts with >=4
+    # effective cores, else 1).  >1 worker makes vocab-intern ORDER
+    # depend on thread timing (ids stay self-consistent, and verdicts and
+    # messages identical); emission order stays canonical either way
+    # (the executor restores input order)
+    pipeline_flatten_workers: int = 0
+    # bound of each inter-stage queue (chunks buffered between stages);
+    # the collect stage's input bound is submit_window, not this
+    pipeline_queue_cap: int = 2
     # how many chunks may be in flight on the device before the oldest is
     # collected (host memory + device memory bound)
     submit_window: int = 64
     # a chunk whose submit/collect raises is re-submitted up to
     # chunk_retries times, then SKIPPED — the run finishes with partial
-    # results and an explicit `incomplete` marker
+    # results and an explicit `incomplete` marker.  Stage workers of the
+    # pipelined schedule restart and re-run their item up to
+    # pipeline_stage_retries times; past that the executor aborts and the
+    # sweep reruns on the serial schedule
     chunk_retries: int = 1
+    pipeline_stage_retries: int = 1
     # sweep input (--audit-source): 'relist' pages the cluster through
     # the lister every pass; 'snapshot' audits the resident columnar
     # snapshot — a full pass evaluates resident columns with zero
@@ -174,6 +204,9 @@ class AuditManager:
         # (the evaluator tracks its own flatten/masks/dispatch/collect),
         # and the snapshot lane's counters
         self.perf: dict = {}
+        # the last pipelined pass's PipelineRun.summary() plus
+        # device_wait_s and device_idle_fraction (None after a serial one)
+        self.pipe_stats: Optional[dict] = None
 
     # --- loop (reference: auditManagerLoop, manager.go:831) -------------
     def run_forever(self) -> None:
@@ -213,6 +246,8 @@ class AuditManager:
         t0 = time.time()
         run = AuditRun(timestamp=_now_rfc3339())
         run.n_devices = 1 if self.evaluator is not None else 0
+        run.flatten_workers = int(
+            getattr(self.evaluator, "flatten_workers", 0) or 0)
         constraints = self._audit_constraints()
         if not constraints:
             run.duration_s = time.time() - t0
@@ -225,9 +260,58 @@ class AuditManager:
         totals: dict = {(c.kind, c.name): 0 for c in constraints}
         device = self.evaluator is not None and self._render_driver() \
             is not None
+        from gatekeeper_tpu_torch.pipeline import resolve_schedule
+
+        # staged-pipeline eligibility: an evaluator exposing the split
+        # flatten/dispatch stages; the interpreter lane stays serial
+        device_capable = (device
+                          and hasattr(self.evaluator, "sweep_flatten")
+                          and hasattr(self.evaluator, "sweep_dispatch"))
+        schedule = resolve_schedule(self.config.pipeline, device_capable)
+        self.pipe_stats = None
+        self.perf["pipelined"] = 1.0 if schedule == "pipelined" else 0.0
         counter = [0]
-        self._sweep_serial(constraints, device, kept, totals, limit,
-                           counter, run)
+        if schedule == "differential":
+            # serial is the reference schedule; the pipelined pass must
+            # reproduce it bit for bit (totals, kept order, messages)
+            self._sweep_serial(constraints, device, kept, totals, limit,
+                               counter, run)
+            kept_p: dict = {k: [] for k in kept}
+            totals_p: dict = {k: 0 for k in totals}
+            self._sweep_pipelined(constraints, kept_p, totals_p, limit,
+                                  [0], run)
+            diff = self._schedules_differ(kept, totals, kept_p, totals_p)
+            if diff:
+                raise RuntimeError(
+                    f"pipeline differential mismatch: {diff}")
+            self.perf["pipeline_differential_ok"] = 1.0
+        elif schedule == "pipelined":
+            try:
+                self._sweep_pipelined(constraints, kept, totals, limit,
+                                      counter, run)
+            except Exception as e:
+                # a pipeline whose stage kept failing past its restart
+                # budget aborts cleanly: the sweep reruns on the serial
+                # schedule (chunks re-list from the source, so nothing is
+                # dropped)
+                log_event("warning",
+                          "pipelined sweep failed; degrading to the "
+                          "serial schedule",
+                          event_type="audit_degraded", error=str(e))
+                for k in kept:
+                    kept[k] = []
+                for k in totals:
+                    totals[k] = 0
+                counter[0] = 0
+                self.pipe_stats = None
+                self.perf["pipelined"] = 0.0
+                self.perf["degraded_to_serial"] = (
+                    self.perf.get("degraded_to_serial", 0.0) + 1.0)
+                self._sweep_serial(constraints, device, kept, totals,
+                                   limit, counter, run)
+        else:
+            self._sweep_serial(constraints, device, kept, totals, limit,
+                               counter, run)
         run.total_objects = counter[0]
         if gen_stage is not None and self._gen_buf:
             # the generator stage: expanded resultants audit AFTER the
@@ -430,6 +514,124 @@ class AuditManager:
             submit(objs, cons, chunk_i)
         while window:  # drain: blocking collect of the tail chunks
             fold_oldest()
+
+    # --- pipelined schedule (staged executor) ----------------------------
+    def _sweep_pipelined(self, constraints, kept, totals, limit, counter,
+                         run=None):
+        """Staged host pipeline: ``list -> flatten -> dispatch -> collect
+        -> fold_render`` with one thread per stage (``flatten`` may have
+        more) and bounded inter-stage queues (pipeline/executor.py).  The
+        lister runs on the calling thread.  The collect stage's input
+        bound is ``submit_window`` (chunks in flight on the device), and
+        the fold stage consumes chunks in submission order, so the output
+        equals the serial schedule's.
+
+        The flatten threads and the dispatch thread (parameter tables)
+        intern into one vocab, so its lock is armed first."""
+        from gatekeeper_tpu_torch.pipeline import (Stage, StagedPipeline,
+                                                   effective_cpu_count)
+
+        ev = self.evaluator
+        cfg = self.config
+        rb = cfg.exact_totals
+        vocab = ev.driver.vocab
+        if vocab._lock is None:
+            vocab._lock = threading.RLock()
+
+        # reduced-collect kept budget (see _sweep_serial): evaluated at
+        # DISPATCH on the dispatch thread while the fold stage mutates
+        # kept — len() of a list is atomic under the interpreter lock and
+        # budgets only shrink, so a stale read over-ships, never
+        # under-ships
+        def budget_fn(con):
+            return limit - len(kept.get(con.key(), ()))
+
+        def fl(item):
+            objs, cons = item
+            return (ev.sweep_flatten(cons, objs, return_bits=rb,
+                                     budget=budget_fn), objs, cons)
+
+        def disp(item):
+            flat, objs, cons = item
+            return ev.sweep_dispatch(flat), objs, cons
+
+        def coll(item):
+            pending, objs, cons = item
+            event = getattr(pending, "event", None)
+            if event is not None:
+                # the stage's only blocking wait: the head-of-line chunk's
+                # device work and its copy back (the wait releases the
+                # interpreter lock); its busy seconds are the run's
+                # device-wait measurement
+                event.synchronize()
+            return ev.sweep_collect(pending), objs, cons
+
+        def fold_render(item):
+            swept, objs, cons = item
+            t0 = time.perf_counter()
+            self._process_swept(swept, objs, cons, kept, totals, limit)
+            self.perf["fold_render"] = (
+                self.perf.get("fold_render", 0.0)
+                + time.perf_counter() - t0)
+            return None
+
+        fw = cfg.pipeline_flatten_workers
+        if fw <= 0:  # auto: a second flatten thread once cores allow it
+            fw = 2 if effective_cpu_count() >= 4 else 1
+        # flatten/dispatch/collect re-run their item on a failure (they
+        # touch no run state); fold_render mutates kept/totals, so it gets
+        # no retry: its failure aborts the pipeline and the sweep degrades
+        # to the serial schedule
+        sr = max(0, cfg.pipeline_stage_retries)
+        qc = cfg.pipeline_queue_cap
+        pipe = StagedPipeline([
+            Stage("flatten", fl, workers=fw, queue_cap=qc, max_retries=sr),
+            Stage("dispatch", disp, queue_cap=qc, max_retries=sr),
+            Stage("collect", coll, queue_cap=max(1, cfg.submit_window),
+                  max_retries=sr),
+            Stage("fold_render", fold_render, queue_cap=qc),
+        ], source_cap=qc)
+        pr = pipe.run(self._chunk_source(constraints, True, counter))
+        if run is not None:
+            run.retried_chunks += sum(s.retries for s in pr.stages)
+        stats = pr.summary()
+        # device-idle proxy: the collect stage blocks exactly while the
+        # device is still producing the head-of-line result; for the rest
+        # of the wall the card had nothing in flight to finish.  An upper
+        # bound on device busy (it includes the copy back), hence a lower
+        # bound on the idle share.
+        coll_s = pr.stage("collect")
+        device_wait = coll_s.busy_s if coll_s is not None else 0.0
+        stats["device_wait_s"] = round(device_wait, 3)
+        stats["device_idle_fraction"] = (
+            round(max(0.0, 1.0 - device_wait / pr.wall_s), 3)
+            if pr.wall_s > 0 else 0.0)
+        self.pipe_stats = stats
+        self.perf["pipe_wall"] = self.perf.get("pipe_wall", 0.0) + pr.wall_s
+        self.perf["pipe_stage_busy_sum"] = (
+            self.perf.get("pipe_stage_busy_sum", 0.0)
+            + pr.stage_busy_sum())
+        self.perf["pipe_device_wait"] = (
+            self.perf.get("pipe_device_wait", 0.0) + device_wait)
+
+    @staticmethod
+    def _schedules_differ(kept_a, totals_a, kept_b, totals_b):
+        """None when two schedules produced bit-identical output, else a
+        human-readable first difference (differential mode)."""
+        if totals_a != totals_b:
+            keys = [k for k in totals_a
+                    if totals_a.get(k) != totals_b.get(k)]
+            return (f"totals differ for {keys[:3]}: "
+                    f"{[totals_a.get(k) for k in keys[:3]]} vs "
+                    f"{[totals_b.get(k) for k in keys[:3]]}")
+        for key in kept_a:
+            va = [(v.message, v.kind, v.name, v.namespace,
+                   v.enforcement_action) for v in kept_a[key]]
+            vb = [(v.message, v.kind, v.name, v.namespace,
+                   v.enforcement_action) for v in kept_b.get(key, [])]
+            if va != vb:
+                return f"kept violations differ for {key}"
+        return None
 
     # --- chunk evaluation ------------------------------------------------
     def _audit_chunk(self, objects, constraints, kept, totals, limit,
@@ -687,6 +889,8 @@ class AuditManager:
         t0 = time.time()
         run = AuditRun(timestamp=_now_rfc3339())
         run.n_devices = 1 if self.evaluator is not None else 0
+        run.flatten_workers = int(
+            getattr(self.evaluator, "flatten_workers", 0) or 0)
         constraints = self._audit_constraints()
         if not constraints:
             run.duration_s = time.time() - t0

@@ -825,15 +825,22 @@ def is_table_key(key: str) -> bool:
 
 
 class _Ctx:
-    __slots__ = ("cols", "row", "axis", "elem_k", "device", "rank_tab")
+    __slots__ = ("cols", "row", "axis", "elem_k", "device", "rank_tab",
+                 "consts")
 
-    def __init__(self, cols: dict, row: dict, device):
+    def __init__(self, cols: dict, row: dict, device, consts: dict):
         self.cols = cols  # column key -> arrays dict / table, see _batched
         self.row = row  # parameter table: name -> [C, ...]
         self.axis = None  # active Axis inside AnyAxis
         self.elem_k = None  # active K inside AnyParamList
         self.device = device
-        self.rank_tab = torch.from_numpy(_RANK_BY_KIND).to(device)
+        # the program's device constants (see CompiledProgram.grid)
+        self.consts = consts
+        key = (device, "rank_tab")
+        tab = consts.get(key)
+        if tab is None:
+            tab = consts[key] = torch.from_numpy(_RANK_BY_KIND).to(device)
+        self.rank_tab = tab
 
 
 def _al(*ts):
@@ -863,7 +870,12 @@ def _where(c, x, y):
 
 
 def _const(ctx: _Ctx, value, dtype):
-    return torch.tensor([value], dtype=dtype, device=ctx.device)
+    key = (ctx.device, dtype, type(value), value)
+    t = ctx.consts.get(key)
+    if t is None:
+        t = ctx.consts[key] = torch.tensor([value], dtype=dtype,
+                                           device=ctx.device)
+    return t
 
 
 def _gather(table, idx):
@@ -1344,6 +1356,12 @@ class CompiledProgram:
         # process-monotone identity (the sweep keys per-program state on
         # uids, never id() or kind names)
         self.uid = next(_PROG_UID)
+        # (device, dtype, type, value) -> the [1] tensor of a literal, and
+        # the rank table per device: made on the first grid and read (never
+        # written) by every later one, so a dispatch makes no host-to-device
+        # copy for its program's constants.  The program's literals bound
+        # its size; two threads racing a miss build equal tensors.
+        self._consts: dict = {}
 
     def grid(self, params: dict, cols: dict, n: int) -> torch.Tensor:
         """The [C, N] verdict grid from tensors: ``params`` = the
@@ -1352,7 +1370,7 @@ class CompiledProgram:
         returns them (per-object arrays [N, ...], tables unbatched)."""
         c = int(params["__row__"].shape[0])
         device = params["__row__"].device
-        ctx = _Ctx(_batched(cols), params, device)
+        ctx = _Ctx(_batched(cols), params, device, self._consts)
         out = eval_expr(ctx, self.program.expr)
         if out.dim() == 1:  # row-only verdict: every object alike
             out = out[:, None]

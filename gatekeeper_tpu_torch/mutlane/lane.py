@@ -109,12 +109,14 @@ def _pointer(parts: Sequence[str]) -> str:
 class _Compiled:
     """Frozen compile artifact for one registry revision."""
 
-    def __init__(self, system, device: str = "cuda"):
+    def __init__(self, system, device: str = "cuda",
+                 flatten_lane: str = "auto"):
         from gatekeeper_tpu_torch.mutation.device import MutationPrefilter
 
         self.revision = system.revision()
         self.active = system.active()
-        self.prefilter = MutationPrefilter(device=device)
+        self.prefilter = MutationPrefilter(flatten_lane=flatten_lane,
+                                           device=device)
         self.lowered = []
         self.host_only = []
         for m in self.active:
@@ -154,14 +156,29 @@ class MutationLane:
     ``mutate_objects`` calls; the compile cache re-keys on the system
     revision so mutator churn invalidates the batched program.  The
     prefilter's grids run on ``device``.  ``differential`` asserts every
-    burst equal to the per-object reference path."""
+    burst equal to the per-object reference path.
+
+    ``ingest`` selects how a burst columnizes into the relevance grids:
+    ``dict`` keeps the dict-walk columnizer; ``raw`` serializes each burst
+    once to JSON bytes and feeds the threaded C columnizer (the
+    interpreter lock released); ``differential`` runs raw THEN dict per
+    batch and asserts the columns bit-identical.  Only the COLUMNIZE lane
+    changes: match walks, patch emission and the host fixed-point
+    authority all keep reading the original dict objects, so outcomes are
+    lane-invariant by construction."""
+
+    INGEST_LANES = ("dict", "raw", "differential")
 
     def __init__(self, system, differential: bool = False,
-                 device: str = "cuda"):
+                 device: str = "cuda", ingest: str = "dict"):
         from gatekeeper_tpu_torch import resolve_device
 
+        if ingest not in self.INGEST_LANES:
+            raise ValueError(f"unknown mutate ingest lane {ingest!r} "
+                             f"(want one of {self.INGEST_LANES})")
         self.system = system
         self.differential = differential
+        self.ingest = ingest
         self.device = resolve_device(device)
         self._compiled: Optional[_Compiled] = None
         self._lock = threading.Lock()
@@ -173,7 +190,10 @@ class MutationLane:
             c = self._compiled
             if c is not None and c.revision == rev:
                 return c
-        c = _Compiled(self.system, device=self.device)
+        c = _Compiled(self.system, device=self.device,
+                      flatten_lane=("differential"
+                                    if self.ingest == "differential"
+                                    else "auto"))
         with self._lock:
             self._compiled = c
         return c
@@ -208,7 +228,7 @@ class MutationLane:
             return namespaces[oi] if namespaces else None
 
         rel_grid, batch = c.prefilter.relevance_and_batch(
-            c.lowered, objects)
+            c.lowered, self._ingest_objects(objects))
 
         # host-side exact match matrices (M is small; the grid above is
         # the expensive part).  A matcher that RAISES (e.g. a
@@ -290,6 +310,22 @@ class MutationLane:
             else:
                 out.append(self._multi_apply(ms, obj, ns, source))
         return out
+
+    def _ingest_objects(self, objects):
+        """The burst the prefilter's columnize sees.  ``raw``/
+        ``differential``: each object serializes ONCE to JSON bytes and
+        rides a lazy :class:`RawJSON` proxy, so the flatten takes the
+        threaded C columnizer and only slow-path consumers ever parse.  An
+        unserializable burst falls back to the dict lane whole: an ingest
+        lane must never fail a mutation."""
+        if self.ingest == "dict":
+            return objects
+        from gatekeeper_tpu_torch.utils.rawjson import as_raw
+
+        try:
+            return [as_raw(o) for o in objects]
+        except (TypeError, ValueError):
+            return objects
 
     def _probe_host_only(self, obj, matching, ns, source):
         """Iteration-1 probe of the matching host-only mutators: apply

@@ -111,16 +111,17 @@ class BatchedMutationHandler:
     """`/v1/mutate` handler over the batched lane (reference semantics:
     pkg/webhook/mutation.go — CREATE/UPDATE only, namespace from cache,
     JSONPatch response; errors answer allowed with a message).  Without a
-    ``lane``, one is built on ``device``."""
+    ``lane``, one is built on ``device`` with the ``ingest`` lane."""
 
     def __init__(self, mutation_system, lane=None, namespace_lookup=None,
                  process_excluder=None,
                  batcher: Optional[MutationBatcher] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", ingest: str = "dict"):
         from gatekeeper_tpu_torch.mutlane.lane import MutationLane
 
         self.system = mutation_system
-        self.lane = lane or MutationLane(mutation_system, device=device)
+        self.lane = lane or MutationLane(mutation_system, device=device,
+                                         ingest=ingest)
         self.namespace_lookup = namespace_lookup or (lambda name: None)
         self.process_excluder = process_excluder
         self.batcher = batcher

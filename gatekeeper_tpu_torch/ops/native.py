@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 import sysconfig
+import threading
 from typing import Optional
 
 # the port builds the repo's native/*.c sources into its own ignored
@@ -20,9 +21,22 @@ _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 
 _mods: dict = {}
 _tried: set = set()
+# one build/load at a time: the staged pipeline's flatten threads reach
+# their first load together, and a caller that found the name tried but
+# not yet loaded would take the Python flattener for its batch.  A loaded
+# name is read without the lock (a forked flatten worker finds its
+# module loaded and never touches the lock)
+_LOAD_LOCK = threading.Lock()
 
 
 def _load_named(name: str, src_file: str) -> Optional[object]:
+    if name in _mods:
+        return _mods[name]
+    with _LOAD_LOCK:
+        return _load_locked(name, src_file)
+
+
+def _load_locked(name: str, src_file: str) -> Optional[object]:
     if name in _mods or name in _tried:
         return _mods.get(name)
     _tried.add(name)

@@ -28,9 +28,23 @@ columns and match masks already live on the device as the stats-free
 chunk gathers them by an index vector on the device, and both collect
 lanes fold the gathered grid exactly as they fold a host chunk's).
 
+Transfers of a host chunk: its per-object columns cross in ONE copy per
+dtype (``pack_transfer_cols`` into page-locked staging, then
+``unpack_transfer_cols`` views on the device), the match mask and the
+reduced lane's kept budget in one more; vocab/inventory/extdata tables
+and parameter tables cross only when their content caches miss.  The
+chunk's result comes back by a copy into page-locked host memory that the
+dispatch enqueues before it records the chunk's CUDA event, so a collect
+waits on that event alone, never on chunks dispatched after it.
+Dispatches are serialized by a lock: the staged pipeline dispatches on
+one thread while the reduced lane's overflow fallback re-dispatches from
+the collect thread.  ``flatten_workers`` fans raw-lane chunks across
+``ops/flatten.FlattenWorkerPool`` processes, forked when the evaluator is
+built (before any pipeline thread starts).
+
 Not ported here: multi-device meshes, the stats branch of
 ``pack_transfer_cols`` (wire narrowing), the differential collect lane,
-warm state, flatten workers, tracing/metrics/cost attribution.
+warm state, tracing/metrics/cost attribution.
 """
 
 from __future__ import annotations
@@ -51,7 +65,9 @@ from gatekeeper_tpu_torch.ir.program import (build_param_table, col_key,
                                              vocab_tables)
 from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
 from gatekeeper_tpu_torch.ops import fold
-from gatekeeper_tpu_torch.ops.flatten import Flattener, Schema
+from gatekeeper_tpu_torch.ops.flatten import (Flattener, Schema,
+                                              flatten_worker_spans,
+                                              get_flatten_pool)
 
 
 COLLECT_LANES = ("reduced", "masks")
@@ -72,6 +88,18 @@ _TORCH_DTYPES = {"|b1": torch.bool, "|i1": torch.int8, "|u1": torch.uint8,
                  "<f4": torch.float32, "<f8": torch.float32}
 
 _PARAM_CACHE_CAP = 32  # parameter-table sets kept on the device
+
+# device -> the uint8 bit-shift vector of packbits/unpackbits: made once,
+# only ever read, so neither costs a host-to-device copy per call
+_SHIFTS: dict = {}
+
+
+def _shifts(device) -> torch.Tensor:
+    t = _SHIFTS.get(device)
+    if t is None:
+        t = _SHIFTS[device] = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8,
+                                           device=device)
+    return t
 
 
 def hit_bucket(need: int, cap: int) -> int:
@@ -171,8 +199,7 @@ def make_kind_router(constraints):
 
 def unpackbits(bits: torch.Tensor, n: int) -> torch.Tensor:
     """``np.unpackbits(bits, axis=1, count=n)`` as bool, on the device."""
-    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=bits.device)
-    out = (bits[..., None] >> shifts) & 1
+    out = (bits[..., None] >> _shifts(bits.device)) & 1
     return out.reshape(bits.shape[0], -1)[:, :n].to(torch.bool)
 
 
@@ -183,8 +210,8 @@ def packbits(grid: torch.Tensor) -> torch.Tensor:
     g = grid.to(torch.uint8)
     if pad:
         g = torch.nn.functional.pad(g, (0, pad))
-    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8, device=grid.device)
-    return (g.reshape(c, -1, 8) << shifts).sum(dim=-1).to(torch.uint8)
+    return (g.reshape(c, -1, 8) << _shifts(grid.device)).sum(
+        dim=-1).to(torch.uint8)
 
 
 def select_hits(sel: torch.Tensor, idx: torch.Tensor, hit_cap: int,
@@ -207,7 +234,7 @@ def select_hits(sel: torch.Tensor, idx: torch.Tensor, hit_cap: int,
 
 
 def pack_transfer_cols(cols: dict, pad_n: int,
-                       stats: Optional[dict] = None) -> tuple:
+                       stats: Optional[dict] = None, alloc=None) -> tuple:
     """Pack every per-object column into ONE ``[pad_n, W]`` buffer per
     dtype (port of ``gatekeeper_tpu/parallel/sharded.py``, the
     ``stats=None`` layout only).
@@ -223,8 +250,13 @@ def pack_transfer_cols(cols: dict, pad_n: int,
 
     Returns ``({dtype_str: buf}, layout)``, layout a tuple of
     ``(key, sub, dtype_str | "alias", off, tail, w, dtype_str,
-    0 | (alias key, alias sub))``.  ``stats`` selects the wire-narrowing
-    branch, which is not ported (ROADMAP queue 1 item 6): it raises."""
+    0 | (alias key, alias sub))``.  ``alloc(dtype_str, shape)``, when
+    given, returns the array each buffer is written into (the sweep's
+    page-locked staging, of the buffer's device dtype: int64/float64
+    columns narrow to int32/float32 in the copy, as ``torch_dtype``
+    maps them); else each buffer is a new array of the columns' dtype.
+    ``stats`` selects the wire-narrowing branch, which is not ported
+    (ROADMAP queue 1 item 6): it raises."""
     if stats is not None:
         raise NotImplementedError(
             "pack_transfer_cols: the stats branch (wire narrowing, constant "
@@ -253,7 +285,13 @@ def pack_transfer_cols(cols: dict, pad_n: int,
             parts.setdefault(dt, []).append(a.reshape(pad_n, w))
             layout.append((key, sub, dt, off, tail, w, dt, 0))
             widths[dt] = off + w
-    bufs = {dt: np.concatenate(ps, axis=1) for dt, ps in parts.items()}
+    bufs = {}
+    for dt, ps in parts.items():
+        if alloc is None:
+            bufs[dt] = np.concatenate(ps, axis=1)
+        else:
+            bufs[dt] = np.concatenate(ps, axis=1, casting="same_kind",
+                                      out=alloc(dt, (pad_n, widths[dt])))
     return bufs, tuple(layout)
 
 
@@ -310,7 +348,7 @@ def gather_resident(idx: torch.Tensor, cols_dev: dict, mask_dev,
 class _PendingSweep:
     __slots__ = ("result", "kinds", "offsets", "by_kind", "n",
                  "return_bits", "lane", "pad_n", "hit_cap", "flat",
-                 "event")
+                 "event", "host", "staging")
 
     def __init__(self, result, kinds, offsets, by_kind, n, return_bits,
                  lane="masks", pad_n=0, hit_cap=0, flat=None):
@@ -327,8 +365,13 @@ class _PendingSweep:
         # hit count overflows it (dropped at collect)
         self.hit_cap = hit_cap
         self.flat = flat
-        # CUDA event recorded after the dispatch (None on the CPU)
+        # CUDA event recorded after the dispatch (None on the CPU), and
+        # the page-locked host copies of ``result`` it covers
         self.event = None
+        self.host = None
+        # page-locked upload staging of the chunk: kept alive until the
+        # collect, after the event has fired
+        self.staging = None
 
     def ready(self) -> bool:
         """True when the device result needs no further wait."""
@@ -396,12 +439,24 @@ class SweepEvaluator:
 
     def __init__(self, driver, device: str = "cuda",
                  violations_limit: int = 20, flatten_lane: str = "auto",
-                 collect: str = "reduced"):
+                 collect: str = "reduced", flatten_workers: int = 0):
         self.driver = driver
         self.device = resolve_device(device)
         self.violations_limit = violations_limit
         # how sweep chunks columnize (ops/flatten.py FLATTEN_LANES)
         self.flatten_lane = flatten_lane
+        # raw-lane chunks fan byte spans across this many flatten worker
+        # processes (ops/flatten.FlattenWorkerPool), merged into the
+        # shared vocab on the flattening thread; 0 = in-process.  The pool
+        # forks here, before any pipeline thread exists; its workers run
+        # only the C columnizer and never touch torch.
+        self.flatten_workers = max(0, int(flatten_workers))
+        if self.flatten_workers:
+            get_flatten_pool(self.flatten_workers)
+        # one dispatch at a time: the pipelined schedule's dispatch thread
+        # and the reduced lane's overflow fallback (on the collect thread)
+        # both update the device caches and the hit-buffer state
+        self._dispatch_lock = threading.RLock()
         if collect not in COLLECT_LANES:
             raise ValueError(f"unknown collect lane {collect!r}")
         self.collect = collect
@@ -433,7 +488,8 @@ class SweepEvaluator:
 
     def _flattener(self, schema: Schema) -> Flattener:
         return Flattener(schema, self.driver.vocab, bucket=self._bucket,
-                         lane=self.flatten_lane)
+                         lane=self.flatten_lane,
+                         workers=self.flatten_workers)
 
     def _needs_union(self, kinds, alias: Optional[dict] = None,
                      programs=None) -> dict:
@@ -520,6 +576,7 @@ class SweepEvaluator:
         fl = self._flattener(schema)
         batch = fl.flatten(objects, pad_n=pad_n)
         self._perf_add("flatten", time.perf_counter() - t0)
+        self._flatten_accounting(fl, n)
         cols = slim_cols(pack_batch_cols(batch),
                          self._needs_union(lowered, fl.alias,
                                            programs=programs))
@@ -532,6 +589,20 @@ class SweepEvaluator:
         return _FlatChunk(by_kind, tuple(sorted(lowered)), cols, batch,
                           objects, any_gen, n, pad_n, return_bits,
                           source=source, budget=budget, programs=programs)
+
+    def _flatten_accounting(self, fl: Flattener, n: int) -> None:
+        """The flatten's sub-phases (``fl_c_columnize``, ...), the lane the
+        chunk took (``flatten_chunks/<lane>``) and, with flatten workers,
+        ``flatten_fanout_chunks``: the chunks large enough that the
+        columnizer's own thread clamp (``flatten_worker_spans``) splits
+        them over more than one worker — the chunks that should read
+        ``raw+workers``."""
+        for k, v in fl.perf.items():
+            self._perf_add("fl_" + k, v)
+        self._perf_add(f"flatten_chunks/{fl.lane_used or 'unknown'}", 1.0)
+        if self.flatten_workers and \
+                len(flatten_worker_spans(n, self.flatten_workers)) > 1:
+            self._perf_add("flatten_fanout_chunks", 1.0)
 
     def sweep_flatten_from_batch(self, constraints: Sequence, batch,
                                  objects: Sequence[dict],
@@ -605,12 +676,15 @@ class SweepEvaluator:
         dev = to_tensor(val, self.device)
         self._table_dev_cache[key] = (val, dev)
         self._perf_add(meter, float(val.nbytes))
+        self._perf_add("h2d_copies", 1.0)
+        self._perf_add("h2d_table_misses", 1.0)
         return dev
 
     def _param_tensors(self, tables: list, meter: str) -> list:
         """The dispatch's parameter tables on the device, from the content
         cache when one dispatch before built the same tables; a miss
-        uploads them and adds their bytes to ``perf[meter]``."""
+        uploads them (one copy per array, counted in ``h2d_param_misses``)
+        and adds their bytes to ``perf[meter]``."""
         arrs = [{name: np.asarray(v) for name, v in t.items()}
                 for t in tables]
         key = tuple(tuple((name, a.dtype.str, a.shape, a.tobytes())
@@ -621,62 +695,111 @@ class SweepEvaluator:
                    for t in arrs]
             self._perf_add(meter, float(sum(a.nbytes for t in arrs
                                             for a in t.values())))
+            copies = float(sum(len(t) for t in arrs))
+            self._perf_add("h2d_copies", copies)
+            self._perf_add("h2d_param_misses", copies)
         self._param_dev_cache[key] = hit  # re-insert: most recent last
         while len(self._param_dev_cache) > _PARAM_CACHE_CAP:
             self._param_dev_cache.pop(next(iter(self._param_dev_cache)))
         return hit
 
-    def _upload_cols(self, cols: dict) -> dict:
-        out: dict = {}
-        nbytes = 0
-        for key, val in cols.items():
-            if is_table_key(key):
-                out[key] = self._table_tensor(key, val)
-            elif isinstance(val, dict):
-                out[key] = {k: to_tensor(v, self.device)
-                            for k, v in val.items()}
-                nbytes += sum(np.asarray(v).nbytes for v in val.values())
-            else:
-                out[key] = to_tensor(val, self.device)
-                nbytes += np.asarray(val).nbytes
-        self._perf_add("h2d_bytes", float(nbytes))
-        return out
+    def _staging(self, shape: tuple, dtype: torch.dtype,
+                 keep: list) -> torch.Tensor:
+        """A host tensor to fill for one upload: page-locked on a CUDA
+        device (so the copy runs without a blocking bounce) and appended
+        to ``keep``, which the pending chunk holds until its collect."""
+        t = torch.empty(shape, dtype=dtype,
+                        pin_memory=self.device.type == "cuda")
+        keep.append(t)
+        return t
+
+    def _put(self, staged: torch.Tensor) -> torch.Tensor:
+        """One host-to-device copy of a staged tensor (a no-op on the
+        CPU), counted in ``h2d_copies`` with its bytes in ``h2d_bytes``."""
+        self._perf_add("h2d_copies", 1.0)
+        self._perf_add("h2d_bytes",
+                       float(staged.numel() * staged.element_size()))
+        return staged.to(self.device, non_blocking=True)
+
+    def _upload_cols(self, cols: dict, pad_n: int, keep: list) -> dict:
+        """The chunk's per-object columns on the device: packed into one
+        ``[pad_n, W]`` buffer per dtype (``pack_transfer_cols``), each sent
+        in one copy, then viewed back into columns on the device
+        (``unpack_transfer_cols``).  ``wire_pack`` times the packing,
+        ``wire_bytes`` counts the buffers, ``h2d_col_buffers`` the
+        copies."""
+        t0 = time.perf_counter()
+        staged: dict = {}
+
+        def alloc(dt, shape):
+            staged[dt] = self._staging(shape, torch_dtype(dt), keep)
+            return staged[dt].numpy()
+
+        bufs, layout = pack_transfer_cols(cols, pad_n, alloc=alloc)
+        self._perf_add("wire_pack", time.perf_counter() - t0)
+        self._perf_add("wire_bytes",
+                       float(sum(b.nbytes for b in bufs.values())))
+        self._perf_add("h2d_col_buffers", float(len(staged)))
+        return unpack_transfer_cols(
+            {dt: self._put(t) for dt, t in staged.items()}, layout, pad_n)
+
+    def _upload_mask(self, mask_rows: list, budget_np, pad_n: int,
+                     keep: list) -> tuple:
+        """(bool mask [C, pad_n], int32 budget [C] or None) on the device
+        from ONE uint8 copy: the budget's bytes, then the bit-packed mask
+        (``[C, pad_n/8]``), unpacked on the device."""
+        bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
+        head = 0 if budget_np is None else budget_np.nbytes
+        st = self._staging((head + bits.size,), torch.uint8, keep)
+        buf = st.numpy()
+        if head:
+            buf[:head] = budget_np.view(np.uint8)
+        buf[head:] = bits.reshape(-1)
+        self._perf_add("wire_bytes", float(buf.nbytes))
+        self._perf_add("h2d_mask_copies", 1.0)
+        dev = self._put(st)
+        budget = dev[:head].view(torch.int32) if head else None
+        mask = unpackbits(dev[head:].view(bits.shape), pad_n)
+        return mask, budget
 
     def _sweep_dispatch_impl(self, flat, lane: str = "masks"):
-        if isinstance(flat, _ResidentChunk):
-            # the reduced collect's masks-lane overflow fallback re-enters
-            # here too
-            return self._dispatch_resident_impl(flat, lane=lane)
-        kinds = flat.kinds
-        pad_n = flat.pad_n
-        progs = flat.programs if flat.programs is not None \
-            else self.driver._programs
-        t0 = time.perf_counter()
-        tables, offsets, c_off = self._param_tables(flat, progs)
-        sources = [flat.source] * len(flat.objects)
-        mask_rows = [masks_mod.constraint_masks(
-            flat.by_kind[kind], flat.batch, self.driver.vocab, flat.objects,
-            sources=sources, any_generate_name=flat.any_gen)
-            for kind in kinds]
-        self._perf_add("masks", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        cols_dev = self._upload_cols({**flat.cols,
-                                      **self._shared_tables(kinds, progs,
-                                                            flat.batch)})
-        params_dev = self._param_tensors(tables, "h2d_bytes")
-        # the match mask travels bit-packed ([C, pad_n/8] uint8) and
-        # unpacks on the device
-        mask_bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
-        mask = unpackbits(to_tensor(mask_bits, self.device), pad_n)
-        self._perf_add("h2d_bytes", float(mask_bits.nbytes))
-        self._perf_add("upload", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        raw = torch.cat([progs[kind].grid(params_dev[i], cols_dev, pad_n)
-                         for i, kind in enumerate(kinds)], dim=0)
-        pending = self._fold(flat, raw, mask, lane, offsets, c_off,
-                             "h2d_bytes")
-        self._perf_add("dispatch", time.perf_counter() - t0)
-        return pending
+        with self._dispatch_lock:
+            if isinstance(flat, _ResidentChunk):
+                # the reduced collect's masks-lane overflow fallback
+                # re-enters here too
+                return self._dispatch_resident_impl(flat, lane=lane)
+            kinds = flat.kinds
+            pad_n = flat.pad_n
+            progs = flat.programs if flat.programs is not None \
+                else self.driver._programs
+            t0 = time.perf_counter()
+            tables, offsets, c_off = self._param_tables(flat, progs)
+            sources = [flat.source] * len(flat.objects)
+            mask_rows = [masks_mod.constraint_masks(
+                flat.by_kind[kind], flat.batch, self.driver.vocab,
+                flat.objects, sources=sources,
+                any_generate_name=flat.any_gen)
+                for kind in kinds]
+            self._perf_add("masks", time.perf_counter() - t0)
+            plan = self._fold_plan(flat, lane, c_off)
+            t0 = time.perf_counter()
+            keep: list = []
+            cols_dev = self._upload_cols(flat.cols, pad_n, keep)
+            for key, val in self._shared_tables(kinds, progs,
+                                                flat.batch).items():
+                cols_dev[key] = self._table_tensor(key, val)
+            params_dev = self._param_tensors(tables, "h2d_bytes")
+            mask, budget = self._upload_mask(mask_rows, plan[2], pad_n,
+                                             keep)
+            self._perf_add("upload", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            raw = torch.cat([progs[kind].grid(params_dev[i], cols_dev,
+                                              pad_n)
+                             for i, kind in enumerate(kinds)], dim=0)
+            pending = self._fold(flat, raw, mask, plan, budget, offsets)
+            pending.staging = keep
+            self._perf_add("dispatch", time.perf_counter() - t0)
+            return pending
 
     def _dispatch_resident_impl(self, flat, lane: str = "masks"):
         """Resident twin of :meth:`_sweep_dispatch_impl`: no host masks
@@ -687,30 +810,36 @@ class SweepEvaluator:
         on the budgeted reduced lane, the budget; each byte lands in
         ``perf["resident_h2d_bytes"]``, so a warm pass over unchanged rows
         reads 0."""
-        rg = flat.rg
-        kinds = flat.kinds
-        pad_n = flat.pad_n
-        progs = flat.programs if flat.programs is not None \
-            else self.driver._programs
-        meter = "resident_h2d_bytes"
-        t0 = time.perf_counter()
-        tables, offsets, c_off = self._param_tables(flat, progs)
-        tables_dev = {key: self._table_tensor(key, val, meter)
-                      for key, val in self._shared_tables(kinds,
-                                                          progs).items()}
-        params_dev = self._param_tensors(tables, meter)
-        idx_dev, idx_bytes = rg.chunk_idx(flat.positions, pad_n)
-        self._perf_add(meter, float(idx_bytes))
-        self._perf_add("upload", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        cols, mask = gather_resident(idx_dev, rg.cols_dev, rg.mask_dev,
-                                     rg.cols_layout, pad_n)
-        cols.update(tables_dev)
-        raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
-                         for i, kind in enumerate(kinds)], dim=0)
-        pending = self._fold(flat, raw, mask, lane, offsets, c_off, meter)
-        self._perf_add("dispatch", time.perf_counter() - t0)
-        return pending
+        with self._dispatch_lock:
+            rg = flat.rg
+            kinds = flat.kinds
+            pad_n = flat.pad_n
+            progs = flat.programs if flat.programs is not None \
+                else self.driver._programs
+            meter = "resident_h2d_bytes"
+            t0 = time.perf_counter()
+            tables, offsets, c_off = self._param_tables(flat, progs)
+            tables_dev = {key: self._table_tensor(key, val, meter)
+                          for key, val in self._shared_tables(
+                              kinds, progs).items()}
+            params_dev = self._param_tensors(tables, meter)
+            idx_dev, idx_bytes = rg.chunk_idx(flat.positions, pad_n)
+            self._perf_add(meter, float(idx_bytes))
+            plan = self._fold_plan(flat, lane, c_off)
+            budget = plan[2]  # crosses in _reduce
+            if budget is not None:
+                self._perf_add(meter, float(budget.nbytes))
+                self._perf_add("h2d_copies", 1.0)
+            self._perf_add("upload", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            cols, mask = gather_resident(idx_dev, rg.cols_dev, rg.mask_dev,
+                                         rg.cols_layout, pad_n)
+            cols.update(tables_dev)
+            raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
+                             for i, kind in enumerate(kinds)], dim=0)
+            pending = self._fold(flat, raw, mask, plan, budget, offsets)
+            self._perf_add("dispatch", time.perf_counter() - t0)
+            return pending
 
     def _param_tables(self, flat, progs) -> tuple:
         """(parameter tables, kind -> (row lo, row hi), C) of one dispatch,
@@ -748,46 +877,55 @@ class SweepEvaluator:
             out.update(self.driver.inventory_cols(kind, programs=progs)[0])
         return out
 
-    def _fold(self, flat, raw, mask, lane: str, offsets: dict, c_off: int,
-              meter: str):
-        """The device side of both chunk kinds from the raw grid and the
-        match mask on: the collect lane's fold, as a :class:`_PendingSweep`
-        with a CUDA event recorded after it.  ``meter`` names the perf
-        key that counts the budget's upload."""
-        by_kind, kinds = flat.by_kind, flat.kinds
-        n, pad_n, return_bits = flat.n, flat.pad_n, flat.return_bits
-        k = self.violations_limit
-        complete = bool(return_bits)
+    def _fold_plan(self, flat, lane: str, c_off: int) -> tuple:
+        """(lane, complete, budget, hit_cap) of one chunk's fold: the
+        collect lane it takes, whether it ships every hit, the reduced
+        lane's per-constraint kept budget (int32 [C], or None) and its hit
+        buffer size."""
+        kinds, pad_n, by_kind = flat.kinds, flat.pad_n, flat.by_kind
+        complete = bool(flat.return_bits)
         if lane == "reduced" and complete \
                 and self._hit_state_for(kinds, pad_n)["pinned"]:
             # dense corpus: complete hit coordinates would outweigh the
             # bit grid — this (kinds, pad) shape ships masks from now on
             lane = "masks"
+        if lane != "reduced":
+            return lane, complete, None, 0
+        k_eff = min(self.violations_limit, pad_n)
+        if complete:
+            st = self._hit_state_for(kinds, pad_n)
+            return lane, complete, None, min(st["cap"], c_off * pad_n)
+        if flat.budget is None:
+            budget_np = np.full(c_off, k_eff, np.int32)
+        else:
+            budget_np = np.fromiter(
+                (min(k_eff, max(0, int(flat.budget(con))))
+                 for kind in kinds for con in by_kind[kind]),
+                np.int32, count=c_off)
+        # buffer sizing by the PREVIOUS chunk's observed selection (2x
+        # margin); a chunk that selects more overflows into the masks-lane
+        # fallback once and resizes
+        need = int(budget_np.sum())
+        blast = self._hit_state_for(kinds, pad_n)["blast"]
+        guess = need if blast is None else \
+            min(need, max(_HIT_STEPS[1], 2 * blast))
+        return lane, complete, budget_np, hit_bucket(guess, c_off * k_eff)
+
+    def _fold(self, flat, raw, mask, plan: tuple, budget, offsets: dict):
+        """The device side of both chunk kinds from the raw grid and the
+        match mask on: the collect lane's fold (``plan`` from
+        :meth:`_fold_plan`, ``budget`` its kept budget, see
+        :meth:`_reduce`), as
+        a :class:`_PendingSweep`.  On a CUDA device the result is copied
+        into page-locked host memory and a CUDA event recorded after that
+        copy."""
+        by_kind, kinds = flat.by_kind, flat.kinds
+        n, pad_n, return_bits = flat.n, flat.pad_n, flat.return_bits
+        k = self.violations_limit
+        lane, complete, _budget_np, hit_cap = plan
         if lane == "reduced":
-            k_eff = min(k, pad_n)
-            if complete:
-                budget_np = None
-                st = self._hit_state_for(kinds, pad_n)
-                hit_cap = min(st["cap"], c_off * pad_n)
-            else:
-                if flat.budget is None:
-                    budget_np = np.full(c_off, k_eff, np.int32)
-                else:
-                    budget_np = np.fromiter(
-                        (min(k_eff, max(0, int(flat.budget(con))))
-                         for kind in kinds for con in by_kind[kind]),
-                        np.int32, count=c_off)
-                # buffer sizing by the PREVIOUS chunk's observed selection
-                # (2x margin); a chunk that selects more overflows into the
-                # masks-lane fallback once and resizes
-                need = int(budget_np.sum())
-                blast = self._hit_state_for(kinds, pad_n)["blast"]
-                guess = need if blast is None else \
-                    min(need, max(_HIT_STEPS[1], 2 * blast))
-                hit_cap = hit_bucket(guess, c_off * k_eff)
-                self._perf_add(meter, float(budget_np.nbytes))
-            result = self._reduce(raw, mask, budget_np, complete, hit_cap,
-                                  k, pad_n)
+            result = self._reduce(raw, mask, budget, complete, hit_cap, k,
+                                  pad_n)
             pending = _PendingSweep(result, kinds, offsets, by_kind, n,
                                     return_bits, lane="reduced",
                                     pad_n=pad_n, hit_cap=hit_cap,
@@ -802,14 +940,20 @@ class SweepEvaluator:
             pending = _PendingSweep(result, kinds, offsets, by_kind, n,
                                     return_bits, pad_n=pad_n)
         if self.device.type == "cuda":
+            outs = result if isinstance(result, tuple) else (result,)
+            pending.host = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in outs)
             pending.event = torch.cuda.Event()
             pending.event.record()
         return pending
 
-    def _reduce(self, raw, mask, budget_np, complete: bool, hit_cap: int,
+    def _reduce(self, raw, mask, budget, complete: bool, hit_cap: int,
                 k: int, pad_n: int) -> torch.Tensor:
         """The device-side verdict REDUCTION: ``[counts|occ | nsel | hits]``
-        as one int32 tensor (see the module docstring)."""
+        as one int32 tensor (see the module docstring).  ``budget``: the
+        budgeted lane's int32 [C], on the device or in numpy (uploaded
+        here: the resident lane's)."""
         dev = raw.device
         c_total = raw.shape[0]
         if complete:
@@ -841,7 +985,8 @@ class SweepEvaluator:
                 hits = torch.zeros((0,), dtype=torch.int32, device=dev)
         else:
             k_eff = idx.shape[1]
-            budget = to_tensor(budget_np, dev)
+            if not isinstance(budget, torch.Tensor):
+                budget = to_tensor(budget, dev)
             want = torch.minimum(counts, budget)
             sel = valid & (torch.arange(k_eff, dtype=torch.int32,
                                         device=dev)[None, :] < want[:, None])
@@ -851,6 +996,22 @@ class SweepEvaluator:
             else:
                 hits = torch.zeros((0,), dtype=torch.int32, device=dev)
         return torch.cat(head + [nsel.reshape(1).to(torch.int32), hits])
+
+    @staticmethod
+    def _fetch(pending) -> list:
+        """The chunk's result tensors as numpy on the host: after its CUDA
+        event, the page-locked copies the dispatch enqueued (the wait
+        releases the interpreter lock); on the CPU the tensors
+        themselves."""
+        if pending.host is not None:
+            pending.event.synchronize()
+            out = [t.numpy() for t in pending.host]
+        else:
+            res = pending.result
+            outs = res if isinstance(res, tuple) else (res,)
+            out = [t.cpu().numpy() for t in outs]
+        pending.staging = None
+        return out
 
     def sweep_collect(self, pending):
         """Fetch + unpack a submitted sweep (the single device->host
@@ -865,14 +1026,10 @@ class SweepEvaluator:
 
     def _collect_masks(self, pending):
         t0 = time.perf_counter()
-        if pending.return_bits:
-            packed_np = pending.result[0].cpu().numpy()
-            bits_np = pending.result[1].cpu().numpy()
-            self._perf_add("d2h_bytes", packed_np.nbytes + bits_np.nbytes)
-        else:
-            packed_np = pending.result.cpu().numpy()
-            bits_np = None
-            self._perf_add("d2h_bytes", packed_np.nbytes)
+        host = self._fetch(pending)
+        packed_np = host[0]
+        bits_np = host[1] if pending.return_bits else None
+        self._perf_add("d2h_bytes", float(sum(a.nbytes for a in host)))
         # k is clipped to the padded batch width; recover the effective k
         # from the packed layout [idx(k') | valid(k') | count]
         k_eff = (packed_np.shape[1] - 1) // 2
@@ -912,7 +1069,7 @@ class SweepEvaluator:
         the hit buffer overflowed, adaptive buffer sizing for the chunks
         after it."""
         t0 = time.perf_counter()
-        arr = pending.result.cpu().numpy()
+        arr = self._fetch(pending)[0]
         self._perf_add("d2h_bytes", arr.nbytes)
         c_total = max(hi for _lo, hi in pending.offsets.values())
         pad_n, n = pending.pad_n, pending.n
