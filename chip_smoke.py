@@ -119,12 +119,46 @@ Phases (any failure raises and exits non-zero):
    ``perf["extdata"]`` seconds, sends and keys per provider (cold and
    warm), per-key against batched sends and seconds, and rates with
    p50/p99;
-9. shapes (after the pipeline, snapshot, expand and extdata phases): as
-   phase 5, at the (C, N, k) the pipeline, snapshot, expand and extdata
-   paths launched too;
-10. profile: the reduced-lane audit once more under ``torch.profiler``,
+9. lifecycle: the served process's life, as ``python -m
+   gatekeeper_tpu_torch --manifests library`` boots it (46 templates, 52
+   constraints), with the first 2,048 admission bodies (64 clients) and
+   the path phase's objects.  (a) generations under load: the CLI's
+   serving stack on the card with ``generation_swap`` on, off, off, on
+   (ABBA); while
+   the bodies are posted a thread removes and re-adds five Rego templates
+   one at a time and edits a sixth's message, through ``Client``; every
+   answer must fit the CPU handler's under the old or the new set (per
+   constraint: untouched ones as in both sets, the edited one as old or
+   new, a churned one as old or absent while its template was out), a
+   final burst of 256 after ``wait_idle`` must equal the new set exactly,
+   and with the swap on at least one background swap must have happened
+   with ``last_error`` None, no warm error, and every pre-swap warm's run
+   of each program its build lowered returned.  (b) and (d) the snapshot: a first pass (step
+   1) spilled in full (codec ``none``), loaded into a fresh driver and
+   vocab (it must be a hit), then a warm tick (no row evaluated) and a
+   resident pass (every adopted group uploaded whole, no patch) equal to
+   the first pass; a 1% churn and a delta spill; a ``zlib`` spill loaded
+   into another snapshot, equal; one flipped byte of a section, which must
+   be a ``corrupt`` miss that deletes the spill, and a clean rebuild equal
+   to the live snapshot; then a template removed with the coordinator
+   running: the tick after the swap must re-chunk (no relist), the
+   residency must have been evicted, and the tick must equal a fresh
+   relist.  (c) a cold boot through ``CompileCache`` lowers every template;
+   a fresh process booting from the same directory lowers none and gives
+   the same ``query_batch`` verdicts on 1,024 objects.  (e) the CLI with
+   ``--compile-cache`` and ``--webhook-workers W`` (W = min(4, effective
+   cores // 2)), then W = 1: every answer equal to the CPU handler, every
+   replica's CPU time (``/proc/PID/stat``) risen during the burst, and
+   SIGTERM ending every process.  Prints each part's rates, p50/p99,
+   compile and warm seconds per generation, spill bytes and seconds
+   (capture on the audit thread, pickle and write on the worker), boot
+   times, and the fold launches of (b) and (d);
+10. shapes (after the pipeline, snapshot, expand, extdata and lifecycle
+   phases): as phase 5, at the (C, N, k) the pipeline, snapshot, expand,
+   extdata and lifecycle paths launched too;
+11. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-11. admission: the library (all 46 templates and their sample
+12. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -149,7 +183,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-12. served: the served process's two threads on one driver and vocab, as
+13. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -160,7 +194,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-13. mutate: the admission bodies posted to ``/v1/mutate`` of a
+14. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -174,14 +208,15 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-14. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+15. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
    the snapshot path's, ``expand_launches`` those inside the generator
    stage of the expand phase, ``extdata_launches`` those of the extdata
    phase's cold relist (the reduced lane's ``fused_fold``, the masks
-   lane's ``epilogue``).
+   lane's ``epilogue``), ``lifecycle_launches`` those of the lifecycle
+   phase (its snapshot passes' ``epilogue``, the relist's ``fused_fold``).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -194,6 +229,7 @@ import copy
 import gc
 import http.client
 import json
+import os
 import statistics
 import threading
 import subprocess
@@ -482,12 +518,13 @@ def shape_phase(rows, err, shapes) -> None:
 
 
 def _client(objects, device: str = "cuda", extdata: bool = False,
-            library: bool = True):
+            library: bool = True, generation_swap: bool = False):
     """(client, driver, templates, constraints) as the CLI builds them:
     a ``TorchDriver`` with a ``CELDriver`` beside it, the whole library
     loaded (unless ``library`` is False), every template lowered; with
     ``extdata`` also the two image templates of the extdata phase, each
-    with its constraint on v1 Pods."""
+    with its constraint on v1 Pods; with ``generation_swap`` the driver's
+    (not yet started) generation coordinator."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
     from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
@@ -496,9 +533,12 @@ def _client(objects, device: str = "cuda", extdata: bool = False,
     from gatekeeper_tpu_torch.utils.synthetic import load_library
 
     cel = CELDriver()
-    driver = TorchDriver(device=device, cel_driver=cel)
+    driver = TorchDriver(device=device, cel_driver=cel,
+                         generation_swap=generation_swap)
     client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
+    if driver.gen_coord is not None:
+        driver.gen_coord.constraints_fn = client.constraints
     nt, nc = load_library(client) if library else (0, 0)
     if extdata:
         for kind, rules in EXT_TEMPLATES:
@@ -923,10 +963,14 @@ def snapshot_churn(objects, n: int, seed: int = 5) -> list:
     return ops
 
 
-def snapshot_world(objects, device: str, collect: str, mode: str):
+def snapshot_world(objects, device: str, collect: str, mode: str,
+                   generation_swap: bool = False, watch: bool = True):
     """(manager, cluster, ingester, residency, snapshot, evaluator): the
     CLI's ``--audit-source snapshot`` stack over ``objects``, with the
-    path phase's audit settings."""
+    path phase's audit settings.  ``generation_swap`` gives the driver a
+    generation coordinator (not started) that evicts the residency at a
+    swap; without ``watch`` the ingester is made but not started (a spill
+    load comes first)."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
     from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
@@ -935,15 +979,20 @@ def snapshot_world(objects, device: str, collect: str, mode: str):
                                                gvks_of)
     from gatekeeper_tpu_torch.sync.source import FakeCluster
 
-    client, driver, _nt, _nc = _client(objects, device=device)
+    client, driver, _nt, _nc = _client(objects, device=device,
+                                       generation_swap=generation_swap)
     evaluator = SweepEvaluator(driver, device=device, violations_limit=20,
                                collect=collect)
     cluster = FakeCluster()
     for o in objects:
         cluster.apply(o)
     snap = ClusterSnapshot(evaluator, SnapshotConfig())
-    ingester = WatchIngester(snap, cluster, gvks_of(cluster.list())).start()
+    ingester = WatchIngester(snap, cluster, gvks_of(cluster.list()))
+    if watch:
+        ingester.start()
     residency = DeviceResidency(evaluator, mode=mode)
+    if driver.gen_coord is not None:
+        driver.gen_coord.attach_residency(residency)
     mgr = AuditManager(client, lister=cluster.list,
                        config=AuditConfig(violations_limit=20,
                                           chunk_size=32768,
@@ -1626,14 +1675,16 @@ def served_phase(n: int, n_objects: int, card: str,
                   if o.get("kind") == "Namespace"}
     client, driver, _nt, _nc = _client(objects, device=device)
     cluster_objects = make_cluster_objects(n_objects, seed=9)
-    args = argparse.Namespace(
-        device=device, constraint_violations_limit=20, collect="reduced",
-        audit_interval=0.25, audit_chunk_size=32768,
-        audit_source="snapshot", snapshot_resync_every=2,
-        snapshot_resync_rotate=0, audit_expand=False,
-        snapshot_residency="auto" if device == "cuda" else "on",
-        pipeline="auto", pipeline_flatten_workers=0, flatten_lane="auto",
-        flatten_workers=0)
+    flags = {"device": device, "audit_interval": 0.25,
+             "audit_chunk_size": 32768, "audit_source": "snapshot",
+             "snapshot_resync_every": 2,
+             "snapshot_residency": "auto" if device == "cuda" else "on"}
+    # the CLI's own parser, so every flag the entry points read has its
+    # default
+    from gatekeeper_tpu_torch.__main__ import build_parser
+
+    args = build_parser().parse_args([])
+    vars(args).update(flags)
     mgr, ingester = build_audit(args, cluster_objects, client, driver)
     cluster = ingester.source
     spans = {"audit": [], "audit_tick": [], "audit_resync": []}
@@ -2670,6 +2721,784 @@ def extdata_phase(objects, n_traffic: int, card: str,
     return launches, shapes, recs
 
 
+# --- the served process's lifecycle -------------------------------------------
+# (a): the first LIFE_BODIES admission bodies under template churn, then a
+# final burst of LIFE_FINAL; the churn removes and re-adds five Rego
+# templates one at a time and edits the message of a sixth
+LIFE_BODIES, LIFE_FINAL = 2048, 256
+LIFE_CHURN_KINDS = ("K8sAllowedRepos", "K8sDisallowedTags",
+                    "K8sBlockNodePort", "K8sHttpsOnly", "K8sRequiredProbes")
+LIFE_EDIT_KIND = "K8sContainerLimits"
+LIFE_EDIT = ("has no memory limit", "lacks a memory limit")
+LIFE_CHURN_GAP_S = 0.5  # between two churn operations
+LIFE_SWAP_KIND = "K8sRequiredLabels"  # (b): removed across a snapshot tick
+LIFE_VERDICT_OBJECTS = 1024  # (c): objects both boots give verdicts on
+LIFE_WAIT_S = 300.0
+# spill and compile-cache directories: inside the checkout, removed after
+LIFE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_lifecycle")
+ROOT_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _template_kind(doc) -> str:
+    return doc["spec"]["crd"]["spec"]["names"]["kind"]
+
+
+def library_manifests() -> list:
+    """The library as ``python -m gatekeeper_tpu_torch --manifests
+    library`` loads it: templates, every constraint file, the examples."""
+    from gatekeeper_tpu_torch.__main__ import load_manifests
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+
+    return load_manifests([library_dir()])
+
+
+def _cli_handler(client, manifests, batcher=None):
+    """The validation handler as the CLI's ``serve`` builds it over the
+    same manifests (namespaces, process exclusions, expansion)."""
+    from gatekeeper_tpu_torch.__main__ import build_mutation, process_excluder
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+
+    namespaces = {name_of(o): o for o in manifests
+                  if gvk_of(o) == ("", "v1", "Namespace")}
+    return ValidationHandler(
+        client, process_excluder=process_excluder(manifests),
+        namespace_lookup=namespaces.get, batcher=batcher,
+        failure_policy="fail",
+        expansion_system=build_mutation(manifests)[1])
+
+
+def _label_lines(message: str) -> dict:
+    """A deny message as {constraint label: sorted lines}: every line reads
+    ``[<constraint name>] <message>``."""
+    out: dict = {}
+    for line in message.split("\n") if message else ():
+        label = line[1:line.index("] ")] if line.startswith("[") \
+            and "] " in line else ""
+        out.setdefault(label, []).append(line)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _labels(manifests, kinds) -> set:
+    return {o["metadata"]["name"] for o in manifests
+            if o.get("kind") in kinds}
+
+
+def lifecycle_references(manifests, bodies, edited) -> dict:
+    """The CPU handler's answers (exact engines, no batcher) to ``bodies``
+    under the library as loaded (``old``), and the deny lines of the edited
+    template's constraints under the edited template alone (``edit``):
+    the new set's answer is ``old`` with those labels' lines replaced."""
+    from gatekeeper_tpu_torch.__main__ import build_client
+    from gatekeeper_tpu_torch.webhook.server import admission_response
+
+    t0 = time.perf_counter()
+    ref = _cli_handler(build_client(manifests, device="cpu")[0], manifests)
+    only = [edited] + [o for o in manifests
+                       if o.get("kind") in (LIFE_EDIT_KIND, "Namespace")]
+    ed = _cli_handler(build_client(only, device="cpu")[0], manifests)
+    old, edit = [], []
+    for body in bodies:
+        v = ref.handle(copy.deepcopy(body))
+        old.append(_answer(admission_response(
+            v.uid, v.allowed, v.message, v.code, v.warnings)["response"]))
+        edit.append(_label_lines(ed.handle(copy.deepcopy(body)).message))
+    churned = _labels(manifests, LIFE_CHURN_KINDS)
+    edited_labels = _labels(manifests, (LIFE_EDIT_KIND,))
+    others = {o["metadata"]["name"] for o in manifests
+              if o.get("apiVersion", "").startswith("constraints.")} \
+        - churned - edited_labels
+    if churned & others or edited_labels & others or not churned \
+            or not edited_labels:
+        raise AssertionError("lifecycle: the churned constraints' names "
+                             "are not their own")
+    changed = sum(e != {k: v for k, v in _label_lines(o[2]).items()
+                        if k in edited_labels} for e, o in zip(edit, old))
+    log(f"lifecycle: cpu reference handler {time.perf_counter() - t0:.3f}s "
+        f"over {len(bodies)} bodies; the edit changes {changed} answers, "
+        f"the churned templates' constraints deny "
+        f"{sum(bool(set(_label_lines(o[2])) & churned) for o in old)}")
+    if not changed:
+        raise AssertionError("lifecycle: the edited message never shows")
+    return {"old": old, "edit": edit, "churned": churned,
+            "edited": edited_labels}
+
+
+def _new_lines(old_answer, edit_lines, edited) -> dict:
+    lines = {k: v for k, v in _label_lines(old_answer[2]).items()
+             if k not in edited}
+    lines.update(edit_lines)
+    return lines
+
+
+def _answer_fits(got, old_answer, edit_lines, refs, final: bool) -> bool:
+    """A served answer against the old and the new template set.  Final:
+    exactly the new set's answer.  During the churn: every constraint the
+    churn leaves alone answers as in both sets; an edited constraint as in
+    the old or the new set; a churned one as in both sets or not at all
+    (its template was out at that moment); and the verdict follows the
+    lines (no code 500)."""
+    allowed, code, message, warnings = got
+    g = _label_lines(message)
+    o = _label_lines(old_answer[2])
+    n = _new_lines(old_answer, edit_lines, refs["edited"])
+    if code == 500 or warnings != old_answer[3] or allowed != (not g):
+        return False
+    if not allowed and code != old_answer[1]:
+        return False
+    if final:
+        return g == n
+    for label in set(g) | set(o) | set(n):
+        gl = g.get(label)
+        if label in refs["churned"]:
+            ok = gl is None or gl == o.get(label)
+        elif label in refs["edited"]:
+            ok = gl == o.get(label) or gl == n.get(label)
+        else:
+            ok = gl == o.get(label)
+        if not ok:
+            return False
+    return True
+
+
+def lifecycle_generations(manifests, bodies, refs, edited, swap: bool,
+                          card: str, device: str = "cuda") -> dict:
+    """(a): the CLI's serving stack on ``device`` over the library with
+    ``generation_swap`` on or off; 64 clients post ``bodies`` while a
+    thread churns templates through ``Client``; then, once every build is
+    done, a final burst."""
+    from gatekeeper_tpu_torch.__main__ import build_client, warm_batcher
+    from gatekeeper_tpu_torch.webhook.namespacelabel import \
+        NamespaceLabelHandler
+    from gatekeeper_tpu_torch.webhook.policy import Batcher
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    label = f"lifecycle[swap {'on' if swap else 'off'}]"
+    t0 = time.perf_counter()
+    client, driver = build_client(manifests, device=device,
+                                  generation_swap=swap)
+    boot_s = time.perf_counter() - t0
+    coord = driver.gen_coord
+    templates = {_template_kind(o): o for o in manifests
+                 if o.get("kind") == "ConstraintTemplate"}
+    cons = {k: [o for o in manifests if o.get("kind") == k]
+            for k in LIFE_CHURN_KINDS}
+    batcher = Batcher(client).start()
+    op_s: list = []  # each churn call's wall on the churn thread
+    errors: list = []
+
+    def readd(kind):
+        client.add_template(copy.deepcopy(templates[kind]))
+        for c in cons[kind]:
+            client.add_constraint(copy.deepcopy(c))
+
+    ops = []
+    for kind in LIFE_CHURN_KINDS:
+        ops += [lambda k=kind: client.remove_template(k),
+                lambda k=kind: readd(k)]
+    ops.append(lambda: client.add_template(copy.deepcopy(edited)))
+
+    def churn():
+        try:
+            time.sleep(2.0)  # the load processes post by now
+            for op in ops:
+                t = time.perf_counter()
+                op()
+                op_s.append(time.perf_counter() - t)
+                time.sleep(LIFE_CHURN_GAP_S)
+        except Exception as e:
+            errors.append(repr(e))
+
+    churner = threading.Thread(target=churn, name="template-churn",
+                               daemon=True)
+    server = None
+    try:
+        warm_batcher(client, batcher)
+        if coord is not None:
+            coord.start()
+            n_boot = len(coord.compile_seconds)  # the boot's inline builds
+        server = WebhookServer(
+            validation_handler=_cli_handler(client, manifests, batcher),
+            namespace_label_handler=NamespaceLabelHandler(),
+            host="127.0.0.1", port=0, batcher=batcher).start()
+        churner.start()
+        replies, lat, wall = post_concurrently(server.port, bodies)
+        churner.join(LIFE_WAIT_S)
+        if churner.is_alive() or errors:
+            raise AssertionError(f"{label}: the churn did not finish: "
+                                 f"{errors}")
+        if coord is not None and not coord.wait_idle(LIFE_WAIT_S):
+            raise AssertionError(f"{label}: builds still pending")
+        final, _flat, _fwall = post_concurrently(server.port,
+                                                 bodies[:LIFE_FINAL])
+    finally:
+        drained = server.stop() if server is not None else False
+        batcher.stop()
+        if coord is not None:
+            coord.stop()
+    absent = 0  # answers given while a churned template was out
+    bad = []
+    for i in range(len(bodies)):
+        got, old = _answer(replies[i]), refs["old"][i]
+        if not _answer_fits(got, old, refs["edit"][i], refs, final=False):
+            bad.append((i, got, old))
+        absent += set(_label_lines(old[2])) & refs["churned"] \
+            != set(_label_lines(got[2])) & refs["churned"]
+    bad_final = [(i, _answer(final[i])) for i in range(len(final))
+                 if not _answer_fits(_answer(final[i]), refs["old"][i],
+                                     refs["edit"][i], refs, final=True)]
+    out = {"swap": swap, "boot_s": boot_s, **_rate(len(bodies), lat, wall),
+           "churn_ops": len(op_s), "churn_call_s": op_s,
+           "answers_mid_churn": absent, "drained": drained}
+    if coord is not None:
+        out.update(swaps=coord.swap_count - n_boot,
+                   last_error=coord.last_error,
+                   warm_errors=coord.warm_errors,
+                   last_warm_error=coord.last_warm_error,
+                   compile_s=list(coord.compile_seconds)[n_boot:],
+                   warm_s=list(coord.warm_seconds),
+                   warm_runs=list(coord.warm_runs))
+    log(f"{label}: {len(bodies)} admissions in {wall:.3f}s, "
+        f"{out['per_s']:.1f} admissions/s, p50 {out['p50_ms']:.3f} ms, p99 "
+        f"{out['p99_ms']:.3f} ms during {len(op_s)} template changes "
+        f"({LOAD_PROCS * LOAD_CONNS} clients); {absent} answers given with "
+        f"a churned template out; boot {boot_s:.3f}s; churn calls "
+        f"{[round(x, 3) for x in op_s]} s"
+        + (f"; {out['swaps']} background swaps, compile s per generation "
+           f"{[round(x, 3) for x in out['compile_s']]}, warm s "
+           f"{[round(x, 3) for x in out['warm_s']]}, warm programs (to "
+           f"run, ran) {out['warm_runs']}, {coord.warm_errors} warm "
+           f"errors (last {coord.last_warm_error}), last_error "
+           f"{coord.last_error}" if coord is not None else "")
+        + f" ({card})")
+    if bad or bad_final:
+        raise AssertionError(f"{label}: {len(bad)} answers fit neither "
+                             f"template set, {len(bad_final)} final answers "
+                             f"differ from the new set; first: "
+                             f"{(bad + bad_final)[:2]}")
+    if coord is not None and (out["swaps"] < 1 or coord.last_error):
+        raise AssertionError(f"{label}: swaps {out['swaps']}, last "
+                             f"error {coord.last_error}")
+    # every pre-swap warm ran each program its build lowered to its host
+    # result, and one of them ran at least one (the edit's)
+    if coord is not None and (
+            coord.warm_errors or len(out["warm_runs"]) != out["swaps"]
+            or any(ran != want for want, ran in out["warm_runs"])
+            or not any(ran for _w, ran in out["warm_runs"])):
+        raise AssertionError(f"{label}: warms {out['warm_runs']}, "
+                             f"{coord.warm_errors} warm errors, last "
+                             f"{coord.last_warm_error}")
+    if not drained:
+        raise AssertionError(f"{label}: the server did not drain")
+    return out
+
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same_verdicts(label: str, a, b) -> None:
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    diff = AuditManager._verdicts_differ_canonical(
+        a.kept, a.total_violations, b.kept, b.total_violations, 20)
+    if diff is not None or a.total_objects != b.total_objects \
+            or a.incomplete or b.incomplete:
+        raise AssertionError(f"lifecycle: {label}: {diff} ("
+                             f"{a.total_objects} / {b.total_objects} "
+                             f"objects)")
+
+
+def lifecycle_snapshot(objects, card: str, device: str = "cuda") -> dict:
+    """(b) and (d): a snapshot first pass spilled in full, loaded into a
+    fresh driver and vocab (a hit) and served warm; a delta spill after a
+    1% churn; the zlib codec round trip; a corrupt spill rejected and
+    rebuilt; then a template removed across a tick (re-chunk, no relist)
+    against a fresh relist."""
+    from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                               SnapshotConfig, SnapshotSpill,
+                                               templates_digest)
+
+    mode = "auto" if device == "cuda" else "on"
+    roots = {k: os.path.join(LIFE_DIR, k) for k in ("full", "delta", "zlib")}
+    out: dict = {}
+
+    def cons_of(mgr):
+        return [c for c in mgr.client.constraints()
+                if c.actions_for(AUDIT_EP)]
+
+    def save(spill, mgr, ing):
+        res = spill.save(mgr.snapshot, rvs=dict(ing.rvs),
+                         templates=templates_digest(mgr.client))
+        if not res.get("ok"):
+            raise AssertionError(f"lifecycle: spill failed: {res}")
+        return {"bytes": res["bytes"], "write_s": res["seconds"],
+                "capture_s": spill.last_capture_s}
+
+    # A: the first pass, spilled in full
+    mgr, _cl, ing, _res, _snap, _ev = snapshot_world(
+        objects, device, "reduced", mode)
+    try:
+        t0 = time.perf_counter()
+        first = mgr.audit()
+        _sync(device)
+        out["step1_s"] = time.perf_counter() - t0
+        out["full"] = save(SnapshotSpill(roots["full"]), mgr, ing)
+    finally:
+        ing.stop()
+    del mgr, _cl, ing, _res, _snap, _ev
+    gc.collect()
+
+    # B: a fresh driver and vocab loads it and serves warm
+    mgr, cluster, ing, res, snap, ev = snapshot_world(
+        objects, device, "reduced", mode, generation_swap=True, watch=False)
+    coord = ev.driver.gen_coord
+    try:
+        t0 = time.perf_counter()
+        spill = SnapshotSpill(roots["full"])
+        loaded = spill.load(snap, cons_of(mgr),
+                            templates=templates_digest(mgr.client))
+        out["load_s"] = time.perf_counter() - t0
+        if loaded is None:
+            raise AssertionError(f"lifecycle: the good spill missed: "
+                                 f"{spill.stats()['miss_reasons']}")
+        ing.from_rvs = dict(loaded["rvs"])
+        ing.rvs.update(loaded["rvs"])
+        mgr.restore_spill_aux(loaded["aux"])
+        # a FakeCluster has no watch cache: the resubscription replays
+        # every object, which the no-op detection absorbs
+        t1 = time.perf_counter()
+        ing.start()
+        ing.pump()
+        out["replay_s"] = time.perf_counter() - t1
+        r0 = mgr.perf.get("snapshot_rows_evaluated", 0.0)
+        t1 = time.perf_counter()
+        tick = mgr.audit_tick()
+        out["warm_tick_s"] = time.perf_counter() - t1
+        out["warm_first_s"] = time.perf_counter() - t0
+        out["warm_tick_rows"] = mgr.perf["snapshot_rows_evaluated"] - r0
+        t1 = time.perf_counter()
+        warm = mgr.audit()
+        _sync(device)
+        out["resident_pass_s"] = time.perf_counter() - t1
+        out["warm_s"] = time.perf_counter() - t0
+        _same_verdicts("warm tick against the first pass", tick, first)
+        _same_verdicts("warm pass against the first pass", warm, first)
+        lowered = [s for s in snap.routed_stores() if s.lowered]
+        out["uploads"], out["patches"] = res.upload_count, res.patch_count
+        if out["warm_tick_rows"] or res.upload_count != len(lowered) \
+                or res.patch_count:
+            raise AssertionError(f"lifecycle: warm tick evaluated "
+                                 f"{out['warm_tick_rows']} rows; "
+                                 f"{res.upload_count} uploads, "
+                                 f"{res.patch_count} patches for "
+                                 f"{len(lowered)} adopted groups")
+        # delta: a full delta-mode spill, a 1% churn, a delta spill
+        dspill = SnapshotSpill(roots["delta"], delta=True)
+        out["delta_full"] = save(dspill, mgr, ing)
+        ops = snapshot_churn(objects, max(8, int(len(objects) *
+                                                  CHURN_SHARE)), seed=12)
+        _churn_apply(cluster, ops)
+        ing.pump()
+        churned = mgr.audit_tick()
+        out["delta"] = save(dspill, mgr, ing)
+        # a 1% churn spread over the cluster may dirty every group, and
+        # then the delta rewrites them all
+        out["delta"]["groups_reused"] = dspill.groups_skipped
+        out["delta"]["groups"] = len(snap._groups)
+        # zlib: spill, load into another snapshot on the same evaluator
+        zspill = SnapshotSpill(roots["zlib"], compress="zlib")
+        out["zlib"] = save(zspill, mgr, ing)
+        zsnap = ClusterSnapshot(ev, SnapshotConfig())
+        t0 = time.perf_counter()
+        zl = SnapshotSpill(roots["zlib"]).load(
+            zsnap, cons_of(mgr), templates=templates_digest(mgr.client))
+        out["zlib"]["load_s"] = time.perf_counter() - t0
+        if zl is None:
+            raise AssertionError("lifecycle: the zlib spill missed")
+        cfg = AuditConfig(violations_limit=20, chunk_size=32768,
+                          exact_totals=False, submit_window=4,
+                          audit_source="snapshot")
+        zmgr = AuditManager(mgr.client, lister=cluster.list, config=cfg,
+                            evaluator=ev, snapshot=zsnap)
+        _same_verdicts("zlib round trip", zmgr.audit_tick(), churned)
+        # corrupt: one flipped byte of a section, then a clean rebuild
+        path = os.path.join(roots["zlib"], "snapshot.rows.pkl")
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        xsnap = ClusterSnapshot(ev, SnapshotConfig())
+        xspill = SnapshotSpill(roots["zlib"])
+        got = xspill.load(xsnap, cons_of(mgr),
+                          templates=templates_digest(mgr.client))
+        reasons = xspill.stats()["miss_reasons"]
+        left = os.listdir(roots["zlib"])
+        xmgr = AuditManager(mgr.client, lister=cluster.list, config=cfg,
+                            evaluator=ev, snapshot=xsnap)
+        t0 = time.perf_counter()
+        rebuilt = xmgr.audit()
+        out["corrupt"] = {"miss_reasons": reasons, "left": left,
+                          "rebuild_s": time.perf_counter() - t0}
+        if got is not None or reasons != {"corrupt": 1} or left:
+            raise AssertionError(f"lifecycle: the corrupt spill: hit "
+                                 f"{got is not None}, {reasons}, files "
+                                 f"left {left}")
+        _same_verdicts("rebuild after the corrupt spill", rebuilt, churned)
+        del zsnap, zmgr, xsnap, xmgr
+        # (b): a template removed across a tick, generation swap on
+        lists = [0]
+        lister = mgr.lister
+
+        def counted():
+            lists[0] += 1
+            return lister()
+
+        mgr.lister = counted
+        coord.start()
+        rechunks, evictions = snap.rechunk_count, res.evictions
+        swaps = coord.swap_count
+        t0 = time.perf_counter()
+        mgr.client.remove_template(LIFE_SWAP_KIND)
+        if not coord.wait_idle(LIFE_WAIT_S) or coord.last_error:
+            raise AssertionError(f"lifecycle: swap: {coord.last_error}")
+        out["swap_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        swapped = mgr.audit_tick()
+        _sync(device)
+        out["swap_tick_s"] = time.perf_counter() - t0
+        relist = AuditManager(mgr.client, lister=cluster.list,
+                              config=AuditConfig(violations_limit=20,
+                                                 chunk_size=32768,
+                                                 exact_totals=False,
+                                                 submit_window=4),
+                              evaluator=ev)
+        t0 = time.perf_counter()
+        fresh = relist.audit()
+        _sync(device)
+        out["swap_relist_s"] = time.perf_counter() - t0
+        _same_verdicts("tick after the swap against a fresh relist",
+                       swapped, fresh)
+        out["swap"] = {"swaps": coord.swap_count - swaps,
+                       "relists": lists[0],
+                       "rechunks": snap.rechunk_count - rechunks,
+                       "evictions": res.evictions - evictions}
+        if lists[0] or snap.rechunk_count != rechunks + 1 \
+                or res.evictions == evictions or out["swap"]["swaps"] < 1 \
+                or any(LIFE_SWAP_KIND == k for k, _n in
+                       swapped.total_violations):
+            raise AssertionError(f"lifecycle: the tick after the swap: "
+                                 f"{out['swap']}")
+    finally:
+        coord.stop()
+        ing.stop()
+    log(f"lifecycle snapshot: {len(objects)} objects; step 1 (build) "
+        f"{out['step1_s']:.3f}s; full spill {out['full']['bytes']} bytes, "
+        f"capture {out['full']['capture_s']:.3f}s (audit thread), pickle + "
+        f"write {out['full']['write_s']:.3f}s; load {out['load_s']:.3f}s, "
+        f"watch replay {out['replay_s']:.3f}s, warm tick "
+        f"{out['warm_tick_s']:.3f}s: load + warm first pass "
+        f"{out['warm_first_s']:.3f}s against step 1's "
+        f"{out['step1_s']:.3f}s; then a resident pass "
+        f"{out['resident_pass_s']:.3f}s ({out['uploads']} whole uploads, "
+        f"{out['patches']} patches), {out['warm_s']:.3f}s in all; delta spill after {len(ops)} churn "
+        f"operations {out['delta']['bytes']} bytes in "
+        f"{out['delta']['write_s']:.3f}s ({out['delta']['groups_reused']} of "
+        f"{out['delta']['groups']} groups reused) against the full {out['delta_full']['bytes']} "
+        f"bytes; zlib {out['zlib']['bytes']} bytes, write "
+        f"{out['zlib']['write_s']:.3f}s, load {out['zlib']['load_s']:.3f}s; "
+        f"corrupt spill: {out['corrupt']['miss_reasons']}, deleted, rebuilt "
+        f"in {out['corrupt']['rebuild_s']:.3f}s; swap: build "
+        f"{out['swap_build_s']:.3f}s, tick {out['swap_tick_s']:.3f}s "
+        f"{out['swap']}, fresh relist {out['swap_relist_s']:.3f}s ({card})")
+    return out
+
+
+_CACHE_BOOT = r"""
+import json, sys, time
+t_start = time.perf_counter()
+from gatekeeper_tpu_torch.__main__ import build_client, load_manifests
+from gatekeeper_tpu_torch.drivers import torch_driver
+from gatekeeper_tpu_torch.drivers.generation import CompileCache
+calls = []
+for name in ("lower_template", "lower_cel_template"):
+    real = getattr(torch_driver, name)
+    setattr(torch_driver, name,
+            lambda *a, _r=real, **k: calls.append(1) or _r(*a, **k))
+objects = json.loads(sys.stdin.read())
+t0 = time.perf_counter()
+cache = CompileCache(sys.argv[2])
+client, driver = build_client(load_manifests([sys.argv[1]]),
+                              device=sys.argv[3], compile_cache=cache)
+boot = time.perf_counter() - t0
+from chip_smoke import _keyed_verdicts
+print(json.dumps({"boot_s": boot, "import_s": t0 - t_start,
+                  "lowered": len(calls), "cache": cache.stats(),
+                  "verdicts": _keyed_verdicts(client, driver, objects)}))
+"""
+
+
+def _keyed_verdicts(client, driver, objects) -> list:
+    """Per object, the sorted (constraint, message) pairs of one
+    ``query_batch`` over every constraint."""
+    from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+    from gatekeeper_tpu_torch.target.review import AugmentedUnstructured
+
+    reviews = [client.target.handle_review(AugmentedUnstructured(
+        object=copy.deepcopy(o), source=SOURCE_ORIGINAL)) for o in objects]
+    cons = sorted(client.constraints(), key=lambda c: c.key())
+    out = driver.query_batch(client.target.name, cons, reviews)
+    return [sorted([r.constraint["metadata"]["name"], r.msg]
+                   for r in qr.results) for qr in out]
+
+
+def lifecycle_compile_cache(manifests, objects, card: str,
+                            device: str = "cuda") -> dict:
+    """(c): a cold boot through ``--compile-cache`` lowers every template;
+    a fresh process boots from the same directory, lowers none and gives
+    the same verdicts on ``objects``."""
+    from gatekeeper_tpu_torch.__main__ import build_client
+    from gatekeeper_tpu_torch.drivers import torch_driver
+    from gatekeeper_tpu_torch.drivers.generation import CompileCache
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+
+    root = os.path.join(LIFE_DIR, "compile-cache")
+    calls: list = []
+    real = {n: getattr(torch_driver, n)
+            for n in ("lower_template", "lower_cel_template")}
+    for name, fn in real.items():
+        setattr(torch_driver, name,
+                lambda *a, _r=fn, **k: calls.append(1) or _r(*a, **k))
+    try:
+        t0 = time.perf_counter()
+        cache = CompileCache(root)
+        client, driver = build_client(manifests, device=device,
+                                      compile_cache=cache)
+        cold_s = time.perf_counter() - t0
+        cold_lowered = len(calls)
+        # the same boot again in this process, from the cache
+        t0 = time.perf_counter()
+        again = CompileCache(root)
+        build_client(manifests, device=device, compile_cache=again)
+        again_s = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(torch_driver, name, fn)
+    n_templates = len(client.templates())
+    want = _keyed_verdicts(client, driver, objects)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CACHE_BOOT, library_dir(), root, device],
+        input=json.dumps(objects), capture_output=True, text=True,
+        cwd=ROOT_DIR, timeout=LIFE_WAIT_S)
+    child_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"lifecycle: the warm boot process exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    warm = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {"templates": n_templates, "cold_lowered": cold_lowered,
+           "cold_boot_s": cold_s, "cold_stores": cache.stats()["stores"],
+           "warm_in_process_s": again_s,
+           "warm_in_process_lowered": len(calls) - cold_lowered,
+           "warm_lowered": warm["lowered"], "warm_boot_s": warm["boot_s"],
+           "warm_import_s": warm["import_s"], "warm_process_s": child_wall,
+           "warm_cache": warm["cache"],
+           "verdicts": sum(map(len, want))}
+    log(f"lifecycle compile cache: cold boot lowered {cold_lowered} of "
+        f"{n_templates} templates in {cold_s:.3f}s, the same boot from the "
+        f"cache in this process {again_s:.3f}s "
+        f"({out['warm_in_process_lowered']} lowered); a fresh process lowered "
+        f"{warm['lowered']} and booted in {warm['boot_s']:.3f}s (imports "
+        f"{warm['import_s']:.3f}s, process {child_wall:.3f}s), cache "
+        f"{warm['cache']}; verdicts on {len(objects)} objects "
+        f"({out['verdicts']} hits) {'equal' if warm['verdicts'] == want else 'DIFFER'} "
+        f"({card})")
+    if cold_lowered != n_templates or out["warm_in_process_lowered"] \
+            or warm["lowered"] != 0 \
+            or warm["cache"]["hits"] != n_templates \
+            or warm["verdicts"] != want or not out["verdicts"]:
+        raise AssertionError(f"lifecycle: compile cache: {out}")
+    return out
+
+
+def _cpu_ticks(pid: int) -> int:
+    """utime + stime of a process in clock ticks (``/proc/PID/stat``)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return int(fields[11]) + int(fields[12])
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def lifecycle_workers(bodies, refs, workers: int, card: str,
+                      device: str = "cuda") -> dict:
+    """(e): ``python -m gatekeeper_tpu_torch --manifests <library>
+    --port P --compile-cache D --webhook-workers W``; the bodies posted
+    by 64 clients must each equal the CPU handler, every replica's CPU
+    time must rise during the burst, and SIGTERM must end them all."""
+    import signal
+
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "gatekeeper_tpu_torch", "--manifests",
+           library_dir(), "--port", str(port), "--compile-cache",
+           os.path.join(LIFE_DIR, "compile-cache"), "--webhook-workers",
+           str(workers)]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT_DIR, stderr=subprocess.PIPE,
+                            text=True)
+    lines: list = []
+    serving: dict = {}  # pid -> seconds from the start to serving
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "webhook serving on" in line:
+                pid = int(line.rsplit("pid ", 1)[1].rstrip(")\n"))
+                serving[pid] = time.perf_counter() - t_start
+                if len(serving) == workers:
+                    ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    pids: list = [proc.pid]
+    try:
+        if not ready.wait(LIFE_WAIT_S):
+            raise AssertionError(f"lifecycle workers={workers}: "
+                                 f"{len(serving)} replicas serving after "
+                                 f"{LIFE_WAIT_S:.0f}s: {''.join(lines)}")
+        pids = sorted(serving)
+        if proc.pid not in serving:
+            raise AssertionError(f"lifecycle workers={workers}: the parent "
+                                 f"did not serve")
+        before = {p: _cpu_ticks(p) for p in pids}
+        replies, lat, wall = post_concurrently(port, bodies)
+        after = {p: _cpu_ticks(p) for p in pids}
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=LIFE_WAIT_S)
+        stop_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for p in pids:
+            if p != proc.pid and _alive(p):
+                os.kill(p, signal.SIGKILL)
+    reader.join(10)
+    left = [p for p in pids if _alive(p)]
+    bad = [i for i in range(len(bodies))
+           if _unordered(_answer(replies[i])) != _unordered(refs["old"][i])]
+    out = {"workers": workers, **_rate(len(bodies), lat, wall),
+           "boot_s": {str(p): serving[p] for p in pids},
+           "cpu_ticks": {str(p): after[p] - before[p] for p in pids},
+           "rc": rc, "stop_s": stop_s, "left": left,
+           "drained": sum("drain complete" in ln for ln in lines)}
+    log(f"lifecycle workers={workers}: {len(bodies)} admissions in "
+        f"{wall:.3f}s, {out['per_s']:.1f} admissions/s, p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms "
+        f"({LOAD_PROCS * LOAD_CONNS} clients); replicas serving after "
+        f"{ {p: round(s, 3) for p, s in serving.items()} } s (parent "
+        f"{proc.pid}); CPU ticks in the burst {out['cpu_ticks']}; SIGTERM "
+        f"-> exit {rc} in {stop_s:.3f}s, {out['drained']} drains, left "
+        f"{left}; {len(bad)} answers differ ({card})")
+    if bad:
+        raise AssertionError(f"lifecycle workers={workers}: answers differ "
+                             f"from the CPU handler, first: "
+                             f"{[(i, _answer(replies[i])) for i in bad[:2]]}")
+    if rc != 0 or left or out["drained"] != workers or \
+            min(out["cpu_ticks"].values()) <= 0:
+        raise AssertionError(f"lifecycle workers={workers}: {out}; the "
+                             f"processes' last lines: {''.join(lines[-40:])}")
+    return out
+
+
+def lifecycle_phase(objects, card: str, device: str = "cuda",
+                    n_bodies: int = LIFE_BODIES) -> tuple:
+    """The served process's lifecycle, (a)-(e): (launches, shapes,
+    record).  Fold launches count from here to the end of the phase (the
+    snapshot passes and the relist of (b) and (d) launch them)."""
+    import shutil
+
+    from gatekeeper_tpu_torch.ops import fold
+    from gatekeeper_tpu_torch.pipeline import effective_cpu_count
+
+    for wrapper in (fold.fused_fold, fold.epilogue):
+        wrapper.launches = 0
+        wrapper.shapes.clear()
+    shutil.rmtree(LIFE_DIR, ignore_errors=True)
+    os.makedirs(LIFE_DIR)
+    try:
+        manifests = library_manifests()
+        bodies, _objs = admission_traffic(n_bodies)
+        edited = copy.deepcopy(next(
+            o for o in manifests if o.get("kind") == "ConstraintTemplate"
+            and _template_kind(o) == LIFE_EDIT_KIND))
+        target = edited["spec"]["targets"][0]
+        if LIFE_EDIT[0] not in target["rego"]:
+            raise AssertionError("lifecycle: the edit target moved")
+        target["rego"] = target["rego"].replace(*LIFE_EDIT)
+        refs = lifecycle_references(manifests, bodies, edited)
+        # ABBA: swap on, inline, inline, swap on (order and drift fall
+        # equally on both modes)
+        record = {"generations": {"on": [], "off": []}}
+        for swap in (True, False, False, True):
+            record["generations"]["on" if swap else "off"].append(
+                lifecycle_generations(manifests, bodies, refs, edited, swap,
+                                      card, device))
+            gc.collect()
+        gens = record["generations"]
+        log("lifecycle: churn p99 ms in ABBA order, swap on "
+            f"{[round(r['p99_ms'], 3) for r in gens['on']]}, inline "
+            f"{[round(r['p99_ms'], 3) for r in gens['off']]}; sums "
+            f"{sum(r['p99_ms'] for r in gens['on']):.3f} / "
+            f"{sum(r['p99_ms'] for r in gens['off']):.3f} ({card})")
+        gc.collect()
+        record["snapshot"] = lifecycle_snapshot(objects, card, device)
+        gc.collect()
+        record["compile_cache"] = lifecycle_compile_cache(
+            manifests, objects[:LIFE_VERDICT_OBJECTS], card, device)
+        wide = max(1, min(4, effective_cpu_count() // 2))
+        record["workers"] = {str(w): lifecycle_workers(
+            bodies, refs, w, card, device) for w in sorted({wide, 1},
+                                                           reverse=True)}
+    finally:
+        shutil.rmtree(LIFE_DIR, ignore_errors=True)
+    launches = {"fused_fold": fold.fused_fold.launches,
+                "epilogue": fold.epilogue.launches}
+    shapes = {"fused_fold": dict(fold.fused_fold.shapes),
+              "epilogue": dict(fold.epilogue.shapes)}
+    log(f"lifecycle: fold launches {launches} at (C, N, k) "
+        f"{ {k: sorted(v) for k, v in shapes.items()} }")
+    if device == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"lifecycle: a fold kernel never launched: "
+                             f"{launches}")
+    return launches, shapes, record
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--objects", type=int, default=131072,
@@ -2713,13 +3542,18 @@ def main() -> int:
     ext_launches, ext_shapes, ext_steps = extdata_phase(
         objects, args.admissions, card)
     gc.collect()
+    phase("lifecycle")
+    life_launches, life_shapes, life_record = lifecycle_phase(
+        objects, card, n_bodies=min(LIFE_BODIES, args.admissions))
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
                    + collections.Counter(pipe_shapes[name])
                    + collections.Counter(snap_shapes[name])
                    + collections.Counter(exp_shapes[name])
-                   + collections.Counter(ext_shapes.get(name, {})))
+                   + collections.Counter(ext_shapes.get(name, {}))
+                   + collections.Counter(life_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -2736,6 +3570,7 @@ def main() -> int:
     log(f"mutate: {json.dumps(mutate)}")
     log(f"extdata steps: {json.dumps(ext_steps, default=str)}")
     log(f"pipeline runs: {json.dumps(pipe_records, default=str)}")
+    log(f"lifecycle: {json.dumps(life_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -2744,6 +3579,7 @@ def main() -> int:
         row["snapshot_launches"] = snap_launches[row["name"]]
         row["expand_launches"] = exp_launches[row["name"]]
         row["extdata_launches"] = ext_launches[row["name"]]
+        row["lifecycle_launches"] = life_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,15 @@ beside the audit loop.
         [--device cuda|cpu] [--audit-interval S] [--audit-source ...] \
         [--snapshot-resync-every N] [--snapshot-resync-rotate K] \
         [--audit-expand] [--mutate-lane batched|host|differential] \
-        [--operation audit|webhook|mutation-webhook ...]
+        [--operation audit|webhook|mutation-webhook ...] \
+        [--generation-swap on|off] [--webhook-workers N] [--reuse-port]
     (both modes also take [--extdata-lane batched|perkey|differential]
     [--extdata-max-keys N] [--extdata-fanout N]
     [--pipeline auto|on|off|differential] [--pipeline-flatten-workers N]
     [--flatten-workers N] [--flatten-lane auto|dict|raw|py|differential]
-    [--mutate-ingest dict|raw|differential])
+    [--mutate-ingest dict|raw|differential] [--compile-cache DIR]
+    [--snapshot-spill DIR] [--snapshot-spill-compress none|zlib]
+    [--snapshot-spill-delta] [--snapshot-spill-full-every N])
 
 Loads ConstraintTemplates, constraints and cluster objects from YAML
 (files or directories, ``--manifests`` repeatable).  ``--device`` is where
@@ -98,6 +101,30 @@ objects.  ``--certs-dir`` serves TLS from its existing ``tls.crt`` and
 ``tls.key``.  Before serving, one grid-lane batch of the batcher's largest
 size warms the device path.
 
+The served process's lifecycle.  Boot, in this order: templates install
+through ``--compile-cache`` (lowered programs keyed by template digest and
+the torch and CUDA versions; a warm boot lowers nothing), constraints,
+data, mutators; with ``--audit-source snapshot`` and ``--snapshot-spill``
+the spill loads before the first pass (a hit: the watch resubscribes from
+the spilled resourceVersions and the loop starts with an incremental tick;
+a miss: a clean relist), then the spill's generated verdicts; with
+``--compile-cache`` the warm state (the sweep's hit-buffer sizing and the
+last admission batch) replays; then the template generation coordinator
+starts (``--generation-swap on``, the default: later template changes
+compile on a background thread and swap in atomically; ``off`` lowers
+them inline).  Drain, in this order: the webhook stops accepting and
+finishes what it holds, the audit loop stops, the final spill, the warm
+state's save, the coordinator's stop, and the worker processes, each
+terminated and waited for in turn.  ``--webhook-workers N`` starts N - 1
+children before anything touches the card (``python -m
+gatekeeper_tpu_torch`` with this argv less ``--webhook-workers``,
+``--operation`` and ``--once``, plus ``--reuse-port --operation webhook
+--operation mutation-webhook``): each is a whole replica of the serving
+stack with its own CUDA context, bound to the same port with
+``SO_REUSEPORT``, and the audit runs in the parent only.  It needs an
+explicit ``--port``; with ``--certs-dir`` the certificate pair must exist;
+``--once`` ignores it.
+
 A ``Config`` named ``config`` is read for ``spec.sync.syncOnly`` (the
 kinds synced into ``data.inventory``) and ``spec.match`` (the per-process
 namespace exclusions); its other fields are not read.  CEL
@@ -170,10 +197,14 @@ def warm_batcher(client, batcher) -> None:
     client.review_batch(warm)
 
 
-def build_client(objects, device: str = "cuda"):
+def build_client(objects, device: str = "cuda",
+                 generation_swap: bool = False, compile_cache=None):
     """(client, driver) with every template and constraint of
     ``objects`` installed and the Config-synced inventory loaded; the
-    driver's batched reviews run on ``device``."""
+    driver's batched reviews run on ``device``.  With ``generation_swap``
+    the driver gets a (not yet started) ``GenerationCoordinator``, whose
+    warm reads the client's constraints; ``compile_cache`` is a
+    ``CompileCache`` the template installs go through."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
     from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
@@ -182,9 +213,13 @@ def build_client(objects, device: str = "cuda"):
     from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
 
     cel = CELDriver()
-    driver = TorchDriver(device=device, cel_driver=cel)
+    driver = TorchDriver(device=device, cel_driver=cel,
+                         generation_swap=generation_swap,
+                         compile_cache=compile_cache)
     client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
+    if driver.gen_coord is not None:
+        driver.gen_coord.constraints_fn = client.constraints
     sync: set = set()
     for obj in objects:
         group, _v, kind = gvk_of(obj)
@@ -272,6 +307,16 @@ def build_mutation(objects, provider_cache=None) -> tuple:
 
 
 def main(argv=None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    workers = start_workers(p, args, argv)
+    try:
+        return run(args, workers)
+    finally:
+        stop_workers(workers)
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m gatekeeper_tpu_torch")
     p.add_argument("--manifests", action="append", default=[],
                    help="YAML file or directory (repeatable)")
@@ -416,7 +461,135 @@ def main(argv=None) -> int:
                    choices=OPERATIONS,
                    help="audit|webhook|mutation-webhook (repeatable; "
                         "default all)")
-    args = p.parse_args(argv)
+    p.add_argument("--generation-swap", default="on", choices=["on", "off"],
+                   help="template changes after boot: 'on' stages them, "
+                        "compiles the next generation on a background "
+                        "thread and swaps it in atomically (the serving "
+                        "path never lowers); 'off' lowers inline.  Boot is "
+                        "synchronous either way")
+    p.add_argument("--compile-cache", default="",
+                   help="directory of the on-disk compile cache: lowered "
+                        "template programs keyed by (template digest, "
+                        "engine, torch and CUDA versions, flatten-schema "
+                        "version) with a vocab snapshot replay, and the "
+                        "warm state; a warm restart or --once run lowers "
+                        "nothing.  Workers share it")
+    p.add_argument("--snapshot-spill", default="",
+                   help="snapshot mode: directory of the on-disk spill of "
+                        "the resident audit state (columns, vocab, row "
+                        "ids, verdicts, per-GVK resourceVersions).  A valid "
+                        "spill warm-starts the auditor; a corrupt or "
+                        "drifted one is deleted and the boot relists.  "
+                        "Spills are written off the audit thread after "
+                        "each clean resync and at drain")
+    p.add_argument("--snapshot-spill-compress", default="none",
+                   choices=["none", "zlib"],
+                   help="spill section codec; the loader reads either")
+    p.add_argument("--snapshot-spill-delta", action="store_true",
+                   help="incremental spills: per-group section files, and "
+                        "a spill rewrites only the groups whose rows "
+                        "changed since the last write")
+    p.add_argument("--snapshot-spill-full-every", type=int, default=8,
+                   help="delta spills: every Nth spill rewrites every "
+                        "group and prunes orphaned files (default 8)")
+    p.add_argument("--webhook-workers", type=int, default=1,
+                   help="serve the webhook from N processes sharing one "
+                        "port through SO_REUSEPORT (each a full replica of "
+                        "the serving stack; the audit runs in the parent "
+                        "only)")
+    p.add_argument("--reuse-port", action="store_true",
+                   help="bind the webhook port with SO_REUSEPORT (set for "
+                        "--webhook-workers children)")
+    return p
+
+
+def worker_argv(argv) -> list:
+    """A worker child's arguments: ``argv`` without ``--webhook-workers``,
+    ``--operation`` (and their values) and ``--once``, plus ``--reuse-port
+    --operation webhook --operation mutation-webhook``, so the child serves
+    the webhooks only and starts no grandchildren."""
+    stripped: list = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--webhook-workers", "--operation"):
+            skip = True
+            continue
+        if a.startswith(("--webhook-workers=", "--operation=")) \
+                or a == "--once":
+            continue
+        stripped.append(a)
+    return stripped + ["--reuse-port", "--operation", "webhook",
+                       "--operation", "mutation-webhook"]
+
+
+def start_workers(parser, args, argv) -> list:
+    """``--webhook-workers N``: start N - 1 child replicas (plain
+    subprocesses, before this process touches the card) and mark the
+    parent's own listener ``--reuse-port``.  Returns the children."""
+    import os
+    import signal
+    import subprocess
+
+    if args.webhook_workers > 1 and args.once:
+        print("--webhook-workers ignored with --once (no servers run)",
+              file=sys.stderr)
+        args.webhook_workers = 1
+    if args.webhook_workers <= 1:
+        return []
+    if args.port == 0:
+        parser.error("--webhook-workers needs an explicit --port "
+                     "(an ephemeral port cannot be shared)")
+    if args.certs_dir and not all(
+            os.path.exists(os.path.join(args.certs_dir, f))
+            for f in ("tls.crt", "tls.key")):
+        parser.error(f"--webhook-workers with --certs-dir needs "
+                     f"{args.certs_dir}/tls.crt and tls.key (they are not "
+                     f"generated)")
+    from gatekeeper_tpu_torch.pipeline import effective_cpu_count
+
+    cores = effective_cpu_count()
+    if cores < args.webhook_workers:
+        print(f"WARNING: --webhook-workers {args.webhook_workers} on a "
+              f"{cores}-core host: the workers will share the CPU; use at "
+              f"most {max(1, cores)} here", file=sys.stderr)
+    child = worker_argv(list(argv) if argv is not None else sys.argv[1:])
+    procs = [subprocess.Popen([sys.executable, "-m", "gatekeeper_tpu_torch"]
+                              + child)
+             for _ in range(args.webhook_workers - 1)]
+    print(f"webhook workers: {len(procs)} children (pids "
+          f"{[w.pid for w in procs]}) beside this process", file=sys.stderr,
+          flush=True)
+    args.reuse_port = True
+    # a signal during boot unwinds through main's finally, which stops the
+    # children (serve installs its drain handler once it serves)
+    signal.signal(signal.SIGTERM, _exit_on_signal)
+    return procs
+
+
+def _exit_on_signal(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def stop_workers(procs, timeout: float = 30.0) -> None:
+    """Terminate the worker children, then wait for each in turn (each
+    drains what it holds); one that outlives ``timeout`` is killed."""
+    for w in procs:
+        if w.poll() is None:
+            w.terminate()
+    for w in procs:
+        try:
+            w.wait(timeout=timeout)
+        except Exception:
+            w.kill()
+            w.wait()
+
+
+def run(args, workers=()) -> int:
+    """Boot, then one audit sweep (``--once``) or serve until a signal;
+    the boot and drain order are in the module docstring."""
     from gatekeeper_tpu_torch import resolve_device
 
     resolve_device(args.device)  # no card and no --device cpu: raise now
@@ -426,7 +599,18 @@ def main(argv=None) -> int:
         fanout=args.extdata_fanout)
     if args.extdata_lane != "batched":
         print(f"extdata lane: {args.extdata_lane}", file=sys.stderr)
-    client, driver = build_client(objects, device=args.device)
+    compile_cache = None
+    if args.compile_cache:
+        from gatekeeper_tpu_torch.drivers.generation import CompileCache
+
+        compile_cache = CompileCache(args.compile_cache)
+    client, driver = build_client(
+        objects, device=args.device,
+        generation_swap=args.generation_swap == "on",
+        compile_cache=compile_cache)
+    if compile_cache is not None:
+        print(f"compile cache: {args.compile_cache} "
+              f"{compile_cache.stats()}", file=sys.stderr)
     mutation_system, expansion_system = build_mutation(
         objects, provider_cache=provider_cache)
     print(f"templates: {len(client.templates())} "
@@ -435,16 +619,38 @@ def main(argv=None) -> int:
           f"{len(mutation_system.mutators())}, expansion templates: "
           f"{len(expansion_system.templates())}", file=sys.stderr)
     operations = set(args.operation or OPERATIONS)
-    mgr = ingester = None
+    mgr = ingester = warm_cache = None
     if args.once or "audit" in operations:
         mgr, ingester = build_audit(args, objects, client, driver,
-                                    expansion_system=expansion_system)
+                                    expansion_system=expansion_system,
+                                    extdata_lane=_lane)
+        if args.compile_cache and not args.once:
+            from gatekeeper_tpu_torch.drivers.generation import \
+                WarmStateCache
+
+            warm_cache = WarmStateCache(args.compile_cache)
+            rep = warm_cache.replay(driver, mgr.evaluator)
+            if rep["hit"]:
+                print(f"warm state replayed: {rep['hit_states']} hit-buffer "
+                      f"states, admission warm batch "
+                      f"{'run' if rep['warm_ref'] else 'absent'}",
+                      file=sys.stderr)
+    gen_coord = driver.gen_coord
     try:
         if args.once:
             return audit_once(mgr)
+        if gen_coord is not None:
+            # boot is done: later template changes compile off the
+            # serving path
+            gen_coord.start()
+            print("generation swap active: template changes compile on a "
+                  "background thread", file=sys.stderr)
         return serve(args, objects, client, mgr, operations,
-                     mutation_system, expansion_system)
+                     mutation_system, expansion_system, driver=driver,
+                     workers=workers, warm_cache=warm_cache)
     finally:
+        if gen_coord is not None:
+            gen_coord.stop()
         if ingester is not None:
             ingester.stop()
         if args.flatten_workers:
@@ -455,11 +661,14 @@ def main(argv=None) -> int:
 
 
 def build_audit(args, objects, client, driver,
-                expansion_system=None) -> tuple:
+                expansion_system=None, extdata_lane=None) -> tuple:
     """(AuditManager, WatchIngester or None) as the flags ask: a relisting
     lister over the manifests, or the resident snapshot fed by a watch on a
     ``FakeCluster`` that holds them.  With ``--audit-expand`` the manager
-    expands generator objects through ``expansion_system``."""
+    expands generator objects through ``expansion_system``.  With
+    ``--snapshot-spill`` the spill loads before the watch starts (its
+    resourceVersions seed the ingester) and a ``SnapshotSpiller`` rides the
+    manager; its extdata section goes through ``extdata_lane``."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
     from gatekeeper_tpu_torch.pipeline import (effective_cpu_count,
@@ -488,34 +697,67 @@ def build_audit(args, objects, client, driver,
         return AuditManager(client, lister=lambda: iter(objects),
                             config=config, evaluator=evaluator,
                             expansion_system=expansion_system), None
+    from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
     from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
                                                DeviceResidency,
-                                               SnapshotConfig, WatchIngester,
-                                               gvks_of)
+                                               SnapshotConfig, SnapshotSpill,
+                                               SnapshotSpiller, WatchIngester,
+                                               gvks_of, templates_digest)
     from gatekeeper_tpu_torch.sync.source import FakeCluster
 
     cluster = FakeCluster()
     for obj in objects:
         cluster.apply(obj)
     snapshot = ClusterSnapshot(evaluator, SnapshotConfig())
+    spill = spill_load = None
+    if args.snapshot_spill:
+        spill = SnapshotSpill(args.snapshot_spill,
+                              compress=args.snapshot_spill_compress,
+                              delta=args.snapshot_spill_delta,
+                              full_every=args.snapshot_spill_full_every)
+        spill_load = spill.load(
+            snapshot, [c for c in client.constraints()
+                       if c.actions_for(AUDIT_EP)],
+            extdata_lane=extdata_lane, templates=templates_digest(client))
+        if spill_load is not None:
+            print(f"snapshot spill loaded: {spill_load['rows']} rows warm, "
+                  f"zero relist", file=sys.stderr)
+        else:
+            print(f"snapshot spill miss ({spill.stats()['miss_reasons']}); "
+                  f"booting with a clean relist", file=sys.stderr)
     gvks = gvks_of(cluster.list())
     ingester = WatchIngester(
         snapshot, cluster, gvks,
+        from_rvs=(spill_load or {}).get("rvs"),
         on_error=lambda e: print(f"snapshot watch subscribe failed: {e}",
                                  file=sys.stderr)).start()
     residency = DeviceResidency(evaluator, mode=args.snapshot_residency)
+    if driver.gen_coord is not None:
+        # a swap drops the device mirrors at once (new schemas)
+        driver.gen_coord.attach_residency(residency)
+    spiller = None
+    if spill is not None:
+        spiller = SnapshotSpiller(
+            spill, snapshot, rvs_fn=lambda: dict(ingester.rvs),
+            extdata_lane=extdata_lane,
+            templates_fn=lambda: templates_digest(client))
     print(f"resident snapshot active: watching {len(gvks)} GVKs, resync "
           f"every {args.snapshot_resync_every} intervals, residency "
           f"{args.snapshot_residency}", file=sys.stderr)
     mgr = AuditManager(client, lister=cluster.list, config=config,
                        evaluator=evaluator, snapshot=snapshot,
                        residency=residency,
-                       expansion_system=expansion_system)
+                       expansion_system=expansion_system, spiller=spiller)
+    if spill_load is not None:
+        mgr.restore_spill_aux(spill_load.get("aux") or {})
     return mgr, ingester
 
 
 def audit_once(mgr) -> int:
     run = mgr.audit()
+    if mgr.spiller is not None:
+        # the next boot (or --once run) warm-starts off this spill
+        mgr.spiller.spill_now()
     total = sum(run.total_violations.values())
     print(f"audit: {run.total_objects} objects, {total} violations "
           f"in {run.duration_s:.2f}s "
@@ -550,10 +792,11 @@ def start_audit_loop(audit_mgr):
 
 
 def mutation_handler(args, mutation_system, namespace_lookup,
-                     excluder) -> tuple:
+                     excluder, coordinator=None) -> tuple:
     """(handler, MutationBatcher or None) of ``/v1/mutate`` as
     ``--mutate-lane`` asks: the batched lane behind a started
-    microbatcher, or the per-object reference handler."""
+    microbatcher, or the per-object reference handler.  The lane's
+    mutator programs recompile on ``coordinator``'s thread when given."""
     if args.mutate_lane == "host":
         from gatekeeper_tpu_torch.webhook.mutation import MutationHandler
 
@@ -565,7 +808,8 @@ def mutation_handler(args, mutation_system, namespace_lookup,
 
     lane = MutationLane(mutation_system,
                         differential=args.mutate_lane == "differential",
-                        device=args.device, ingest=args.mutate_ingest)
+                        device=args.device, ingest=args.mutate_ingest,
+                        coordinator=coordinator)
     batcher = MutationBatcher(lane).start()
     return BatchedMutationHandler(mutation_system, lane=lane,
                                   namespace_lookup=namespace_lookup,
@@ -574,12 +818,17 @@ def mutation_handler(args, mutation_system, namespace_lookup,
 
 
 def serve(args, objects, client, audit_mgr, operations, mutation_system,
-          expansion_system) -> int:
+          expansion_system, driver=None, workers=(),
+          warm_cache=None) -> int:
     """Serve the admission webhook (the ``webhook`` and
     ``mutation-webhook`` operations), with ``audit_mgr.run_forever()`` on
     a thread beside it (the ``audit`` operation), until SIGINT or SIGTERM;
-    then stop the audit loop and drain.  The batcher threads and the audit
-    thread share the device on its default stream."""
+    then stop the audit loop and drain: the final spill, then the warm
+    state's save to ``warm_cache``.  ``driver`` is the client's
+    ``TorchDriver`` (its generation coordinator recompiles the mutation
+    lane's programs).  The batcher threads and the audit
+    thread share the device on its default stream.  A signal also
+    terminates the ``workers`` children, so they drain alongside."""
     import os
     import signal
     import threading
@@ -595,6 +844,28 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                   if gvk_of(o) == ("", "v1", "Namespace")}
     excluder = process_excluder(objects)
     server = batcher = mutation_batcher = None
+    # the drain's signal handler goes in before anything serves: a signal
+    # between the serving line and its install would end the process
+    # undrained
+    stopping = threading.Event()
+
+    def _on_signal(signum, frame):
+        if stopping.is_set():
+            # a second signal while draining (the parent's stop_workers
+            # terminates a child its own handler already signalled): a
+            # print here could re-enter a print of the drain and raise
+            return
+        print(f"signal {signum}: draining", file=sys.stderr, flush=True)
+        if server is not None:
+            server.begin_drain()
+        for w in workers:  # the children start their own drains now
+            if w.poll() is None:
+                w.terminate()
+        stopping.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+
     if operations & {"webhook", "mutation-webhook"}:
         try:
             validation = mutation = None
@@ -613,7 +884,8 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                 )
             if "mutation-webhook" in operations:
                 mutation, mutation_batcher = mutation_handler(
-                    args, mutation_system, namespaces.get, excluder)
+                    args, mutation_system, namespaces.get, excluder,
+                    coordinator=getattr(driver, "gen_coord", None))
             certfile = keyfile = None
             if args.certs_dir:
                 certfile = os.path.join(args.certs_dir, "tls.crt")
@@ -628,6 +900,7 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                 tls_min_version=args.tls_min_version,
                 batcher=batcher,
                 mutation_batcher=mutation_batcher,
+                reuse_port=args.reuse_port,
             ).start()
         except BaseException:
             for b in (batcher, mutation_batcher):
@@ -635,20 +908,11 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                     b.stop()
             raise
         print(f"webhook serving on :{server.port} (operations "
-              f"{sorted(operations)})", file=sys.stderr, flush=True)
+              f"{sorted(operations)}, pid {os.getpid()})", file=sys.stderr,
+              flush=True)
     auditor = start_audit_loop(audit_mgr) if "audit" in operations \
         else None
 
-    stopping = threading.Event()
-
-    def _on_signal(signum, frame):
-        print(f"signal {signum}: draining", file=sys.stderr, flush=True)
-        if server is not None:
-            server.begin_drain()
-        stopping.set()
-
-    signal.signal(signal.SIGTERM, _on_signal)
-    signal.signal(signal.SIGINT, _on_signal)
     while not stopping.wait(1.0):
         pass
     drained = True
@@ -666,6 +930,12 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
     for b in (batcher, mutation_batcher):
         if b is not None:
             b.stop()  # idempotent (server.stop drained it already)
+    if audit_mgr is not None and audit_mgr.spiller is not None:
+        # the final spill (the loop's exit wrote one too; this one also
+        # covers a loop that never ran)
+        audit_mgr.spiller.stop(flush=True)
+    if warm_cache is not None:
+        warm_cache.save(driver, audit_mgr.evaluator)
     print("drain complete" if drained else
           "WARNING: drain exceeded its budget; in-flight work abandoned",
           file=sys.stderr, flush=True)

@@ -28,8 +28,14 @@ flatten overlaps chunk K-1's device work and fold.  Both fold chunks in
 submission order, so their totals, kept lists and messages are identical.
 The snapshot lane evaluates serially, as in the JAX package.
 
-Not ported yet: the snapshot spiller, the fleet seams, export, metrics,
-tracing and brownout hooks.
+With a ``spiller`` (``snapshot/persist.SnapshotSpiller``) the snapshot
+lane persists: a clean resync requests a background spill,
+``run_forever``'s exit flushes a final one, and a snapshot loaded from a
+spill (``warm_loaded``) starts the loop with an incremental tick instead
+of the full pass.
+
+Not ported yet: the fleet seams, export, metrics, tracing and brownout
+hooks.
 """
 
 from __future__ import annotations
@@ -175,6 +181,7 @@ class AuditManager:
         snapshot=None,  # snapshot.ClusterSnapshot (audit_source=snapshot)
         residency=None,  # snapshot.DeviceResidency (resident lane)
         expansion_system=None,  # expansion.ExpansionSystem (expand stage)
+        spiller=None,  # snapshot.SnapshotSpiller (--snapshot-spill)
     ):
         self.client = client
         self.lister = lister
@@ -195,6 +202,11 @@ class AuditManager:
         self._gen_ns: dict = {}
         self._gen_kinds: set = set()
         self._gen_verdicts: dict = {}
+        # snapshot spill writer: a clean resync requests a background
+        # spill, run_forever's exit flushes a final one; None = off
+        self.spiller = None
+        if spiller is not None:
+            self.attach_spiller(spiller)
         # first difference of the last resync differential (None =
         # identical)
         self.last_resync_diff: Optional[str] = None
@@ -208,13 +220,33 @@ class AuditManager:
         # device_wait_s and device_idle_fraction (None after a serial one)
         self.pipe_stats: Optional[dict] = None
 
+    # --- spill persistence (snapshot/persist.py) -------------------------
+    def attach_spiller(self, spiller) -> None:
+        """Wire a SnapshotSpiller: the manager feeds it the generator
+        stage's verdicts (they ride the spill's aux section, so a warm
+        boot's totals include them without re-expanding clean parents) and
+        flushes it at the loop's exit."""
+        self.spiller = spiller
+        spiller.aux_fn = lambda: {
+            "gen_verdicts": dict(self._gen_verdicts)}
+
+    def restore_spill_aux(self, aux: dict) -> None:
+        """Adopt a loaded spill's aux section (``SnapshotSpill.load``'s
+        ``aux``)."""
+        gen = aux.get("gen_verdicts")
+        if gen:
+            self._gen_verdicts = dict(gen)
+
     # --- loop (reference: auditManagerLoop, manager.go:831) -------------
     def run_forever(self) -> None:
         """Audit every ``interval_s`` until :meth:`stop`.  Snapshot mode:
-        a first full pass builds the snapshot and evaluates every row,
-        then each interval runs an incremental tick over the dirty rows,
-        and every ``resync_every``-th one the resync differential.  A pass
-        that raises is logged and the loop goes on."""
+        a first full pass builds the snapshot and evaluates every row (a
+        snapshot loaded from a spill starts with an incremental tick: its
+        rows are clean, its verdicts persisted), then each interval runs
+        an incremental tick over the dirty rows, and every
+        ``resync_every``-th one the resync differential; at the exit a
+        spiller writes a final spill.  A pass that raises is logged and
+        the loop goes on."""
         def guarded(fn):
             try:
                 fn()
@@ -223,13 +255,17 @@ class AuditManager:
                           event_type="audit_pass_failed", error=repr(e))
 
         if self._snapshot_mode():
-            guarded(self.audit)
+            guarded(self.audit_tick if self.snapshot.warm_loaded
+                    else self.audit)
             n = 0
             every = max(0, self.config.resync_every)
             while not self._stop.wait(self.config.interval_s):
                 n += 1
                 guarded(self.audit_resync if every and n % every == 0
                         else self.audit_tick)
+            if self.spiller is not None:
+                # a clean stop never loses the resident state it built
+                guarded(self.spiller.spill_now)
             return
         while not self._stop.wait(self.config.interval_s):
             guarded(self.audit)
@@ -1275,6 +1311,11 @@ class AuditManager:
                       event_type="snapshot_resync_diverged",
                       difference=diff)
         self.perf["resync_ok"] = 0.0 if diff else 1.0
+        if diff is None and self.spiller is not None:
+            # a snapshot just proven consistent is the state to persist:
+            # capture now (array copies under the lock), write on the
+            # spiller's worker
+            self.spiller.request()
         return run
 
     @staticmethod

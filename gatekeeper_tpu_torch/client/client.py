@@ -123,8 +123,8 @@ class Client:
 
     def constraints(self) -> list[Constraint]:
         out = []
-        for by_name in self._constraints.values():
-            out.extend(by_name.values())
+        for by_name in list(self._constraints.values()):
+            out.extend(list(by_name.values()))
         return out
 
     def validate_constraint(self, constraint_obj: dict) -> None:
@@ -181,11 +181,16 @@ class Client:
         responses = Responses()
         response = Response(target=self.target.name)
 
-        # group matching constraints per driver, preserving constraint order
+        # group matching constraints per driver, preserving constraint order;
+        # a template removed while this review runs counts as absent
         by_driver: dict[int, tuple[Any, list[Constraint]]] = {}
-        for kind in sorted(self._constraints):
-            by_name = self._constraints[kind]
-            driver = self._template_driver[kind]
+        constraints = dict(self._constraints)
+        drivers = dict(self._template_driver)
+        for kind in sorted(constraints):
+            by_name = dict(constraints[kind])
+            driver = drivers.get(kind)
+            if driver is None:
+                continue
             for name in sorted(by_name):
                 constraint = by_name[name]
                 actions = constraint.actions_for(enforcement_point) if (
@@ -255,6 +260,10 @@ class Client:
             except Exception as e:
                 entries.append(e)
 
+        # one view of the template drivers for the whole batch: a
+        # constraint whose template was removed meanwhile is left out, as
+        # its template is
+        drivers = dict(self._template_driver)
         active = [
             c for c in sorted(self.constraints(), key=Constraint.key)
             if (c.actions_for(enforcement_point) if enforcement_point
@@ -262,11 +271,11 @@ class Client:
         ]
         batch_cons = [
             c for c in active
-            if self._template_driver.get(c.kind) is batch_driver
+            if drivers.get(c.kind) is batch_driver
         ]
         other_cons = [
             c for c in active
-            if self._template_driver.get(c.kind) is not batch_driver
+            if drivers.get(c.kind) not in (None, batch_driver)
         ]
         cfg = ReviewCfg(enforcement_point=enforcement_point, tracing=tracing,
                         stats=stats)
@@ -298,8 +307,8 @@ class Client:
                 for con in other_cons:
                     if not self.target.to_matcher(con.match).match(review):
                         continue
-                    driver = self._template_driver[con.kind]
-                    oqr = driver.query(self.target.name, [con], review, cfg)
+                    oqr = drivers[con.kind].query(self.target.name, [con],
+                                                  review, cfg)
                     for result in oqr.results:
                         self._resolve_actions(result, con, enforcement_point)
                         response.results.append(result)

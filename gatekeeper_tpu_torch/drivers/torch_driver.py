@@ -28,12 +28,18 @@ labor:
   a lane, or in its ``perkey`` mode, such kinds run through the
   interpreter, whose builtin resolves per key.
 
-Not ported yet: generation swaps, the compile cache, cost attribution,
-tracing and metrics.
+Generations (``drivers/generation.py``): with ``generation_swap`` a
+template change stages and a ``GenerationCoordinator`` lowers it on a
+background thread once started, warms it and swaps it in atomically
+(``_install_generation``); until then, and without the flag, it lowers
+inline.  Both routes consult the ``compile_cache`` when one is given.
+
+Not ported yet: cost attribution, tracing and metrics.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Optional, Sequence
 
@@ -101,16 +107,39 @@ class TorchDriver:
     too (see the module docstring)."""
 
     def __init__(self, batch_bucket: int = 256, device: str = "cuda",
-                 cel_driver=None):
+                 cel_driver=None, generation_swap: bool = False,
+                 compile_cache=None):
         self._interp = RegoDriver()
         self._cel = cel_driver  # optional CELDriver
         self._cel_kinds: set = set()  # kinds owned by the CEL engine
         self.vocab = Vocab()
         self._programs: dict[str, CompiledProgram] = {}  # kind -> compiled
         self._lower_errors: dict[str, str] = {}  # kind -> why fallback
+        # on-disk lowering cache (drivers/generation.CompileCache),
+        # consulted by the inline path and by generation builds
+        self._compile_cache = compile_cache
+        # kind -> content digest of the installed template (replaced, never
+        # mutated): the snapshot's plan digest reads it, so a template edit
+        # re-chunks the resident rows
+        self.template_digests: dict = {}
         # monotone epoch of the compiled plane, bumped on every template
-        # install: the sweep's schema cache keys on it
+        # install (inline or swap): the sweep's schema cache keys on it
         self.plan_epoch = 0
+        self._swap_lock = threading.Lock()
+        # generation_swap: template changes stage and compile through a
+        # GenerationCoordinator (background once started); None = inline
+        self.gen_coord = None
+        # (objects, review_docs, pad_n) of the latest query_batch: the
+        # generation warm's shape reference (generation mode only)
+        self._warm_ref = None
+        # (plan_epoch, programs dict, union Schema): query_batch's cached
+        # flatten union of those programs
+        self._qb_schema = None
+        if generation_swap:
+            from gatekeeper_tpu_torch.drivers.generation import \
+                GenerationCoordinator
+
+            self.gen_coord = GenerationCoordinator(self, cache=compile_cache)
         self._data_version = 0
         self._data_kind_versions: dict = {}  # inventory kind -> version
         self._inv_cache: dict = {}  # kind -> (versions, cols, exact)
@@ -150,26 +179,97 @@ class TorchDriver:
         return self._cel is not None and self._cel.has_source_for(template)
 
     def add_template(self, template: ConstraintTemplate) -> None:
+        if self.gen_coord is not None:
+            # generation mode: synchronous validation + staged compile; the
+            # serving programs are untouched until the swap
+            self.gen_coord.submit_add(template)
+            return
         if not self._interp.has_source_for(template) and \
                 self._cel is not None and self._cel.has_source_for(template):
             self._add_cel_template(template)
             return
         self._interp.add_template(template)
+        self._note_digest(template)
         self._cel_kinds = self._cel_kinds - {template.kind}
         compiled = self._interp._templates[template.kind]
+        program, err, _hit = self._lower_or_cached(
+            template.kind, "rego", template,
+            lambda: lower_template(compiled.modules, compiled.package,
+                                   template.kind, self.vocab,
+                                   schema_hint=template.parameters_schema))
+        self._install(template.kind, program, err)
+
+    def _note_digest(self, template) -> None:
+        from gatekeeper_tpu_torch.drivers.generation import template_digest
+
+        self.template_digests = {**self.template_digests,
+                                 template.kind: template_digest(template)}
+
+    def _lower_or_cached(self, kind: str, engine: str, template,
+                         lower_fn) -> tuple:
+        """(CompiledProgram | None, lowering error | None, from_cache):
+        the on-disk compile cache's answer when its entry's vocab snapshot
+        replays here (no lowering, no trial table), else lower, trial-build
+        and persist the result (program or error)."""
+        cache = self._compile_cache
+        digest = ""
+        if cache is not None:
+            from gatekeeper_tpu_torch.drivers.generation import \
+                template_digest
+
+            digest = template_digest(template)
+            hit = cache.get(digest, engine, self.vocab)
+            if hit is not None:
+                tag, val = hit
+                if tag == "program":
+                    return CompiledProgram(val), None, True
+                return None, val, True
         try:
-            program = lower_template(
-                compiled.modules,
-                compiled.package,
-                template.kind,
-                self.vocab,
-                schema_hint=template.parameters_schema,
-            )
-            self._trial_param_table(program, template.kind)
+            program = lower_fn()
+            self._trial_param_table(program, kind)
         except LowerError as e:
-            self._install(template.kind, None, str(e))
-            return
-        self._install(template.kind, CompiledProgram(program), None)
+            if cache is not None:
+                cache.put(digest, engine, None, str(e), self.vocab)
+            return None, str(e), False
+        if cache is not None:
+            cache.put(digest, engine, program, None, self.vocab)
+        return CompiledProgram(program), None, False
+
+    # --- generation machinery (drivers/generation.py) -------------------
+    def _lower_staged(self, staged) -> tuple:
+        """Lower one staged template for a generation build (serving state
+        untouched).  Returns (program, err, from_cache)."""
+        kind = staged.template.kind
+        hint = staged.template.parameters_schema
+        if staged.engine == "cel":
+            def lower_fn():
+                return lower_cel_template(staged.artifact, kind,
+                                          self.vocab, schema_hint=hint)
+        else:
+            def lower_fn():
+                return lower_template(staged.artifact.modules,
+                                      staged.artifact.package, kind,
+                                      self.vocab, schema_hint=hint)
+        return self._lower_or_cached(kind, staged.engine, staged.template,
+                                     lower_fn)
+
+    def _install_generation(self, gen) -> None:
+        """The swap point: every serving structure is REPLACED with a fresh
+        object (attribute assignments under the swap lock), never mutated
+        in place, so batches that captured the old dicts finish on the
+        generation they started on."""
+        with self._swap_lock:
+            self._interp._templates = dict(gen.interp_templates)
+            if self._cel is not None:
+                self._cel._templates = dict(gen.cel_templates)
+            self._cel_kinds = set(gen.cel_kinds)
+            self._programs = dict(gen.programs)
+            self._lower_errors = dict(gen.lower_errors)
+            self.template_digests = dict(gen.digests)
+            self._inv_cache = {}
+            self._render_specs = {}
+            self._render_idx = {}
+            self.plan_epoch += 1
 
     def _trial_param_table(self, program, kind: str) -> None:
         """Compile-time dry run of build_param_table with a synthetic
@@ -182,17 +282,15 @@ class TorchDriver:
 
     def _add_cel_template(self, template: ConstraintTemplate) -> None:
         self._cel.add_template(template)
+        self._note_digest(template)
         self._cel_kinds = self._cel_kinds | {template.kind}
         compiled = self._cel._templates[template.kind]
-        try:
-            program = lower_cel_template(
+        program, err, _hit = self._lower_or_cached(
+            template.kind, "cel", template,
+            lambda: lower_cel_template(
                 compiled, template.kind, self.vocab,
-                schema_hint=template.parameters_schema)
-            self._trial_param_table(program, template.kind)
-        except LowerError as e:
-            self._install(template.kind, None, str(e))
-            return
-        self._install(template.kind, CompiledProgram(program), None)
+                schema_hint=template.parameters_schema))
+        self._install(template.kind, program, err)
 
     def _install(self, kind: str, program, err) -> None:
         """Install one compile result copy-on-write: the serving dicts are
@@ -213,6 +311,9 @@ class TorchDriver:
         self._render_specs.pop(kind, None)
 
     def remove_template(self, template_kind: str) -> None:
+        if self.gen_coord is not None:
+            self.gen_coord.submit_remove(template_kind)
+            return
         if template_kind in self._cel_kinds:
             self._cel.remove_template(template_kind)
             self._cel_kinds = self._cel_kinds - {template_kind}
@@ -222,6 +323,9 @@ class TorchDriver:
         programs.pop(template_kind, None)
         errors = dict(self._lower_errors)
         errors.pop(template_kind, None)
+        self.template_digests = {k: v for k, v in
+                                 self.template_digests.items()
+                                 if k != template_kind}
         self._programs = programs  # copy-on-write (see _install)
         self._lower_errors = errors
         self.plan_epoch += 1
@@ -232,6 +336,12 @@ class TorchDriver:
         if constraint.kind in self._cel_kinds:
             self._cel.add_constraint(constraint)
         else:
+            if self.gen_coord is not None and \
+                    constraint.kind not in self._interp._templates and \
+                    self.gen_coord.is_staged(constraint.kind):
+                # template staged but not swapped in yet: the constraint is
+                # accepted now and starts matching at the swap
+                return
             self._interp.add_constraint(constraint)
 
     def remove_constraint(self, constraint: Constraint) -> None:
@@ -578,9 +688,19 @@ class TorchDriver:
         verdicts: dict[str, np.ndarray] = {}
         # flatten once with the union schema (identity columns are always
         # needed for match masks, even when every kind falls back)
-        schema = Schema()
-        for kind in lowered_kinds:
-            schema.merge(programs[kind].program.schema)
+        # the union is pinned to the captured program set (sorted, the
+        # merge the pre-swap warm performs), not to the kinds with
+        # constraints in this batch, so constraint churn never reshapes the
+        # flatten; merged once per plan epoch
+        cached = self._qb_schema
+        if cached is not None and cached[0] == self.plan_epoch \
+                and cached[1] is programs:
+            schema = cached[2]
+        else:
+            schema = Schema()
+            for kind in sorted(programs):
+                schema.merge(programs[kind].program.schema)
+            self._qb_schema = (self.plan_epoch, programs, schema)
         # power-of-two padding above the base bucket bounds the distinct
         # batch shapes at log2(max N)
         pad_n = self.batch_bucket
@@ -604,19 +724,30 @@ class TorchDriver:
         batch = Flattener(schema, self.vocab).flatten(
             objects, pad_n=pad_n, reviews=review_docs)
         flatten_ns = time.perf_counter_ns() - tf
+        if self.gen_coord is not None:
+            # the latest real batch (references, not copies): the pre-swap
+            # warm replays it through the next generation
+            self._warm_ref = (objects, review_docs, pad_n)
         te = time.perf_counter_ns()
         batch_memo: dict = {}  # this batch's uploads, shared across kinds
+        # every kind's parameter, extdata and inventory tables BEFORE any
+        # run: their builds intern strings, and a vocab that grew after a
+        # run's vocab tables would rebuild (and re-upload) them next batch
+        inputs: dict = {}
         for kind in lowered_kinds:
             prog = programs[kind]
-            cons = by_kind[kind]
-            table = build_param_table(prog.program, cons, self.vocab)
-            # extdata tables BEFORE run: the build interns value strings
-            # that the vocab tables inside run must cover
+            table = build_param_table(prog.program, by_kind[kind],
+                                      self.vocab)
             ext_cols, _ext_ok = self.extdata_cols(kind, batch,
                                                   programs=programs)
             extra = self.inventory_cols(kind, programs=programs)[0]
             if ext_cols:
                 extra = {**extra, **ext_cols}
+            inputs[kind] = (table, ext_cols, extra)
+        for kind in lowered_kinds:
+            prog = programs[kind]
+            cons = by_kind[kind]
+            table, ext_cols, extra = inputs[kind]
             grid = prog.run(batch, table, vocab=self.vocab,
                             extra_cols=extra,
                             device=dev,

@@ -158,6 +158,15 @@ class MutationLane:
     prefilter's grids run on ``device``.  ``differential`` asserts every
     burst equal to the per-object reference path.
 
+    With a ``coordinator`` (the driver's
+    :class:`~gatekeeper_tpu_torch.drivers.generation.GenerationCoordinator`),
+    the revision-keyed mutator programs join the generation machinery:
+    once the coordinator runs, a mutator change no longer recompiles on
+    the serving burst; bursts keep the previous revision's programs until
+    the background thread installs the new ones (the first compile is
+    still inline: there is no older program to serve).  Differential mode
+    always compiles inline: its reference runs against the live registry.
+
     ``ingest`` selects how a burst columnizes into the relevance grids:
     ``dict`` keeps the dict-walk columnizer; ``raw`` serializes each burst
     once to JSON bytes and feeds the threaded C columnizer (the
@@ -170,7 +179,8 @@ class MutationLane:
     INGEST_LANES = ("dict", "raw", "differential")
 
     def __init__(self, system, differential: bool = False,
-                 device: str = "cuda", ingest: str = "dict"):
+                 device: str = "cuda", ingest: str = "dict",
+                 coordinator=None):
         from gatekeeper_tpu_torch import resolve_device
 
         if ingest not in self.INGEST_LANES:
@@ -182,20 +192,39 @@ class MutationLane:
         self.device = resolve_device(device)
         self._compiled: Optional[_Compiled] = None
         self._lock = threading.Lock()
+        self._coordinator = coordinator
+        if coordinator is not None:
+            coordinator.register_aux("mutlane", self.system.revision,
+                                     self._compile_now,
+                                     self._install_compiled)
 
     # --- compile cache ----------------------------------------------------
+    def _compile_now(self) -> _Compiled:
+        return _Compiled(self.system, device=self.device,
+                         flatten_lane=("differential"
+                                       if self.ingest == "differential"
+                                       else "auto"))
+
+    def _install_compiled(self, c: _Compiled) -> None:
+        with self._lock:
+            self._compiled = c
+
     def compiled(self) -> _Compiled:
         rev = self.system.revision()
         with self._lock:
             c = self._compiled
             if c is not None and c.revision == rev:
                 return c
-        c = _Compiled(self.system, device=self.device,
-                      flatten_lane=("differential"
-                                    if self.ingest == "differential"
-                                    else "auto"))
-        with self._lock:
-            self._compiled = c
+        coord = self._coordinator
+        if c is not None and coord is not None and coord.running \
+                and not self.differential:
+            # serve the previous revision's programs until the background
+            # build swaps the new ones in, as a template generation serves
+            # until its swap
+            coord.note_aux_dirty("mutlane")
+            return c
+        c = self._compile_now()
+        self._install_compiled(c)
         return c
 
     # --- the batched pass -------------------------------------------------

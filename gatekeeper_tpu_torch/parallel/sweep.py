@@ -657,6 +657,23 @@ class SweepEvaluator:
             return flat if isinstance(flat, dict) else {}
         return self._sweep_dispatch_impl(flat, lane=self.collect)
 
+    def warm_state(self) -> dict:
+        """The persistable warm state (drivers/generation.WarmStateCache):
+        the reduced lane's hit-buffer sizing per (kinds, padded N).  The
+        JAX package's trace record, column statistics and width targets
+        have no counterpart here: nothing is traced, and the wire is not
+        narrowed."""
+        with self._dispatch_lock:
+            return {"hit_state": {k: dict(v)
+                                  for k, v in self._hit_state.items()}}
+
+    def restore_warm_state(self, state: dict) -> int:
+        """Adopt :meth:`warm_state` output; returns the entries restored."""
+        with self._dispatch_lock:
+            self._hit_state = {k: dict(v) for k, v in
+                               (state.get("hit_state") or {}).items()}
+            return len(self._hit_state)
+
     def _hit_state_for(self, kinds: tuple, pad_n: int) -> dict:
         key = (kinds, pad_n)
         st = self._hit_state.get(key)

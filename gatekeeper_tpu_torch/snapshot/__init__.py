@@ -1,8 +1,7 @@
 """Watch-driven incremental audit: the resident columnar cluster
 snapshot (see :mod:`gatekeeper_tpu_torch.snapshot.store` for the design)
-and its device residency.  The spill of the persist slice
-(``SnapshotSpill``, ``SnapshotSpiller``, ``templates_digest``) is not
-ported yet."""
+its device residency, and its disk spill (:mod:`gatekeeper_tpu_torch.
+snapshot.persist`)."""
 
 from gatekeeper_tpu_torch.snapshot.device_residency import (  # noqa: F401
     DeviceResidency,
@@ -11,6 +10,11 @@ from gatekeeper_tpu_torch.snapshot.device_residency import (  # noqa: F401
 from gatekeeper_tpu_torch.snapshot.ingest import (  # noqa: F401
     WatchIngester,
     gvks_of,
+)
+from gatekeeper_tpu_torch.snapshot.persist import (  # noqa: F401
+    SnapshotSpill,
+    SnapshotSpiller,
+    templates_digest,
 )
 from gatekeeper_tpu_torch.snapshot.store import (  # noqa: F401
     ClusterSnapshot,

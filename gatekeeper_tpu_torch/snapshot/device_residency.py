@@ -29,9 +29,12 @@ path runs.  ``tests/test_torch_snapshot.py`` holds them equal.
 
 One stream: patches, uploads and sweeps all run on the current (default)
 stream, so a scatter-patch is ordered after any sweep still reading the
-buffer it writes.  Not ported: the multi-chip check and the SLO eviction
-trigger (``resilience/overload``); ``evict_all`` and ``invalidate`` stay
-callable.
+buffer it writes.  A generation swap calls :meth:`DeviceResidency.
+invalidate` (``GenerationCoordinator.attach_residency``), freeing the old
+programs' mirrors at once; a group adopted from a disk spill is a new
+store whose ``layout_version`` moved, so its first ``prepare`` uploads it
+whole.  Not ported: the multi-chip check and the SLO eviction trigger
+(``resilience/overload``).
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Resident columnar cluster snapshot: sweep cost O(churn), not O(cluster).
 
 Port of ``gatekeeper_tpu/snapshot/store.py`` (host numpy, a copy with
-the tracing spans and metrics hooks dropped, and without the spill
-surface of the persist slice: ``GroupStore.schema_digest``/
-``export_rows``/``import_rows``, ``VerdictStore.export_state``/
-``restore`` and ``ClusterSnapshot.export_state``/``adopt_spill``).
+the tracing spans and metrics hooks dropped).  The spill surface
+(``GroupStore.export_rows``/``import_rows``, ``VerdictStore.export_state``/
+``restore``, ``ClusterSnapshot.export_state``/``adopt_spill``) is what
+``snapshot/persist.py`` writes and loads.
 
 Every relist-mode audit pass re-lists and re-flattens the whole cluster;
 the host flatten is most of a relist audit's wall.  The
@@ -147,6 +147,30 @@ def _iter_arrays(batch: ColumnBatch, skip=()):
     for name in _IDENTITY_FIELDS:
         yield ("ident", name, None), getattr(batch, name), -1
     yield ("ident", "has_generate_name", None), batch.has_generate_name, 0
+
+
+# pad fill per (family, field): the static twin of the fills
+# _iter_arrays yields off a live batch, used when a spilled (trimmed)
+# array is re-padded back to capacity on load (snapshot/persist.py)
+_FAM_FILLS = {
+    ("scalars", "kind"): 0, ("scalars", "num"): 0.0,
+    ("scalars", "sid"): -1,
+    ("raggeds", "kind"): 0, ("raggeds", "num"): 0.0,
+    ("raggeds", "sid"): -1,
+    ("axis_counts", None): 0,
+    ("keysets", "sid"): -1, ("keysets", "count"): 0,
+    ("ragged_keysets", "sid"): -1, ("ragged_keysets", "count"): 0,
+    ("map_keys", "sid"): -1,
+    ("parent_idx", "idx"): -1,
+    ("canons", None): -2,
+}
+
+
+def _fill_for(path):
+    fam, spec, field = path
+    if fam == "ident":
+        return 0 if spec == "has_generate_name" else -1
+    return _FAM_FILLS[(fam, field)]
 
 
 _PLACEHOLDERS = {
@@ -502,6 +526,81 @@ class GroupStore:
             self.flattener._apply_alias(out)
         return out
 
+    # --- spill (snapshot/persist.py) ----------------------------------
+    def schema_digest(self) -> str:
+        """Digest of this group's columnize plan: the load-time guard that
+        a spilled group's arrays still mean what the CURRENT template
+        set's schemas say they mean."""
+        from gatekeeper_tpu_torch.drivers.generation import schema_digest
+
+        return schema_digest(self.schema)
+
+    def export_rows(self) -> dict:
+        """Spill payload of one group: every stored array trimmed to the
+        used slots (capacity padding is layout, not data: it re-pads on
+        load), plus the slot bookkeeping and raw object refs.  Array
+        copies happen here, under the snapshot lock; pickling happens
+        off-thread."""
+        n = self.n_rows
+        arrays: dict = {}
+        if self.batch is not None:
+            for path, arr, _fill in _iter_arrays(self.batch):
+                arrays[path] = np.ascontiguousarray(arr[:n])
+        refs: list = []
+        for ref in self.objrefs:
+            if ref is None:
+                refs.append(None)
+            elif isinstance(ref, (bytes, bytearray, memoryview)):
+                refs.append(bytes(ref))
+            elif isinstance(ref, RawJSON):
+                refs.append(bytes(ref.raw))
+            else:
+                refs.append(ref)
+        return {
+            "kinds": sorted(self.group),
+            "lowered": list(self.lowered),
+            "schema": self.schema_digest(),
+            "n_rows": n,
+            "gids": list(self.gids),
+            "live": list(self.live),
+            "objrefs": refs,
+            "arrays": arrays,
+            "mutations": self.mutations,
+        }
+
+    def import_rows(self, payload: dict) -> None:
+        """Adopt a spilled group's rows into this (freshly constructed)
+        store: re-pad the trimmed arrays to a power-of-two capacity with
+        the family fills.  The caller validated ``schema``/``lowered``
+        against this store's freshly derived plan first.  ``mutations``
+        and ``layout_version`` move, so a device mirror re-uploads the
+        whole group on its first ``prepare``."""
+        n = int(payload["n_rows"])
+        arrays = payload["arrays"]
+        if arrays:
+            cap = 64
+            while cap < n:
+                cap *= 2
+            base = ColumnBatch(n=cap, scalars={}, raggeds={},
+                               axis_counts={}, keysets={})
+            for path, arr in arrays.items():
+                full = np.full((cap,) + arr.shape[1:], _fill_for(path),
+                               arr.dtype)
+                full[:n] = arr
+                _set_arr(base, path, full)
+            self.batch = base
+            self.cap = cap
+        self.n_rows = n
+        self.gids = list(payload["gids"])
+        self.live = list(payload["live"])
+        self.objrefs = list(payload["objrefs"])
+        self.tombstones = sum(1 for alive in self.live if not alive)
+        # resume the spiller's mutation clock so the first post-boot
+        # delta spill still skips groups that have not moved since
+        self.mutations = int(payload.get("mutations", 0)) + 1
+        self.layout_version += 1
+        self.patched.clear()
+
 
 def concat_group_rows(parts: Sequence[tuple], pad_n: int) -> ColumnBatch:
     """Gather rows of SEVERAL same-plan GroupStores into one packed
@@ -593,6 +692,28 @@ class VerdictStore:
         self._rows.clear()
         self._by_gid.clear()
 
+    def export_state(self) -> list:
+        """[(con_key, [(gid, count, msgs)])]: the spill's verdict section
+        (rendered msgs ride along, so a warm boot's first kept derivation
+        renders nothing already rendered)."""
+        return [(ck, [(gid, v[0], v[1]) for gid, v in rows.items()])
+                for ck, rows in self._rows.items()]
+
+    def restore(self, state: list) -> None:
+        """Bulk-build both maps from :meth:`export_state` output."""
+        self._rows = {ck: {gid: [count, msgs]
+                           for gid, count, msgs in rows}
+                      for ck, rows in state}
+        by_gid: dict = {}
+        for ck, rows in self._rows.items():
+            for gid in rows:
+                hit = by_gid.get(gid)
+                if hit is None:
+                    by_gid[gid] = {ck}
+                else:
+                    hit.add(ck)
+        self._by_gid = by_gid
+
 
 class ClusterSnapshot:
     """The process-wide resident snapshot: groups + identity + dirty set.
@@ -623,19 +744,32 @@ class ClusterSnapshot:
         self.generation = 0
         self.patch_count = 0
         self.rechunk_count = 0  # plan changes absorbed without a relist
+        # True after adopt_spill: the resident state came off a disk spill
+        # (snapshot/persist.py), so the audit loop's first pass can be an
+        # incremental tick (rows clean, verdicts persisted)
+        self.warm_loaded = False
 
     # --- constraint set currency ---------------------------------------
     def _cons_digest(self, constraints) -> tuple:
+        """The plan the resident rows were evaluated under: the constraint
+        specs, the lowered kinds and the content digest of each constrained
+        kind's template (so a template edit re-chunks, where the JAX
+        package's digest leaves clean rows on the old template's
+        verdicts)."""
         spec = tuple(sorted(
             (c.kind, c.name,
              json.dumps(c.raw.get("spec", {}), sort_keys=True, default=str)
              if isinstance(c.raw, dict) else "")
             for c in constraints))
         lowered: tuple = ()
+        templates: tuple = ()
         if self.evaluator is not None:
             _bk, low, _schema = self.evaluator.sweep_schema(constraints)
             lowered = tuple(sorted(low))
-        return (spec, lowered)
+            digests = getattr(self.evaluator.driver, "template_digests", {})
+            templates = tuple(sorted((k, digests.get(k, ""))
+                                     for k in {c.kind for c in constraints}))
+        return (spec, lowered, templates)
 
     def set_constraints(self, constraints: Sequence) -> bool:
         """Adopt the active constraint set; a changed set (or a lowering/
@@ -849,6 +983,82 @@ class ClusterSnapshot:
             for key in [k for k in self.ids.uids() if k not in seen]:
                 self.ids.forget(key)
             self.stale = False
+            self.generation += 1
+            return self.live_count()
+
+    # --- spill export / adopt (snapshot/persist.py) ----------------------
+    def export_state(self, known_marks: Optional[dict] = None) -> dict:
+        """Capture the complete resident state for a disk spill, under the
+        lock: group arrays (trimmed copies), identity map, verdicts, dirty
+        set, constraint digest.  The capture copies every array, so the
+        caller can pickle and write off the audit thread.
+
+        ``known_marks`` (delta spills) maps a group's kinds-key
+        (``"|".join(sorted(kinds))``) to the mutation mark the spiller last
+        wrote; groups whose mark has not moved export a skipped stub (no
+        array copies) and the spiller reuses the section on disk."""
+        with self.lock:
+            groups = []
+            for store in self._groups.values():
+                key = "|".join(sorted(store.group))
+                if known_marks is not None \
+                        and known_marks.get(key) == store.mutations:
+                    groups.append({"kinds": sorted(store.group),
+                                   "mutations": store.mutations,
+                                   "skipped": True})
+                else:
+                    groups.append(store.export_rows())
+            return {
+                "digest": self._digest,
+                "ids": self.ids.export_state(),
+                "dirty": sorted(self._dirty),
+                "verdicts": self.verdicts.export_state(),
+                "groups": groups,
+                "rows": self.live_count(),
+            }
+
+    def adopt_spill(self, constraints: Sequence, state: dict) -> int:
+        """Install a validated spill: fresh GroupStores re-derive their
+        schemas from the LIVE constraint set and adopt the spilled arrays,
+        and every loaded row is clean with its persisted verdicts.  Raises
+        ``ValueError`` (nothing committed) when a group's freshly derived
+        plan disagrees with the plan its arrays were written under; the
+        caller counts that as a spill miss."""
+        from gatekeeper_tpu_torch.parallel.sweep import make_kind_router
+
+        router = make_kind_router(constraints)
+        cons = list(constraints)
+        stores: dict = {}
+        pos: dict = {}
+        for payload in state["groups"]:
+            g = frozenset(payload["kinds"])
+            store = GroupStore(g, cons, self.evaluator,
+                               intern_cache=self.intern_cache)
+            if list(store.lowered) != list(payload["lowered"]):
+                raise ValueError(
+                    f"group {sorted(g)!r}: lowered set drifted")
+            if store.lowered and \
+                    store.schema_digest() != payload["schema"]:
+                raise ValueError(
+                    f"group {sorted(g)!r}: schema digest drifted")
+            store.import_rows(payload)
+            stores[g] = store
+            for p, (gid, alive) in enumerate(zip(store.gids, store.live)):
+                if alive:
+                    pos[gid] = (store, p)
+        with self.lock:
+            self._digest = state["digest"]
+            self._constraints = cons
+            self._router = router
+            self._groups = stores
+            self._pos = pos
+            self.ids.restore(state["ids"])
+            self.verdicts.restore(state["verdicts"])
+            if self.intern_cache is not None:
+                self.intern_cache.clear()
+            self._dirty = set(state["dirty"])
+            self.stale = False
+            self.warm_loaded = True
             self.generation += 1
             return self.live_count()
 

@@ -129,7 +129,11 @@ class FileSource:
         self.objects: list[dict] = []
         for path in paths:
             if os.path.isdir(path):
-                for root, _dirs, files in os.walk(path):
+                for root, dirs, files in os.walk(path):
+                    # sorted at every level: a boot interns templates in
+                    # load order, and a compile-cache hit needs the same
+                    # order in every process that shares the cache
+                    dirs.sort()
                     for f in sorted(files):
                         if f.endswith((".yaml", ".yml")):
                             self.objects.extend(

@@ -6,16 +6,19 @@ validating handler, webhook/policy.py), ``/v1/mutate`` (the mutating
 handler, webhook/mutation.py or the batched mutlane/webhook.py; its answer
 carries a base64 JSONPatch) and ``/v1/admitlabel`` (the namespace-label
 guard, webhook/namespacelabel.py), with ``/healthz`` for readiness.  TLS
-is optional (``certfile``/``keyfile``).
+is optional (``certfile``/``keyfile``).  ``reuse_port`` binds with
+``SO_REUSEPORT``, so the replicas of ``--webhook-workers`` share one port
+and the kernel spreads connections over them.
 
 Not ported yet: ``/metrics`` and the ``/debug/*`` surface (they answer
-404), tracing, mTLS, SO_REUSEPORT workers and cert rotation.
+404), tracing, mTLS and cert rotation.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import socket
 import ssl
 import threading
 import time
@@ -62,6 +65,7 @@ class WebhookServer:
         tls_min_version: str = "1.3",  # reference --webhook-tls-min-version
         batcher=None,  # Batcher to drain inside stop() (zero-loss shutdown)
         mutation_batcher=None,  # MutationBatcher, drained the same way
+        reuse_port: bool = False,  # SO_REUSEPORT multi-process serving
     ):
         self.validation_handler = validation_handler
         self.namespace_label_handler = namespace_label_handler
@@ -197,6 +201,14 @@ class WebhookServer:
             # the socketserver default backlog of 5 resets bursts of
             # concurrent connects (the apiserver opens many at once)
             request_queue_size = 128
+
+            def server_bind(self):
+                if reuse_port:
+                    # N worker processes bind the same port and the kernel
+                    # load-balances connections across them
+                    self.socket.setsockopt(socket.SOL_SOCKET,
+                                           socket.SO_REUSEPORT, 1)
+                super().server_bind()
 
         self._server = _Server((host, port), Handler)
         if certfile:
