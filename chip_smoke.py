@@ -121,8 +121,9 @@ Phases (any failure raises and exits non-zero):
    p50/p99;
 9. lifecycle: the served process's life, as ``python -m
    gatekeeper_tpu_torch --manifests library`` boots it (46 templates, 52
-   constraints), with the first 2,048 admission bodies (64 clients) and
-   the path phase's objects.  (a) generations under load: the CLI's
+   constraints), with the first 1,024 admission bodies (64 clients; cut
+   from 2,048 for the time limit) and the path phase's objects (the
+   first 65,536 of them for (b) and (d), cut from 131,072).  (a) generations under load: the CLI's
    serving stack on the card with ``generation_swap`` on, off, off, on
    (ABBA); while
    the bodies are posted a thread removes and re-adds five Rego templates
@@ -153,19 +154,50 @@ Phases (any failure raises and exits non-zero):
    compile and warm seconds per generation, spill bytes and seconds
    (capture on the audit thread, pickle and write on the worker), boot
    times, and the fold launches of (b) and (d);
-10. shapes (after the pipeline, snapshot, expand, extdata and lifecycle
-   phases): as phase 5, at the (C, N, k) the pipeline, snapshot, expand,
-   extdata and lifecycle paths launched too;
-11. profile: the reduced-lane audit once more under ``torch.profiler``,
+10. hooks: the served process's hooks at full width (the CLI's library
+   boot, 1,024 admission bodies, 64 clients, the path phase's objects).
+   (a) ``python -m gatekeeper_tpu_torch --manifests library --port P`` at
+   the JAX CLI's defaults (the overload limiter, cost attribution, the SLO
+   engine and the flight recorder on) and with them off (``HOOKS_OFF``),
+   ABBA: every answer equal to the CPU handler's or of the JAX shed form
+   (a code-429 deny with ``Retry-After``), no code 500, the request
+   counters of ``/metrics`` summing to the answers, ``/debug/{cost,slo,
+   overload,decisions}`` answering at the defaults and 404 with the hooks
+   off, and the defaults' p99 sum at most 1.3 times hooks off's; prints
+   rates, p50/p99, sheds, the grid batch sizes and the limiter's last
+   limit.  (b) the relist on both lanes (of ``RawJSON`` objects on the
+   raw flatten lane, for the time limit; after a warm-up) bare, under a
+   keep-all tracer and cost attribution twice, bare (ABBA): equal
+   verdicts, one ``device.sweep_dispatch`` span per dispatched chunk,
+   every fold launch inside a dispatch span (or a collect span for an
+   overflow's re-dispatch) of the Chrome trace, the attribution closing
+   on the dispatch spans' wall within 5%, no more synchronizing calls
+   (``torch.profiler``) than the bare relists, and per chunk and template
+   the reduced lane's rows (the CUDA ``fused_fold``'s ``occ``) equal to
+   the masks lane's host sums.  (c) a ``device.dispatch`` error once
+   (verdicts equal, 1 retried) and twice past the retries (``INCOMPLETE``,
+   the dropped chunk's totals the only difference), and a
+   ``webhook.review`` hang under a 0.3 s deadline with failurePolicy
+   Ignore (every answer allowed with the deadline warning within 1.3 s).
+   (d) bursts against an 8-slot limiter and a 32-deep queue beside the
+   audit loop: sheds with ``Retry-After``, no code 500, the brownout
+   ladder at level 1 or more on ``/debug/overload``, and the audit's
+   device-lane yield above 0 s (its counter in the metrics).  No hook may
+   be left installed after a part;
+11. shapes (after the pipeline, snapshot, expand, extdata, lifecycle and
+   hooks phases): as phase 5, at the (C, N, k) the pipeline, snapshot,
+   expand, extdata, lifecycle and hooks paths launched too;
+12. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-12. admission: the library (all 46 templates and their sample
+13. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
    ``Batcher`` at its default window, batch size and interpreter cut-off
    (with batch stats on), failurePolicy=Fail and the
    ``ExpansionSystem`` of the expand phase (each Deployment body's implied
-   Pod reviewed with ``Source=Generated``).  ``--admissions``
+   Pod reviewed with ``Source=Generated``).  ``--admissions`` (2,048 by
+   default, cut from 4,096 for the time limit)
    AdmissionReview bodies (the library's ``samples/example_*.yaml``
    objects, then ``make_cluster_objects(..., seed=3)``; every tenth an
    UPDATE that carries an ``oldObject``, every twentieth of the others a
@@ -183,7 +215,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-13. served: the served process's two threads on one driver and vocab, as
+14. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -194,7 +226,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-14. mutate: the admission bodies posted to ``/v1/mutate`` of a
+15. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -208,7 +240,7 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-15. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+16. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
@@ -216,7 +248,11 @@ Phases (any failure raises and exits non-zero):
    stage of the expand phase, ``extdata_launches`` those of the extdata
    phase's cold relist (the reduced lane's ``fused_fold``, the masks
    lane's ``epilogue``), ``lifecycle_launches`` those of the lifecycle
-   phase (its snapshot passes' ``epilogue``, the relist's ``fused_fold``).
+   phase (its snapshot passes' ``epilogue``, the relist's ``fused_fold``),
+   ``hooks_launches`` those of the hooks phase (its relists, chaos relists
+   and brownout audit loop; the CLI processes of (a) are not counted).
+   The served and lifecycle (e) phases pass ``HOOKS_OFF`` to the CLI: the
+   configuration they measured before the CLI had the hooks.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -230,6 +266,7 @@ import gc
 import http.client
 import json
 import os
+import re
 import statistics
 import threading
 import subprocess
@@ -251,6 +288,10 @@ GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
 GRAPH_REPLAYS = 25  # timed replays of that graph (median taken)
 LOAD_PROCS, LOAD_CONNS = 8, 8  # 64 keep-alive clients in 8 processes
 SERVED_ADMISSIONS, SERVED_OBJECTS = 512, 4096  # the served phase's sizes
+# the CLI's hook flags off: the configuration the served and lifecycle
+# phases measured before the CLI had the hooks
+HOOKS_OFF = ("--overload-limiter", "off", "--cost-attribution", "off",
+             "--slo", "off", "--flight-recorder", "0")
 
 
 def log(msg: str) -> None:
@@ -1345,7 +1386,7 @@ def admission_traffic(n: int) -> tuple:
 # to ``path`` over one keep-alive connection, one request at a time.  It
 # reads its share ([[index, body text]]) as one line of stdin, says "ready",
 # posts on the next line of stdin and writes [[index, latency s, status,
-# reply text]] to stdout.  Standard library only, so it starts in tens of
+# reply text, Retry-After header or null]] to stdout.  Standard library only, so it starts in tens of
 # milliseconds: no numpy, no torch.
 _LOAD_CLIENT = r"""
 import http.client, json, sys, threading, time
@@ -1364,7 +1405,8 @@ def client(part):
             reply = resp.read()
             dt = time.perf_counter() - t0
             with lock:
-                out.append((idx, dt, resp.status, reply.decode()))
+                out.append((idx, dt, resp.status, reply.decode(),
+                            resp.getheader("Retry-After")))
     finally:
         conn.close()
 
@@ -1382,10 +1424,12 @@ LOAD_DEADLINE_S = 600.0
 
 
 def post_concurrently(port: int, bodies: list,
-                      path: str = "/v1/admit") -> tuple:
+                      path: str = "/v1/admit",
+                      retry_after: dict = None) -> tuple:
     """Post every body to ``path`` from LOAD_PROCS processes x LOAD_CONNS
     keep-alive connections.  Returns (replies by index, latencies s, wall
-    s).  Each process runs ``_LOAD_CLIENT`` under this interpreter and is
+    s); ``retry_after`` (a dict) receives each reply's ``Retry-After``
+    header by index, where it has one.  Each process runs ``_LOAD_CLIENT`` under this interpreter and is
     waited for (or killed past ``LOAD_DEADLINE_S``) before this returns, so
     no client outlives the call."""
     items = [(i, json.dumps(b)) for i, b in enumerate(bodies)]
@@ -1433,10 +1477,12 @@ def post_concurrently(port: int, bodies: list,
             if not proc.stdin.closed:
                 proc.stdin.close()
     replies = {}
-    for idx, _dt, status, reply in rows:
+    for idx, _dt, status, reply, retry in rows:
         if status != 200:
             raise AssertionError(f"admission {idx}: HTTP {status}")
         replies[idx] = json.loads(reply)["response"]
+        if retry is not None and retry_after is not None:
+            retry_after[idx] = retry
     if len(replies) != len(bodies):
         raise AssertionError(f"{len(replies)} of {len(bodies)} answered")
     return replies, [r[1] for r in rows], wall
@@ -1683,7 +1729,9 @@ def served_phase(n: int, n_objects: int, card: str,
     # default
     from gatekeeper_tpu_torch.__main__ import build_parser
 
-    args = build_parser().parse_args([])
+    # the hooks off, as this phase measured the served process before the
+    # CLI had them (its gates stay as they were)
+    args = build_parser().parse_args(list(HOOKS_OFF))
     vars(args).update(flags)
     mgr, ingester = build_audit(args, cluster_objects, client, driver)
     cluster = ingester.source
@@ -2725,7 +2773,10 @@ def extdata_phase(objects, n_traffic: int, card: str,
 # (a): the first LIFE_BODIES admission bodies under template churn, then a
 # final burst of LIFE_FINAL; the churn removes and re-adds five Rego
 # templates one at a time and edits the message of a sixth
-LIFE_BODIES, LIFE_FINAL = 2048, 256
+LIFE_BODIES, LIFE_FINAL = 1024, 256  # bodies cut from 2,048 (time limit)
+# (b)/(d): the snapshot spill and warm restart run on this many of the
+# path phase's objects (cut from 131,072 for the time limit)
+LIFE_SNAPSHOT_OBJECTS = 65536
 LIFE_CHURN_KINDS = ("K8sAllowedRepos", "K8sDisallowedTags",
                     "K8sBlockNodePort", "K8sHttpsOnly", "K8sRequiredProbes")
 LIFE_EDIT_KIND = "K8sContainerLimits"
@@ -3360,10 +3411,12 @@ def lifecycle_workers(bodies, refs, workers: int, card: str,
     from gatekeeper_tpu_torch.utils.synthetic import library_dir
 
     port = _free_port()
+    # the hooks off: the configuration this part measured before the CLI
+    # had them (its gates stay as they were)
     cmd = [sys.executable, "-m", "gatekeeper_tpu_torch", "--manifests",
            library_dir(), "--port", str(port), "--compile-cache",
            os.path.join(LIFE_DIR, "compile-cache"), "--webhook-workers",
-           str(workers)]
+           str(workers), *HOOKS_OFF]
     if device != "cuda":
         cmd += ["--device", device]
     t_start = time.perf_counter()
@@ -3477,7 +3530,8 @@ def lifecycle_phase(objects, card: str, device: str = "cuda",
             f"{sum(r['p99_ms'] for r in gens['on']):.3f} / "
             f"{sum(r['p99_ms'] for r in gens['off']):.3f} ({card})")
         gc.collect()
-        record["snapshot"] = lifecycle_snapshot(objects, card, device)
+        record["snapshot"] = lifecycle_snapshot(
+            objects[:LIFE_SNAPSHOT_OBJECTS], card, device)
         gc.collect()
         record["compile_cache"] = lifecycle_compile_cache(
             manifests, objects[:LIFE_VERDICT_OBJECTS], card, device)
@@ -3499,12 +3553,739 @@ def lifecycle_phase(objects, card: str, device: str = "cuda",
     return launches, shapes, record
 
 
+# --- hooks: the served process's overload limiter, QoS, deadlines, chaos,
+# tracing, metrics, cost attribution, flight recorder and SLOs ------------
+
+HOOKS_BODIES = 1024  # (a) and (d): admission bodies per burst
+HOOKS_CHUNK = 32768  # (b)-(d): the audit's chunk size, as the path phase's
+HOOKS_WALL_NOISE = 1.3  # (a): defaults' ABBA p99 sum against hooks off's
+HOOKS_DEADLINE_S = 0.3  # (c): --webhook-deadline of the hang
+HOOKS_HANG_S = 2.0  # (c): how long the injected hang holds a review
+HOOKS_HANG_BODIES = 256
+HOOKS_SLACK_S = 1.0  # (c): an answer's latency past the deadline budget
+HOOKS_BURST = (8, 32)  # (d): --overload-max-inflight, --overload-queue-depth
+# (d): the audit loop's chunk size, the CLI's --audit-chunk-size default:
+# the sweep checks the brownout ladder before each full chunk
+HOOKS_BURST_CHUNK = 500
+# (d): each burst posts the bodies this many times; a shed answers at once,
+# so a burst of the bodies alone is over in ~3 s on the H100's host, while
+# the audit thread, starved of the interpreter lock, reached a chunk
+# boundary there about once in ~10 s of burst (PERF.md)
+HOOKS_BURST_REPEAT = 4
+HOOKS_BURST_ROUNDS = 6  # (d): bursts at most, until the audit has yielded
+HOOKS_DIR = os.path.join(ROOT_DIR, "_hooks")
+SHED_PREFIX = "gatekeeper shed this request under overload ("
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def _prom(text: str) -> dict:
+    """Prometheus text as {(name, ((label, value), ...)): value}."""
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"^([A-Za-z_:][\w:]*)(\{[^}]*\})? (\S+)", line)
+        if m is None:
+            continue
+        labels = tuple(sorted(re.findall(r'(\w+)="([^"]*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def _prom_sum(samples: dict, name: str, **match) -> float:
+    return sum(v for (n, labels), v in samples.items() if n == name
+               and all(dict(labels).get(k) == w for k, w in match.items()))
+
+
+def _batch_sizes(samples: dict) -> dict:
+    """The grid batch-size histogram of ``gatekeeper_webhook_batch_size``:
+    batches per bucket (upper bound -> count), their count and mean."""
+    name = "gatekeeper_webhook_batch_size"
+    cum = sorted(((float(dict(labels)["le"]), v)
+                  for (n, labels), v in samples.items()
+                  if n == name + "_bucket"), key=lambda lv: lv[0])
+    per, prev = {}, 0.0
+    for le, v in cum:
+        if v > prev:
+            per[str(le)] = int(v - prev)
+        prev = v
+    count = _prom_sum(samples, name + "_count")
+    return {"buckets": per, "batches": int(count),
+            "mean": _prom_sum(samples, name + "_sum") / count
+            if count else 0.0}
+
+
+def _get(port: int, path: str) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def _nothing_installed(label: str) -> None:
+    """No hook is left installed in this process after a part: a tracer,
+    a chaos plan, a controller or a recorder left behind would slow or
+    break every later phase."""
+    from gatekeeper_tpu_torch.observability import (costattr, flightrec,
+                                                    tracing)
+    from gatekeeper_tpu_torch.resilience import faults, overload
+
+    left = [name for name, obj in (
+        ("tracer", tracing.active_tracer()),
+        ("chaos plan", faults.active_plan()),
+        ("overload controller", overload.active_controller()),
+        ("cost attribution", costattr.active()),
+        ("flight recorder", flightrec.active()),
+        ("degradations", overload.active_degradations())) if obj is not None]
+    if left:
+        raise AssertionError(f"hooks[{label}]: left installed: {left}")
+
+
+def _shed_form(answer: tuple, retry_after) -> bool:
+    """The JAX package's shed answer under failurePolicy=Fail: a code-429
+    deny that names the reason, with ``Retry-After`` on the HTTP reply."""
+    allowed, code, message, _warnings = answer
+    return (not allowed and code == 429 and message.startswith(SHED_PREFIX)
+            and "(failurePolicy=Fail); retry after" in message
+            and retry_after is not None and int(retry_after) >= 1)
+
+
+def _held_or_shed(label: str, bodies, replies, retry, refs) -> dict:
+    """Every answer equals the CPU handler's or is of the shed form; no
+    code 500.  Returns the counts."""
+    shed = bad = errors = 0
+    for i in range(len(bodies)):
+        got = _answer(replies[i])
+        if got[1] == 500:
+            errors += 1
+        elif got[1] == 429:
+            shed += 1
+            bad += not _shed_form(got, retry.get(i))
+        else:
+            bad += _unordered(got) != _unordered(refs[i])
+    if bad or errors:
+        raise AssertionError(f"hooks[{label}]: {bad} answers neither the "
+                             f"CPU handler's nor of the shed form, {errors} "
+                             f"code 500")
+    return {"shed": shed, "answered": len(bodies) - shed}
+
+
+def hooks_cli_run(bodies, refs, hooks_on: bool, card: str,
+                  device: str = "cuda") -> dict:
+    """(a): ``python -m gatekeeper_tpu_torch --manifests library --port P``
+    at the JAX defaults (``hooks_on``) or with ``HOOKS_OFF``; the bodies
+    posted by 64 clients.  Every answer equals the CPU handler's or is of
+    the shed form, no code 500; the request counters of ``/metrics`` sum
+    to the answers; at the defaults ``/debug/{cost,slo,overload}`` and
+    ``/debug/decisions?uid=`` answer, hooks off they answer 404."""
+    import signal
+
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+
+    label = "defaults" if hooks_on else "hooks off"
+    port = _free_port()
+    cmd = [sys.executable, "-m", "gatekeeper_tpu_torch", "--manifests",
+           library_dir(), "--port", str(port)]
+    if not hooks_on:
+        cmd += list(HOOKS_OFF)
+    if device != "cuda":
+        cmd += ["--device", device]
+    proc = subprocess.Popen(cmd, cwd=ROOT_DIR, stderr=subprocess.PIPE,
+                            text=True)
+    lines: list = []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "webhook serving on" in line:
+                ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(LIFE_WAIT_S):
+            raise AssertionError(f"hooks[{label}]: not serving after "
+                                 f"{LIFE_WAIT_S:.0f}s: {''.join(lines)}")
+        retry: dict = {}
+        replies, lat, wall = post_concurrently(port, bodies,
+                                               retry_after=retry)
+        status, text = _get(port, "/metrics")
+        if status != 200:
+            raise AssertionError(f"hooks[{label}]: /metrics {status}")
+        samples = _prom(text)
+        debug = {}
+        shed_uids = [bodies[i]["request"]["uid"] for i in range(len(bodies))
+                     if _answer(replies[i])[1] == 429]
+        uid = (shed_uids or [bodies[0]["request"]["uid"]])[0]
+        for path in ("/debug/cost", "/debug/slo", "/debug/overload",
+                     f"/debug/decisions?uid={uid}"):
+            st, body = _get(port, path)
+            debug[path.split("?")[0]] = (st, json.loads(body))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=LIFE_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    counts = _held_or_shed(label, bodies, replies, retry, refs)
+    counted = _prom_sum(samples, "gatekeeper_validation_request_count")
+    shed_counted = _prom_sum(samples, "gatekeeper_validation_request_count",
+                             admission_status="shed")
+    limit = _prom_sum(samples, "gatekeeper_overload_inflight_limit") \
+        if hooks_on else None
+    out = {"mode": label, **_rate(len(bodies), lat, wall), **counts,
+           "counted": counted, "shed_counted": shed_counted,
+           "batches": _batch_sizes(samples), "last_limit": limit,
+           "debug_status": {k: v[0] for k, v in debug.items()}, "rc": rc}
+    log(f"hooks[{label}]: {len(bodies)} admissions in {wall:.3f}s, "
+        f"{out['per_s']:.1f}/s, p50 {out['p50_ms']:.3f} ms, p99 "
+        f"{out['p99_ms']:.3f} ms; {counts['shed']} shed; grid batch sizes "
+        f"{out['batches']}; limiter's last limit {limit}; request counters "
+        f"{counted:.0f} ({shed_counted:.0f} shed); /debug "
+        f"{out['debug_status']}; exit {rc} ({card})")
+    if rc != 0 or not any("drain complete" in ln for ln in lines):
+        raise AssertionError(f"hooks[{label}]: exit {rc}, no drain: "
+                             f"{''.join(lines[-40:])}")
+    if counted != len(bodies) or shed_counted != counts["shed"]:
+        raise AssertionError(f"hooks[{label}]: request counters {counted} "
+                             f"({shed_counted} shed) for {len(bodies)} "
+                             f"answers ({counts['shed']} shed)")
+    if hooks_on:
+        cost, slo, ovl, dec = (debug[p][1] for p in (
+            "/debug/cost", "/debug/slo", "/debug/overload",
+            "/debug/decisions"))
+        if set(out["debug_status"].values()) != {200} or not cost["top"] \
+                or not slo.get("objectives") \
+                or "inflight_limit" not in ovl or not dec["decisions"] \
+                or any(d["uid"] != uid for d in dec["decisions"]):
+            raise AssertionError(f"hooks[defaults]: debug surface {debug}")
+        out["debug"] = {"cost_top": cost["top"][:3], "overload": ovl,
+                        "decisions": dec["decisions"][:2],
+                        "slo": [(o["name"], o.get("sli"),
+                                 o.get("breach")) for o in
+                                slo["objectives"]]}
+    elif set(out["debug_status"].values()) != {404}:
+        raise AssertionError(f"hooks[hooks off]: debug surface answered "
+                             f"{out['debug_status']}")
+    return out
+
+
+class _RowsAttribution:
+    """Cost attribution that also keeps the rows of every audit dispatch
+    attribution in call order (one per chunk)."""
+
+    def __init__(self):
+        from gatekeeper_tpu_torch.observability import costattr
+
+        self.attr = costattr.CostAttribution()
+        self.rows: list = []
+        inner = self.attr.attribute
+
+        def attribute(wall, weights, ep, phase, rows=None):
+            if ep == costattr.EP_AUDIT and phase == costattr.PHASE_DISPATCH:
+                self.rows.append(dict(rows or {}))
+            return inner(wall, weights, ep, phase, rows=rows)
+
+        self.attr.attribute = attribute
+
+
+def _sync_calls(prof) -> dict:
+    """The synchronizing runtime calls the profiler saw on the host."""
+    out = dict.fromkeys(SYNC_CALLS, 0)
+    for e in prof.key_averages():
+        if e.key in out:
+            out[e.key] += e.count
+    return out
+
+
+def hooks_relist(mgr, ev, traced: bool, device: str) -> dict:
+    """(b): one relist, bare or under a keep-all tracer and cost
+    attribution, under ``torch.profiler``; with the tracer the wall time
+    of each fold launch (``SweepEvaluator._fold``, which launches one) is
+    stamped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gatekeeper_tpu_torch.observability import costattr, tracing
+
+    chunks = [0]
+    dispatch = ev.sweep_dispatch
+
+    def counted(flat):
+        chunks[0] += bool(getattr(flat, "kinds", None))
+        return dispatch(flat)
+
+    ev.sweep_dispatch = counted
+    tracer = cap = None
+    stamps: list = []
+    if traced:
+        tracer = tracing.Tracer(seed=0, ring_capacity=16,
+                                max_spans_per_trace=1 << 20)
+        cap = _RowsAttribution()
+        fold_fn = ev._fold
+
+        def stamped(*args, **kwargs):
+            stamps.append(time.time())
+            return fold_fn(*args, **kwargs)
+
+        ev._fold = stamped
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    fallbacks0 = ev.perf.get("collect_fallbacks", 0.0)
+    try:
+        with profile(activities=activities) as prof:
+            if traced:
+                with tracing.activate(tracer), costattr.activate(cap.attr):
+                    t0 = time.perf_counter()
+                    run = mgr.audit()
+                    _sync(device)
+                    wall = time.perf_counter() - t0
+            else:
+                t0 = time.perf_counter()
+                run = mgr.audit()
+                _sync(device)
+                wall = time.perf_counter() - t0
+    finally:
+        del ev.sweep_dispatch  # the class's methods again
+        if traced:
+            del ev._fold
+    out = {"run": run, "wall_s": wall, "chunks": chunks[0],
+           "syncs": _sync_calls(prof),
+           "fallbacks": ev.perf.get("collect_fallbacks", 0.0) - fallbacks0}
+    if traced:
+        out.update(tracer=tracer, rows=cap.rows, attr=cap.attr,
+                   stamps=stamps)
+    return out
+
+
+def _launches_in_spans(label: str, doc: dict, stamps: list,
+                       fallbacks: float) -> int:
+    """Each stamped fold launch lies inside a ``device.sweep_dispatch``
+    span of the Chrome trace, or (an overflow's masks-lane re-dispatch)
+    inside a ``device.sweep_collect`` span.  Returns the launches inside
+    dispatch spans."""
+    spans = {"device.sweep_dispatch": [], "device.sweep_collect": []}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e["name"] in spans:
+            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    tol_us = 1000.0  # the span's start is the wall clock, its length the
+    # perf clock: allow a millisecond between them
+
+    def inside(name, t_us):
+        return any(a - tol_us <= t_us <= b + tol_us for a, b in spans[name])
+
+    in_dispatch = sum(inside("device.sweep_dispatch", t * 1e6)
+                      for t in stamps)
+    in_collect = sum(inside("device.sweep_collect", t * 1e6)
+                     and not inside("device.sweep_dispatch", t * 1e6)
+                     for t in stamps)
+    if in_dispatch + in_collect != len(stamps) or in_collect > fallbacks:
+        raise AssertionError(f"hooks[{label}]: {len(stamps)} fold launches, "
+                             f"{in_dispatch} inside dispatch spans, "
+                             f"{in_collect} inside collect spans for "
+                             f"{fallbacks:.0f} overflow re-dispatches")
+    return in_dispatch
+
+
+def hooks_traced(objects, card: str, device: str = "cuda") -> tuple:
+    """(b): the relist on both lanes under a keep-all tracer and cost
+    attribution against bare relists, ABBA per lane after one warm-up
+    relist.  No traced relist may make more synchronizing calls
+    (``SYNC_CALLS``) than the bare ones.  Returns (record, the
+    reduced lane's bare run, the card client/driver/evaluators, managers)."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.observability import (costattr,
+                                                    write_chrome_trace)
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.utils.rawjson import as_raw
+
+    client, driver, _nt, _nc = _client(objects, device=device)
+    # the raw lane (pre-serialized objects, the C columnizer): the same
+    # chunks, spans and verdicts as a dict relist at a third of its wall,
+    # for the time limit
+    raws = [as_raw(o) for o in objects]
+    evs, mgrs = {}, {}
+    for lane in ("reduced", "masks"):
+        evs[lane] = SweepEvaluator(driver, device=device, violations_limit=20,
+                                   collect=lane, flatten_lane="raw")
+        mgrs[lane] = AuditManager(
+            client, lister=lambda: iter(raws),
+            config=AuditConfig(violations_limit=20, chunk_size=HOOKS_CHUNK,
+                               exact_totals=False, submit_window=4),
+            evaluator=evs[lane])
+    record, rows, bare_runs = {}, {}, {}
+    os.makedirs(HOOKS_DIR, exist_ok=True)
+    for lane in ("reduced", "masks"):
+        # warm first (table and parameter caches, hit-buffer sizing): the
+        # ABBA runs then all start from a warm evaluator
+        mgrs[lane].audit()
+        runs = [hooks_relist(mgrs[lane], evs[lane], traced, device)
+                for traced in (False, True, True, False)]
+        _nothing_installed(f"traced {lane}")
+        bare, traced = [runs[0], runs[3]], [runs[1], runs[2]]
+        for r in traced:
+            _same_verdicts(f"hooks traced[{lane}]", r["run"], bare[1]["run"])
+        bare_runs[lane] = bare[1]["run"]
+        t = traced[0]
+        path = os.path.join(HOOKS_DIR, f"trace-{lane}.json")
+        write_chrome_trace(path, t["tracer"])
+        with open(path) as f:
+            doc = json.load(f)
+        names = collections.Counter(
+            e["name"] for e in doc["traceEvents"] if e.get("ph") == "X")
+        in_dispatch = _launches_in_spans(f"traced {lane}", doc, t["stamps"],
+                                         t["fallbacks"])
+        spans = [s for tr in t["tracer"].traces() for s in tr["spans"]]
+        span_wall = sum(s["duration_s"] for s in spans
+                        if s["name"] == "device.sweep_dispatch")
+        attributed = t["attr"].total_seconds(costattr.EP_AUDIT,
+                                             costattr.PHASE_DISPATCH)
+        rows[lane] = t["rows"]
+        syncs = {"bare": [r["syncs"] for r in bare],
+                 "traced": [r["syncs"] for r in traced]}
+        rec = {"walls_s": [r["wall_s"] for r in runs],
+               "overhead": (sum(r["wall_s"] for r in traced)
+                            / sum(r["wall_s"] for r in bare)),
+               "chunks": t["chunks"],
+               "dispatch_spans": names["device.sweep_dispatch"],
+               "collect_spans": names["device.sweep_collect"],
+               "launches_in_dispatch_spans": in_dispatch,
+               "launches": len(t["stamps"]), "fallbacks": t["fallbacks"],
+               "span_wall_s": span_wall, "attributed_s": attributed,
+               "syncs": syncs, "trace_events": len(doc["traceEvents"])}
+        record[lane] = rec
+        log(f"hooks[traced {lane}]: walls bare/traced/traced/bare "
+            f"{[round(w, 3) for w in rec['walls_s']]} s, overhead "
+            f"{rec['overhead']:.4f}x; {rec['dispatch_spans']} dispatch spans "
+            f"for {rec['chunks']} chunks; {in_dispatch} of {rec['launches']} "
+            f"fold launches inside dispatch spans ({t['fallbacks']:.0f} "
+            f"overflow re-dispatches); attributed {attributed:.6f} s of "
+            f"{span_wall:.6f} s dispatch span wall; sync calls {syncs} "
+            f"({card})")
+        if rec["dispatch_spans"] != rec["chunks"] or not rec["chunks"]:
+            raise AssertionError(f"hooks[traced {lane}]: {rec}")
+        if abs(attributed - span_wall) > 0.05 * span_wall:
+            raise AssertionError(f"hooks[traced {lane}]: attribution "
+                                 f"{attributed} s does not close on the "
+                                 f"dispatch spans' {span_wall} s")
+        worst = {k: max(s[k] for s in syncs["traced"]) for k in SYNC_CALLS}
+        if any(worst[k] > max(s[k] for s in syncs["bare"])
+               for k in SYNC_CALLS):
+            raise AssertionError(f"hooks[traced {lane}]: the traced relist "
+                                 f"synchronized more: {syncs}")
+    if rows["reduced"] != rows["masks"] or not rows["reduced"]:
+        diff = [i for i, (a, b) in enumerate(zip(rows["reduced"],
+                                                 rows["masks"])) if a != b]
+        raise AssertionError(f"hooks[traced]: the reduced lane's "
+                             f"attribution rows differ from the masks "
+                             f"lane's in chunks {diff[:4]} of "
+                             f"{len(rows['reduced'])}/{len(rows['masks'])}")
+    record["rows_chunks"] = len(rows["reduced"])
+    record["rows_total"] = sum(sum(r.values()) for r in rows["reduced"])
+    log(f"hooks[traced]: the reduced lane's occ rows equal the masks lane's "
+        f"host sums on all {record['rows_chunks']} chunks "
+        f"({record['rows_total']} live mask cells) ({card})")
+    return record, bare_runs["reduced"], (client, driver, evs, mgrs)
+
+
+def hooks_chaos(objects, bare_run, world, bodies, refs, card: str,
+                device: str = "cuda") -> dict:
+    """(c): ``device.dispatch`` errors on the card's relist (one, then more
+    than the retries), and a ``webhook.review`` hang under a 0.3 s deadline
+    with failurePolicy Ignore."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.resilience import faults
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    client, _driver, evs, mgrs = world
+    mgr, ev = mgrs["reduced"], evs["reduced"]
+    out = {}
+    with faults.inject(faults.FaultPlan([{"site": "device.dispatch",
+                                          "mode": "error", "times": 1}])):
+        run = mgr.audit()
+    _nothing_installed("chaos once")
+    if summary(run) != summary(bare_run) or run.retried_chunks != 1 \
+            or run.failed_chunks or run.incomplete:
+        raise AssertionError(f"hooks[chaos once]: retried "
+                             f"{run.retried_chunks}, failed "
+                             f"{run.failed_chunks}, totals equal "
+                             f"{summary(run)[1] == summary(bare_run)[1]}")
+    out["once"] = {"retried": run.retried_chunks}
+    submitted: list = []
+    submit = ev.sweep_submit
+
+    def recorded(cons, objs, *args, **kwargs):
+        submitted.append(objs)
+        return submit(cons, objs, *args, **kwargs)
+
+    ev.sweep_submit = recorded
+    try:
+        with faults.inject(faults.FaultPlan([{
+                "site": "device.dispatch", "mode": "error", "times": 2,
+                "after": 1}])):
+            run = mgr.audit()
+    finally:
+        del ev.sweep_submit  # the class's method again
+    _nothing_installed("chaos beyond")
+    dropped = list(submitted[1])
+    alone = AuditManager(client, lister=lambda: iter(dropped),
+                         config=AuditConfig(violations_limit=20,
+                                            chunk_size=HOOKS_CHUNK,
+                                            exact_totals=False),
+                         evaluator=ev).audit()
+    want = {k: v - alone.total_violations.get(k, 0)
+            for k, v in bare_run.total_violations.items()}
+    if not run.incomplete or run.failed_chunks != 1 \
+            or run.retried_chunks != 1 or run.total_violations != want:
+        raise AssertionError(f"hooks[chaos beyond]: incomplete "
+                             f"{run.incomplete}, failed {run.failed_chunks}, "
+                             f"retried {run.retried_chunks}, totals equal "
+                             f"the others' {run.total_violations == want}")
+    out["beyond"] = {"failed": run.failed_chunks,
+                     "retried": run.retried_chunks,
+                     "dropped_objects": len(dropped),
+                     "dropped_violations": sum(
+                         alone.total_violations.values())}
+    log(f"hooks[chaos]: device.dispatch error once: totals and kept equal "
+        f"the bare relist, retried 1; twice past the retries: INCOMPLETE "
+        f"({run.failed_chunks} chunk of {len(dropped)} objects dropped, "
+        f"{out['beyond']['dropped_violations']} violations), the other "
+        f"chunks' totals equal ({card})")
+    # the hang: each review's helper thread sleeps HOOKS_HANG_S at the
+    # webhook.review site; the answer resolves at the 0.3 s budget
+    n = min(HOOKS_HANG_BODIES, len(bodies))
+    batcher = Batcher(client).start()
+    server = WebhookServer(
+        validation_handler=ValidationHandler(
+            client, batcher=batcher, failure_policy="ignore",
+            deadline_budget_s=HOOKS_DEADLINE_S),
+        host="127.0.0.1", port=0, batcher=batcher).start()
+    try:
+        with faults.inject(faults.FaultPlan([{
+                "site": "webhook.review", "mode": "hang",
+                "delay_s": HOOKS_HANG_S}])):
+            replies, lat, wall = post_concurrently(server.port, bodies[:n])
+            time.sleep(HOOKS_HANG_S)  # the last helpers wake and finish
+    finally:
+        server.stop()
+        batcher.stop()
+    _nothing_installed("chaos hang")
+    late = [x for x in lat if x > HOOKS_DEADLINE_S + HOOKS_SLACK_S]
+    bad = [i for i in range(n) if not replies[i]["allowed"]
+           or not any("deadline budget" in w
+                      for w in replies[i].get("warnings") or [])]
+    out["hang"] = {**_rate(n, lat, wall), "late": len(late),
+                   "bad": len(bad), "max_ms": max(lat) * 1e3}
+    log(f"hooks[chaos hang]: {n} admissions under a {HOOKS_HANG_S:.1f}s "
+        f"webhook.review hang, deadline {HOOKS_DEADLINE_S}s, failurePolicy "
+        f"Ignore: p50 {out['hang']['p50_ms']:.3f} ms, max "
+        f"{out['hang']['max_ms']:.3f} ms, {len(bad)} not allowed with the "
+        f"deadline warning, {len(late)} past the budget + "
+        f"{HOOKS_SLACK_S}s ({card})")
+    if bad or late:
+        raise AssertionError(f"hooks[chaos hang]: {out['hang']}")
+    return out
+
+
+def hooks_brownout(objects, bodies, refs, manifests, card: str,
+                   device: str = "cuda") -> dict:
+    """(d): an overload burst against an 8-slot limiter and a 32-deep
+    queue while the relist audit loop runs on the same driver: sheds carry
+    ``Retry-After``, no code 500, the brownout ladder reaches level 1 or
+    more and the audit yields the device lane (``/debug/overload`` polled,
+    the ``device_lane_yield`` counter, the manager's yielded seconds)."""
+    from gatekeeper_tpu_torch.__main__ import (build_client, build_mutation,
+                                               process_excluder,
+                                               start_audit_loop)
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.metrics import registry as M
+    from gatekeeper_tpu_torch.metrics.registry import MetricsRegistry
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.resilience import overload
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    reg = MetricsRegistry()
+    client, driver = build_client(manifests, device=device, metrics=reg)
+    ev = SweepEvaluator(driver, device=device, violations_limit=20,
+                        metrics=reg)
+    mgr = AuditManager(client, lister=lambda: iter(objects),
+                       config=AuditConfig(interval_s=0.05,
+                                          violations_limit=20,
+                                          chunk_size=HOOKS_BURST_CHUNK,
+                                          exact_totals=False),
+                       evaluator=ev, metrics=reg)
+    ctl = overload.OverloadController(overload.OverloadConfig(
+        max_inflight=HOOKS_BURST[0], queue_depth=HOOKS_BURST[1]),
+        metrics=reg)
+    namespaces = {name_of(o): o for o in manifests
+                  if gvk_of(o) == ("", "v1", "Namespace")}
+    batcher = Batcher(client, metrics=reg).start()
+    server = WebhookServer(
+        validation_handler=ValidationHandler(
+            client, process_excluder=process_excluder(manifests),
+            namespace_lookup=namespaces.get, batcher=batcher,
+            failure_policy="fail",
+            expansion_system=build_mutation(manifests)[1], metrics=reg,
+            overload=ctl),
+        host="127.0.0.1", port=0, batcher=batcher, metrics=reg).start()
+    levels: list = []
+    stop_poll = threading.Event()
+
+    def poll():
+        while not stop_poll.wait(0.1):
+            st, body = _get(server.port, "/debug/overload")
+            if st == 200:
+                levels.append(json.loads(body)["brownout"])
+
+    poller = threading.Thread(target=poll, name="overload-poll",
+                              daemon=True)
+    with overload.activate(ctl):
+        auditor = start_audit_loop(mgr)
+        try:
+            deadline = time.monotonic() + LIFE_WAIT_S
+            while not ev.perf.get("dispatch"):  # the loop's first chunk
+                if time.monotonic() > deadline or not auditor.is_alive():
+                    raise AssertionError("hooks[brownout]: the audit loop "
+                                         "never dispatched")
+                time.sleep(0.01)
+            poller.start()
+            # the sweep checks the ladder before each full chunk, and the
+            # burst starves the audit thread of the interpreter lock: burst
+            # again (at most HOOKS_BURST_ROUNDS times) until it has yielded
+            rounds = []
+            burst = bodies * HOOKS_BURST_REPEAT
+            burst_refs = refs * HOOKS_BURST_REPEAT
+            for _round in range(HOOKS_BURST_ROUNDS):
+                retry: dict = {}
+                replies, lat, wall = post_concurrently(server.port, burst,
+                                                       retry_after=retry)
+                rounds.append(_held_or_shed("brownout", burst, replies,
+                                            retry, burst_refs))
+                if mgr.perf.get("brownout_yield_s", 0.0) > 0:
+                    break
+        finally:
+            stop_poll.set()
+            mgr.stop()
+            server.stop()
+            auditor.join(timeout=LIFE_WAIT_S)
+            batcher.stop()
+            if poller.is_alive():
+                poller.join(10)
+    _nothing_installed("brownout")
+    if auditor.is_alive():
+        raise AssertionError("hooks[brownout]: the audit loop did not stop")
+    counts = rounds[-1]
+    yielded = mgr.perf.get("brownout_yield_s", 0.0)
+    yield_counted = reg.get_counter(M.RESILIENCE_DEGRADED, {
+        "component": "audit", "to": "device_lane_yield"})
+    out = {**_rate(len(burst), lat, wall), **counts,
+           "max_brownout": max(levels, default=0), "rounds": len(rounds),
+           "shed_rounds": [r["shed"] for r in rounds],
+           "polls": len(levels), "yield_s": yielded,
+           "yield_counted": yield_counted, "shed_count": ctl.shed_count}
+    log(f"hooks[brownout]: {len(burst)} admissions a burst against "
+        f"--overload-max-inflight {HOOKS_BURST[0]} --overload-queue-depth "
+        f"{HOOKS_BURST[1]} beside the audit loop ({len(rounds)} bursts): "
+        f"{out['per_s']:.1f}/s, p99 {out['p99_ms']:.3f} ms, shed "
+        f"{out['shed_rounds']} (Retry-After on each), brownout levels "
+        f"polled {collections.Counter(levels)}, the "
+        f"audit yielded the device lane {yielded:.3f}s "
+        f"({yield_counted:.0f} yields counted) ({card})")
+    if not counts["shed"] or out["max_brownout"] < 1 or yielded <= 0 \
+            or yield_counted <= 0:
+        raise AssertionError(f"hooks[brownout]: {out}")
+    return out
+
+
+def hooks_phase(objects, card: str, device: str = "cuda",
+                n_bodies: int = HOOKS_BODIES) -> tuple:
+    """The served process's hooks, (a)-(d): (launches, shapes, record).
+    Fold launches count from here to the end of the phase ((b)'s and
+    (c)'s relists and (d)'s audit loop launch them; (a)'s CLI processes
+    are not counted)."""
+    import shutil
+
+    from gatekeeper_tpu_torch.__main__ import build_client
+    from gatekeeper_tpu_torch.ops import fold
+    from gatekeeper_tpu_torch.webhook.server import admission_response
+
+    wrappers = {"fused_fold": fold.fused_fold, "epilogue": fold.epilogue}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+        wrapper.shapes.clear()
+    _nothing_installed("start")
+    shutil.rmtree(HOOKS_DIR, ignore_errors=True)
+    record = {}
+    try:
+        manifests = library_manifests()
+        bodies, _objs = admission_traffic(n_bodies)
+        t0 = time.perf_counter()
+        ref = _cli_handler(build_client(manifests, device="cpu")[0],
+                           manifests)
+        refs = []
+        for body in bodies:
+            v = ref.handle(copy.deepcopy(body))
+            refs.append(_answer(admission_response(
+                v.uid, v.allowed, v.message, v.code,
+                v.warnings)["response"]))
+        log(f"hooks: cpu reference handler {time.perf_counter() - t0:.3f}s "
+            f"over {len(bodies)} bodies")
+        # (a) ABBA: defaults, hooks off, hooks off, defaults
+        runs = {"defaults": [], "off": []}
+        for on in (True, False, False, True):
+            runs["defaults" if on else "off"].append(
+                hooks_cli_run(bodies, refs, on, card, device))
+            gc.collect()
+        sums = {k: sum(r["p99_ms"] for r in v) for k, v in runs.items()}
+        record["served"] = runs
+        log(f"hooks[a]: p99 ms in ABBA order, defaults "
+            f"{[round(r['p99_ms'], 3) for r in runs['defaults']]}, hooks "
+            f"off {[round(r['p99_ms'], 3) for r in runs['off']]}; sums "
+            f"{sums['defaults']:.3f} / {sums['off']:.3f} "
+            f"({sums['defaults'] / sums['off']:.3f}x, gate "
+            f"{HOOKS_WALL_NOISE}x) ({card})")
+        if sums["defaults"] > HOOKS_WALL_NOISE * sums["off"]:
+            raise AssertionError(f"hooks[a]: the defaults' ABBA p99 sum "
+                                 f"{sums['defaults']:.3f} ms exceeds "
+                                 f"{HOOKS_WALL_NOISE}x hooks off's "
+                                 f"{sums['off']:.3f} ms")
+        # (b) traced relists, (c) chaos, (d) brownout
+        record["traced"], bare_run, world = hooks_traced(objects, card,
+                                                         device)
+        gc.collect()
+        record["chaos"] = hooks_chaos(objects, bare_run, world, bodies,
+                                      refs, card, device)
+        del world
+        gc.collect()
+        record["brownout"] = hooks_brownout(objects, bodies, refs, manifests,
+                                            card, device)
+    finally:
+        shutil.rmtree(HOOKS_DIR, ignore_errors=True)
+    _nothing_installed("end")
+    launches = {n: w.launches for n, w in wrappers.items()}
+    shapes = {n: dict(w.shapes) for n, w in wrappers.items()}
+    log(f"hooks: fold launches {launches} at (C, N, k) "
+        f"{ {k: sorted(v) for k, v in shapes.items()} }")
+    if device == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"hooks: a fold kernel never launched: "
+                             f"{launches}")
+    return launches, shapes, record
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--objects", type=int, default=131072,
                    help="synthetic cluster objects (131,072 = 4 chunks; up "
                         "to 1,000,000)")
-    p.add_argument("--admissions", type=int, default=4096,
+    p.add_argument("--admissions", type=int, default=2048,
                    help="AdmissionReviews served in the admission phase")
     args = p.parse_args()
     if not 0 < args.objects <= 1_000_000:
@@ -3546,6 +4327,10 @@ def main() -> int:
     life_launches, life_shapes, life_record = lifecycle_phase(
         objects, card, n_bodies=min(LIFE_BODIES, args.admissions))
     gc.collect()
+    phase("hooks")
+    hook_launches, hook_shapes, hook_record = hooks_phase(
+        objects, card, n_bodies=min(HOOKS_BODIES, args.admissions))
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
@@ -3553,7 +4338,8 @@ def main() -> int:
                    + collections.Counter(snap_shapes[name])
                    + collections.Counter(exp_shapes[name])
                    + collections.Counter(ext_shapes.get(name, {}))
-                   + collections.Counter(life_shapes[name]))
+                   + collections.Counter(life_shapes[name])
+                   + collections.Counter(hook_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -3571,6 +4357,7 @@ def main() -> int:
     log(f"extdata steps: {json.dumps(ext_steps, default=str)}")
     log(f"pipeline runs: {json.dumps(pipe_records, default=str)}")
     log(f"lifecycle: {json.dumps(life_record, default=str)}")
+    log(f"hooks: {json.dumps(hook_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -3580,6 +4367,7 @@ def main() -> int:
         row["expand_launches"] = exp_launches[row["name"]]
         row["extdata_launches"] = ext_launches[row["name"]]
         row["lifecycle_launches"] = life_launches[row["name"]]
+        row["hooks_launches"] = hook_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

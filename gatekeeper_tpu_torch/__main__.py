@@ -125,6 +125,28 @@ stack with its own CUDA context, bound to the same port with
 explicit ``--port``; with ``--certs-dir`` the certificate pair must exist;
 ``--once`` ignores it.
 
+The served process's hooks are built before anything else, in the JAX
+CLI's order, and uninstalled on every exit path: the span tracer
+(``--trace FILE`` writes a Chrome trace at exit, after the drain;
+``--trace-buffer`` serves the ring at ``/debug/traces`` only), the chaos
+plan (``--chaos spec.json``), the drain coordinator, the overload
+controller (``--overload-limiter on``, the default: an AIMD limiter and a
+cost-bounded queue in front of both webhooks, shedding by failurePolicy,
+its brownout ladder reaching the audit's device lane and the
+external-data cache; ``--qos on`` adds priority lanes and tenant
+fairness), cost attribution (``--cost-attribution on``, served at
+``/debug/cost``), the flight recorder (``--flight-recorder 2048``,
+``/debug/decisions``), the SLO degradation maps (``--slo-degradation``)
+and the SLO engine (``--slo on``, ``/debug/slo``).  ``--once`` skips the
+limiter, the flight recorder and the SLO engine.  ``/metrics`` serves the
+process's registry, ``/debug/overload`` the controller's state and
+``/debug/profile`` (with ``--enable-profile``) a cProfile.
+``--webhook-deadline S`` bounds each admission's wall time: on expiry the
+answer follows ``--webhook-failure-policy``.  A SIGTERM begins the drain
+(``--shutdown-delay`` more seconds of serving with ``/healthz`` at 503,
+then ``--drain-timeout`` for what the server holds); a second signal
+while draining is ignored.
+
 A ``Config`` named ``config`` is read for ``spec.sync.syncOnly`` (the
 kinds synced into ``data.inventory``) and ``spec.match`` (the per-process
 namespace exclusions); its other fields are not read.  CEL
@@ -198,7 +220,8 @@ def warm_batcher(client, batcher) -> None:
 
 
 def build_client(objects, device: str = "cuda",
-                 generation_swap: bool = False, compile_cache=None):
+                 generation_swap: bool = False, compile_cache=None,
+                 metrics=None):
     """(client, driver) with every template and constraint of
     ``objects`` installed and the Config-synced inventory loaded; the
     driver's batched reviews run on ``device``.  With ``generation_swap``
@@ -215,7 +238,7 @@ def build_client(objects, device: str = "cuda",
     cel = CELDriver()
     driver = TorchDriver(device=device, cel_driver=cel,
                          generation_swap=generation_swap,
-                         compile_cache=compile_cache)
+                         compile_cache=compile_cache, metrics=metrics)
     client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
     if driver.gen_coord is not None:
@@ -248,7 +271,7 @@ def build_client(objects, device: str = "cuda",
 
 
 def build_extdata(objects, mode: str = "batched", max_keys: int = 256,
-                  fanout: int = 4) -> tuple:
+                  fanout: int = 4, metrics=None) -> tuple:
     """(ProviderCache, ExtDataLane): every Provider manifest of
     ``objects`` loaded into one cache, and a lane over it in ``mode``,
     installed for the process (the webhook's batches, the audit sweep and
@@ -261,7 +284,7 @@ def build_extdata(objects, mode: str = "batched", max_keys: int = 256,
                                                              ProviderError)
     from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
 
-    cache = ProviderCache()
+    cache = ProviderCache(metrics=metrics)
     lane = extlane.ExtDataLane(cache, mode=mode, max_keys_per_call=max_keys,
                                fanout=fanout)
     extlane.install(lane)
@@ -500,7 +523,325 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reuse-port", action="store_true",
                    help="bind the webhook port with SO_REUSEPORT (set for "
                         "--webhook-workers children)")
+    add_hook_flags(p)
     return p
+
+
+def add_hook_flags(p: argparse.ArgumentParser) -> None:
+    """The served process's hook flags, with the JAX CLI's defaults and
+    help."""
+    p.add_argument("--shutdown-delay", type=float, default=0.0,
+                   help="seconds to keep serving after SIGTERM before "
+                        "shutting down (reference --shutdown-delay); "
+                        "readiness answers 503 {draining:true} for the "
+                        "whole window so the LB deregisters first")
+    p.add_argument("--drain-timeout", type=float, default=10.0,
+                   help="graceful-drain budget in seconds: after SIGTERM "
+                        "(and --shutdown-delay) the listener stops "
+                        "accepting and in-flight admissions + the "
+                        "batcher queue drain to completion within this "
+                        "budget — zero accepted verdicts lost")
+    p.add_argument("--webhook-backlog", type=int, default=128,
+                   help="kernel listen(2) accept-queue depth for the "
+                        "webhook socket (unanswered TCP connects; "
+                        "distinct from the overload limiter's cost-aware "
+                        "admission queue, which holds ACCEPTED requests "
+                        "waiting for a review slot)")
+    p.add_argument("--overload-limiter", default="on",
+                   choices=["on", "off"],
+                   help="adaptive-concurrency admission gate in front of "
+                        "the validating webhook (AIMD on review latency "
+                        "vs a baseline EWMA + bounded cost-aware queue); "
+                        "'on' is bit-identical to 'off' while unloaded "
+                        "(differential-tested); sheds resolve per "
+                        "--webhook-failure-policy")
+    p.add_argument("--overload-max-inflight", type=int, default=64,
+                   help="upper bound of the adaptive in-flight limit")
+    p.add_argument("--overload-queue-depth", type=int, default=256,
+                   help="max requests waiting in the admission queue "
+                        "before sheds begin")
+    p.add_argument("--overload-queue-cost", type=float, default=256e6,
+                   help="max summed admission cost (object bytes x "
+                        "matched-constraint estimate) queued before "
+                        "sheds begin")
+    p.add_argument("--qos", default="off", choices=["on", "off"],
+                   help="per-tenant / per-priority admission QoS on the "
+                        "overload path: priority lanes (system / "
+                        "break-glass ahead of user traffic, shed last), "
+                        "weighted-fair (deficit-round-robin) dequeue "
+                        "across tenants, per-tenant inflight caps + "
+                        "queue-cost budgets, and tenant-aware "
+                        "displacement (the heaviest tenant sheds "
+                        "first).  'off' (the default) keeps the single "
+                        "cost-aware FIFO")
+    p.add_argument("--qos-config", default="",
+                   help="JSON file of QoS priority levels / tenant "
+                        "weights / caps, mirroring the apiserver APF "
+                        "PriorityLevel shape; empty = the built-in lane "
+                        "set (kube-system + gatekeeper-system + system: "
+                        "users ahead of break-glass ahead of everyone, "
+                        "namespace as the tenant key)")
+    p.add_argument("--qos-ledger-decay", default="events",
+                   choices=["events", "slo-window"],
+                   help="decay driver for the QoS displacement ledger "
+                        "(who is 'heaviest'): 'events' (the default) "
+                        "halves totals per fixed charge count — "
+                        "deterministic replay; 'slo-window' halves them "
+                        "per elapsed SLO short-window on the SLO "
+                        "engine's clock")
+    p.add_argument("--enable-profile", action="store_true",
+                   help="serve /debug/profile?seconds=N (pprof equivalent)")
+    p.add_argument("--chaos", default="",
+                   help="fault-injection spec (JSON file: {\"seed\": 0, "
+                        "\"faults\": [{\"site\": ..., \"mode\": sleep|"
+                        "hang|error|partial, ...}]}) installed process-"
+                        "wide — the deterministic chaos harness for "
+                        "exercising the resilience layer")
+    p.add_argument("--trace", default="",
+                   help="write a Chrome trace-event JSON (Perfetto-"
+                        "loadable) of the kept traces to this path on "
+                        "exit; also serves the live tail-sampled ring "
+                        "buffer at /debug/traces next to /metrics")
+    p.add_argument("--trace-buffer", action="store_true",
+                   help="enable the span tracer without a file export "
+                        "(ring buffer served at /debug/traces only)")
+    p.add_argument("--trace-slow-ms", type=float, default=0.0,
+                   help="tail-sampling latency threshold: traces whose "
+                        "root span is slower than this are ALWAYS kept; "
+                        "the rest keep at --trace-sample (0 = no "
+                        "threshold, keep per --trace-sample alone)")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="keep probability for traces under the "
+                        "--trace-slow-ms threshold (1.0 keeps all; 0.0 "
+                        "is the empty sampler — span machinery runs, "
+                        "nothing retained)")
+    p.add_argument("--trace-seed", type=int, default=None,
+                   help="seed the trace/span ID generator and sampler "
+                        "(deterministic IDs for differential runs; "
+                        "default: OS entropy)")
+    p.add_argument("--cost-attribution", default="on",
+                   choices=["on", "off"],
+                   help="per-template cost attribution: shared device "
+                        "passes apportion wall time across the "
+                        "constraint grid by row occupancy "
+                        "(gatekeeper_constraint_eval_seconds, "
+                        "/debug/cost)")
+    p.add_argument("--slo", default="on", choices=["on", "off"],
+                   help="in-process SLO engine: declarative objectives "
+                        "(admission/mutate P99, shed rate, audit "
+                        "staleness) with multi-window burn rates — "
+                        "gatekeeper_slo_* gauges, /debug/slo, breach "
+                        "span events")
+    p.add_argument("--slo-config", default="",
+                   help="JSON file of SLO objectives (and optional burn "
+                        "tiers) replacing the built-in defaults")
+    p.add_argument("--slo-interval", type=float, default=10.0,
+                   help="seconds between SLO engine evaluations")
+    p.add_argument("--slo-brownout", action="store_true",
+                   help="feed SLO burn into the overload brownout "
+                        "ladder: a burning latency objective browns out "
+                        "optional work (stale lookups, audit device-"
+                        "lane yield) BEFORE the admission queue backs "
+                        "up (off keeps the ladder queue-driven only)")
+    p.add_argument("--slo-degradation", default="off",
+                   choices=["on", "off"],
+                   help="targeted degradation maps: each objective's "
+                        "ordered, revocable action list (ns_cache_stale "
+                        "-> extdata_stale -> shed_harder; "
+                        "audit_yield_release -> resync_defer) activates "
+                        "step-by-step on burn breach and releases in "
+                        "reverse on recovery")
+    p.add_argument("--flight-recorder", type=int, default=2048,
+                   help="admission flight recorder: ring capacity of "
+                        "structured admission/mutation/shed decision "
+                        "records served at /debug/decisions?uid= "
+                        "(0 disables)")
+    p.add_argument("--flight-recorder-sink", default="",
+                   help="append every flight-recorder decision to this "
+                        "JSONL file (decision metadata only, never "
+                        "object bodies — unless --flight-recorder-capture)")
+    p.add_argument("--flight-recorder-sink-max-mb", type=float,
+                   default=0.0,
+                   help="rotate the sink when it reaches this many MB "
+                        "(sink -> sink.1 -> sink.2 ...; 0 = unbounded)")
+    p.add_argument("--flight-recorder-sink-keep", type=int, default=3,
+                   help="rotated sink files retained past the live one "
+                        "(oldest dropped on rotation)")
+    p.add_argument("--flight-recorder-capture", action="store_true",
+                   help="capture mode: sink lines additionally carry "
+                        "the raw admission request. The in-memory ring "
+                        "stays metadata-only; the sink then holds "
+                        "Secrets-grade data")
+    p.add_argument("--webhook-deadline", type=float, default=0.0,
+                   help="per-admission wall-clock budget in seconds; on "
+                        "expiry the request resolves per "
+                        "--webhook-failure-policy instead of stalling "
+                        "the apiserver (0 disables)")
+
+
+class Hooks:
+    """The served process's hooks, as :func:`build_hooks` installs them:
+    every piece is a process-global install (``None`` where its flag
+    leaves it off), and :meth:`close` stops and uninstalls them all."""
+
+    def __init__(self, metrics):
+        self.metrics = metrics
+        self.tracer = None
+        self.chaos = None
+        self.drain = None
+        self.overload = None
+        self.cost_attr = None
+        self.flight_rec = None
+        self.degradations = None
+        self.slo_engine = None
+        self.trace_path = ""
+
+    def export_trace(self) -> None:
+        """Write the kept traces as Chrome trace events (``--trace``)."""
+        if self.tracer is None or not self.trace_path:
+            return
+        from gatekeeper_tpu_torch.observability import write_chrome_trace
+
+        n = write_chrome_trace(self.trace_path, self.tracer)
+        print(f"trace: {n} events ({self.tracer.kept} traces kept, "
+              f"{self.tracer.sampled_out} sampled out) -> "
+              f"{self.trace_path} (load in ui.perfetto.dev or "
+              f"chrome://tracing)", file=sys.stderr)
+
+    def close(self) -> None:
+        from gatekeeper_tpu_torch.observability import (costattr, flightrec,
+                                                        tracing)
+        from gatekeeper_tpu_torch.resilience import faults, overload
+
+        if self.slo_engine is not None:
+            self.slo_engine.stop()
+        if self.flight_rec is not None:
+            self.flight_rec.close()  # flush the JSONL sink
+        for installed, uninstall in (
+                (self.tracer, tracing.uninstall),
+                (self.chaos, faults.uninstall),
+                (self.overload, overload.uninstall),
+                (self.cost_attr, costattr.uninstall),
+                (self.flight_rec, flightrec.uninstall),
+                (self.degradations, overload.uninstall_degradations)):
+            if installed is not None:
+                uninstall()
+        if self.chaos is not None:
+            faults.set_metrics_registry(None)
+
+
+def build_hooks(args) -> Hooks:
+    """Build and install the hooks the flags ask for, in the JAX CLI's
+    order: tracer, chaos plan, drain coordinator, overload controller,
+    cost attribution, flight recorder, degradations, SLO engine.  On a
+    failure every piece installed so far is uninstalled before the error
+    propagates."""
+    from gatekeeper_tpu_torch.metrics.registry import MetricsRegistry
+
+    hooks = Hooks(MetricsRegistry())
+    try:
+        _install_hooks(args, hooks)
+    except BaseException:
+        hooks.close()
+        raise
+    return hooks
+
+
+def _install_hooks(args, hooks: Hooks) -> None:
+    from gatekeeper_tpu_torch.observability import costattr, flightrec, slo
+    from gatekeeper_tpu_torch.resilience import overload
+
+    metrics = hooks.metrics
+    if args.trace or args.trace_buffer:
+        from gatekeeper_tpu_torch.observability import tracing
+
+        hooks.tracer = tracing.Tracer(
+            seed=args.trace_seed,
+            slow_threshold_s=(args.trace_slow_ms / 1000.0
+                              if args.trace_slow_ms > 0 else None),
+            sample_rate=args.trace_sample, metrics=metrics)
+        hooks.trace_path = args.trace
+        tracing.install(hooks.tracer)
+        print("span tracer active"
+              + (f" (export: {args.trace})" if args.trace else
+                 " (ring buffer at /debug/traces)"), file=sys.stderr)
+    if args.chaos:
+        from gatekeeper_tpu_torch.resilience import faults
+
+        faults.set_metrics_registry(metrics)
+        hooks.chaos = faults.load_chaos_spec(args.chaos)
+        faults.install(hooks.chaos)
+        print(f"chaos harness active: {args.chaos}", file=sys.stderr)
+    hooks.drain = overload.DrainCoordinator(metrics=metrics)
+    if args.overload_limiter == "on" and not args.once:
+        from gatekeeper_tpu_torch.resilience.qos import qos_from_args
+
+        qos_cfg = qos_from_args(args.qos, args.qos_config)
+        hooks.overload = overload.OverloadController(
+            overload.OverloadConfig(
+                max_inflight=args.overload_max_inflight,
+                queue_depth=args.overload_queue_depth,
+                queue_cost=args.overload_queue_cost,
+                qos=qos_cfg),
+            metrics=metrics)
+        overload.install(hooks.overload)
+        if qos_cfg is not None:
+            print(f"admission QoS active: {len(qos_cfg.levels)} priority "
+                  f"lanes ({', '.join(lv.name for lv in qos_cfg.levels)}),"
+                  f" tenant key {qos_cfg.tenant_key}, inflight cap "
+                  f"{qos_cfg.tenant_inflight_cap or 'none'} "
+                  f"(/debug/overload)", file=sys.stderr)
+    if args.cost_attribution == "on":
+        hooks.cost_attr = costattr.CostAttribution(metrics=metrics)
+        costattr.install(hooks.cost_attr)
+        if hooks.overload is not None and args.qos == "on":
+            # measured per-tenant evaluation cost decides who is heaviest
+            hooks.overload.set_tenant_cost_input(
+                hooks.cost_attr.tenant_totals)
+    if args.flight_recorder > 0 and not args.once:
+        hooks.flight_rec = flightrec.FlightRecorder(
+            capacity=args.flight_recorder,
+            sink_path=args.flight_recorder_sink or None,
+            metrics=metrics,
+            capture=args.flight_recorder_capture,
+            sink_max_bytes=int(args.flight_recorder_sink_max_mb
+                               * 1024 * 1024),
+            sink_keep=args.flight_recorder_sink_keep)
+        flightrec.install(hooks.flight_rec)
+    if args.slo == "on" and not args.once:
+        if args.slo_degradation == "on":
+            hooks.degradations = overload.DegradationRegistry(
+                metrics=metrics)
+            overload.install_degradations(hooks.degradations)
+        slo_kw: dict = {"degradations": hooks.degradations}
+        if args.slo_config:
+            cfg = slo.load_config(args.slo_config, hooks.degradations)
+            slo_kw["objectives"] = cfg["objectives"]
+            if cfg["tiers"]:
+                slo_kw["tiers"] = cfg["tiers"]
+        hooks.slo_engine = slo.SLOEngine(metrics, brownout=hooks.overload,
+                                         **slo_kw)
+        if args.slo_brownout and hooks.overload is not None:
+            hooks.overload.set_slo_input(hooks.slo_engine.pressure)
+        hooks.slo_engine.start(interval_s=args.slo_interval)
+        print(f"SLO engine active: {len(hooks.slo_engine.objectives)} "
+              f"objectives, tick every {args.slo_interval:.0f}s "
+              f"(/debug/slo)"
+              + (", degradation maps armed"
+                 if hooks.degradations is not None else ""),
+              file=sys.stderr)
+    if args.qos == "on" and args.qos_ledger_decay == "slo-window" \
+            and hooks.overload is not None:
+        # displacement-ledger decay on the SLO window clock
+        import time
+
+        if hooks.slo_engine is not None:
+            hooks.overload.set_qos_ledger_clock(
+                hooks.slo_engine.window_clock,
+                hooks.slo_engine.shortest_window_s())
+        else:
+            hooks.overload.set_qos_ledger_clock(time.monotonic, 300.0)
+        print("qos ledger decay: slo-window", file=sys.stderr)
 
 
 def worker_argv(argv) -> list:
@@ -593,10 +934,27 @@ def run(args, workers=()) -> int:
     from gatekeeper_tpu_torch import resolve_device
 
     resolve_device(args.device)  # no card and no --device cpu: raise now
+    from gatekeeper_tpu_torch.observability.slo import SLOConfigError
+
+    try:
+        hooks = build_hooks(args)
+    except SLOConfigError as e:
+        # fail fast at boot: a malformed objective silently dropped is an
+        # SLO that never pages
+        print(f"slo config: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _run(args, hooks, workers)
+    finally:
+        hooks.close()
+
+
+def _run(args, hooks: Hooks, workers) -> int:
+    metrics = hooks.metrics
     objects = load_manifests(args.manifests)
     provider_cache, _lane = build_extdata(
         objects, mode=args.extdata_lane, max_keys=args.extdata_max_keys,
-        fanout=args.extdata_fanout)
+        fanout=args.extdata_fanout, metrics=metrics)
     if args.extdata_lane != "batched":
         print(f"extdata lane: {args.extdata_lane}", file=sys.stderr)
     compile_cache = None
@@ -607,7 +965,7 @@ def run(args, workers=()) -> int:
     client, driver = build_client(
         objects, device=args.device,
         generation_swap=args.generation_swap == "on",
-        compile_cache=compile_cache)
+        compile_cache=compile_cache, metrics=metrics)
     if compile_cache is not None:
         print(f"compile cache: {args.compile_cache} "
               f"{compile_cache.stats()}", file=sys.stderr)
@@ -623,7 +981,7 @@ def run(args, workers=()) -> int:
     if args.once or "audit" in operations:
         mgr, ingester = build_audit(args, objects, client, driver,
                                     expansion_system=expansion_system,
-                                    extdata_lane=_lane)
+                                    extdata_lane=_lane, metrics=metrics)
         if args.compile_cache and not args.once:
             from gatekeeper_tpu_torch.drivers.generation import \
                 WarmStateCache
@@ -638,7 +996,9 @@ def run(args, workers=()) -> int:
     gen_coord = driver.gen_coord
     try:
         if args.once:
-            return audit_once(mgr)
+            rc = audit_once(mgr)
+            hooks.export_trace()
+            return rc
         if gen_coord is not None:
             # boot is done: later template changes compile off the
             # serving path
@@ -646,8 +1006,8 @@ def run(args, workers=()) -> int:
             print("generation swap active: template changes compile on a "
                   "background thread", file=sys.stderr)
         return serve(args, objects, client, mgr, operations,
-                     mutation_system, expansion_system, driver=driver,
-                     workers=workers, warm_cache=warm_cache)
+                     mutation_system, expansion_system, hooks,
+                     driver=driver, workers=workers, warm_cache=warm_cache)
     finally:
         if gen_coord is not None:
             gen_coord.stop()
@@ -661,7 +1021,8 @@ def run(args, workers=()) -> int:
 
 
 def build_audit(args, objects, client, driver,
-                expansion_system=None, extdata_lane=None) -> tuple:
+                expansion_system=None, extdata_lane=None,
+                metrics=None) -> tuple:
     """(AuditManager, WatchIngester or None) as the flags ask: a relisting
     lister over the manifests, or the resident snapshot fed by a watch on a
     ``FakeCluster`` that holds them.  With ``--audit-expand`` the manager
@@ -678,7 +1039,7 @@ def build_audit(args, objects, client, driver,
         driver, device=args.device,
         violations_limit=args.constraint_violations_limit,
         collect=args.collect, flatten_lane=args.flatten_lane,
-        flatten_workers=args.flatten_workers)
+        flatten_workers=args.flatten_workers, metrics=metrics)
     relist = args.audit_source == "relist"
     print(f"audit schedule: {resolve_schedule(args.pipeline, relist)} "
           f"(--pipeline {args.pipeline}, {effective_cpu_count()} effective "
@@ -696,7 +1057,8 @@ def build_audit(args, objects, client, driver,
     if args.audit_source != "snapshot":
         return AuditManager(client, lister=lambda: iter(objects),
                             config=config, evaluator=evaluator,
-                            expansion_system=expansion_system), None
+                            expansion_system=expansion_system,
+                            metrics=metrics), None
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
     from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
                                                DeviceResidency,
@@ -747,7 +1109,8 @@ def build_audit(args, objects, client, driver,
     mgr = AuditManager(client, lister=cluster.list, config=config,
                        evaluator=evaluator, snapshot=snapshot,
                        residency=residency,
-                       expansion_system=expansion_system, spiller=spiller)
+                       expansion_system=expansion_system, spiller=spiller,
+                       metrics=metrics)
     if spill_load is not None:
         mgr.restore_spill_aux(spill_load.get("aux") or {})
     return mgr, ingester
@@ -792,11 +1155,14 @@ def start_audit_loop(audit_mgr):
 
 
 def mutation_handler(args, mutation_system, namespace_lookup,
-                     excluder, coordinator=None) -> tuple:
+                     excluder, coordinator=None, metrics=None,
+                     overload=None) -> tuple:
     """(handler, MutationBatcher or None) of ``/v1/mutate`` as
     ``--mutate-lane`` asks: the batched lane behind a started
-    microbatcher, or the per-object reference handler.  The lane's
-    mutator programs recompile on ``coordinator``'s thread when given."""
+    microbatcher (gated by ``overload``, shedding by
+    ``--webhook-failure-policy``), or the per-object reference handler.
+    The lane's mutator programs recompile on ``coordinator``'s thread when
+    given."""
     if args.mutate_lane == "host":
         from gatekeeper_tpu_torch.webhook.mutation import MutationHandler
 
@@ -809,29 +1175,34 @@ def mutation_handler(args, mutation_system, namespace_lookup,
     lane = MutationLane(mutation_system,
                         differential=args.mutate_lane == "differential",
                         device=args.device, ingest=args.mutate_ingest,
-                        coordinator=coordinator)
-    batcher = MutationBatcher(lane).start()
-    return BatchedMutationHandler(mutation_system, lane=lane,
-                                  namespace_lookup=namespace_lookup,
-                                  process_excluder=excluder,
-                                  batcher=batcher), batcher
+                        coordinator=coordinator, metrics=metrics)
+    batcher = MutationBatcher(lane, metrics=metrics).start()
+    return BatchedMutationHandler(
+        mutation_system, lane=lane, namespace_lookup=namespace_lookup,
+        process_excluder=excluder, batcher=batcher, metrics=metrics,
+        overload=overload,
+        failure_policy=args.webhook_failure_policy), batcher
 
 
 def serve(args, objects, client, audit_mgr, operations, mutation_system,
-          expansion_system, driver=None, workers=(),
+          expansion_system, hooks: Hooks, driver=None, workers=(),
           warm_cache=None) -> int:
     """Serve the admission webhook (the ``webhook`` and
     ``mutation-webhook`` operations), with ``audit_mgr.run_forever()`` on
     a thread beside it (the ``audit`` operation), until SIGINT or SIGTERM;
-    then stop the audit loop and drain: the final spill, then the warm
-    state's save to ``warm_cache``.  ``driver`` is the client's
-    ``TorchDriver`` (its generation coordinator recompiles the mutation
-    lane's programs).  The batcher threads and the audit
-    thread share the device on its default stream.  A signal also
-    terminates the ``workers`` children, so they drain alongside."""
+    then drain through ``hooks.drain`` (a ``DrainCoordinator``): the
+    webhook stops accepting and finishes what it holds, the audit loop
+    stops, the final spill, the warm state's save to ``warm_cache``, the
+    trace export, then the ``workers`` children, each terminated and
+    waited for in turn.  ``driver`` is the client's ``TorchDriver`` (its
+    generation coordinator recompiles the mutation lane's programs).  The
+    batcher threads and the audit thread share the device on its default
+    stream.  A signal also terminates the children at once, so they drain
+    alongside; a second signal while draining is ignored."""
     import os
     import signal
     import threading
+    import time
 
     from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
     from gatekeeper_tpu_torch.webhook.namespacelabel import \
@@ -840,6 +1211,8 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                                                      ValidationHandler)
     from gatekeeper_tpu_torch.webhook.server import WebhookServer
 
+    metrics = hooks.metrics
+    drain = hooks.drain
     namespaces = {name_of(o): o for o in objects
                   if gvk_of(o) == ("", "v1", "Namespace")}
     excluder = process_excluder(objects)
@@ -850,17 +1223,22 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
     stopping = threading.Event()
 
     def _on_signal(signum, frame):
-        if stopping.is_set():
+        if not drain.begin(f"signal {signum}"):
             # a second signal while draining (the parent's stop_workers
             # terminates a child its own handler already signalled): a
             # print here could re-enter a print of the drain and raise
             return
-        print(f"signal {signum}: draining", file=sys.stderr, flush=True)
+        print(f"signal {signum}: draining"
+              + (f" (serving {args.shutdown_delay:.0f}s more for LB "
+                 f"deregistration)" if args.shutdown_delay else ""),
+              file=sys.stderr, flush=True)
         if server is not None:
-            server.begin_drain()
+            server.begin_drain()  # healthz 503 + retire keep-alives
         for w in workers:  # the children start their own drains now
             if w.poll() is None:
                 w.terminate()
+        if args.shutdown_delay:
+            time.sleep(args.shutdown_delay)
         stopping.set()
 
     signal.signal(signal.SIGTERM, _on_signal)
@@ -871,7 +1249,8 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
             validation = mutation = None
             if "webhook" in operations:
                 batcher = Batcher(client,
-                                  small_batch=args.webhook_small_batch).start()
+                                  small_batch=args.webhook_small_batch,
+                                  metrics=metrics).start()
                 warm_batcher(client, batcher)
                 validation = ValidationHandler(
                     client,
@@ -881,11 +1260,15 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                     log_denies=args.log_denies,
                     failure_policy=args.webhook_failure_policy,
                     expansion_system=expansion_system,
+                    metrics=metrics,
+                    deadline_budget_s=args.webhook_deadline,
+                    overload=hooks.overload,
                 )
             if "mutation-webhook" in operations:
                 mutation, mutation_batcher = mutation_handler(
                     args, mutation_system, namespaces.get, excluder,
-                    coordinator=getattr(driver, "gen_coord", None))
+                    coordinator=getattr(driver, "gen_coord", None),
+                    metrics=metrics, overload=hooks.overload)
             certfile = keyfile = None
             if args.certs_dir:
                 certfile = os.path.join(args.certs_dir, "tls.crt")
@@ -901,6 +1284,14 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                 batcher=batcher,
                 mutation_batcher=mutation_batcher,
                 reuse_port=args.reuse_port,
+                # the drain pulls readiness before the listener closes
+                readiness_check=lambda: not drain.draining,
+                metrics=metrics,
+                enable_profile=args.enable_profile,
+                backlog=args.webhook_backlog,
+                cost_attribution=hooks.cost_attr,
+                slo_engine=hooks.slo_engine,
+                flight_recorder=hooks.flight_rec,
             ).start()
         except BaseException:
             for b in (batcher, mutation_batcher):
@@ -915,11 +1306,14 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
 
     while not stopping.wait(1.0):
         pass
+    drain.begin("shutdown")
     drained = True
     if auditor is not None:
         audit_mgr.stop()
     if server is not None:
-        drained = server.stop()
+        # stops accepting, then drains in-flight handlers and both batcher
+        # queues inside the budget before closing
+        drained = server.stop(drain_timeout=args.drain_timeout)
     if auditor is not None:
         # a pass in flight finishes first; the loop exits at its next wait
         auditor.join(timeout=AUDIT_JOIN_S)
@@ -936,8 +1330,13 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
         audit_mgr.spiller.stop(flush=True)
     if warm_cache is not None:
         warm_cache.save(driver, audit_mgr.evaluator)
-    print("drain complete" if drained else
-          "WARNING: drain exceeded its budget; in-flight work abandoned",
+    hooks.export_trace()  # after the last span of the drain closed
+    # the children drain in sequence, each finishing what it holds
+    stop_workers(workers, timeout=max(5.0, args.drain_timeout))
+    dt = drain.finish()
+    print(f"drain complete in {dt:.2f}s" if drained else
+          f"WARNING: drain exceeded --drain-timeout "
+          f"{args.drain_timeout:.0f}s; in-flight work abandoned",
           file=sys.stderr, flush=True)
     return 0
 

@@ -34,8 +34,14 @@ lane persists: a clean resync requests a background spill,
 spill (``warm_loaded``) starts the loop with an incremental tick instead
 of the full pass.
 
-Not ported yet: the fleet seams, export, metrics, tracing and brownout
-hooks.
+Hooks, as in the JAX package: the ``audit.sweep``, ``audit.tick``,
+``snapshot.resync``, ``expansion.stage`` and per-chunk spans; the last-run,
+incomplete, retry, failed-chunk and degradation metrics; the brownout
+yield of the device lane before each relist chunk is submitted
+(``resilience/overload.yield_device_lane``); the ``resync_defer``
+degradation; and exact per-template render cost records.
+
+Not ported yet: the fleet seams and export.
 """
 
 from __future__ import annotations
@@ -182,8 +188,10 @@ class AuditManager:
         residency=None,  # snapshot.DeviceResidency (resident lane)
         expansion_system=None,  # expansion.ExpansionSystem (expand stage)
         spiller=None,  # snapshot.SnapshotSpiller (--snapshot-spill)
+        metrics=None,  # metrics.registry.MetricsRegistry
     ):
         self.client = client
+        self.metrics = metrics
         self.lister = lister
         self.config = config or AuditConfig()
         self.evaluator = evaluator
@@ -261,7 +269,9 @@ class AuditManager:
             every = max(0, self.config.resync_every)
             while not self._stop.wait(self.config.interval_s):
                 n += 1
-                guarded(self.audit_resync if every and n % every == 0
+                guarded(self.audit_resync
+                        if every and n % every == 0
+                        and not self._resync_deferred()
                         else self.audit_tick)
             if self.spiller is not None:
                 # a clean stop never loses the resident state it built
@@ -275,10 +285,31 @@ class AuditManager:
 
     # --- one sweep (reference: audit(), manager.go:258) -----------------
     def audit(self) -> AuditRun:
-        """One full pass: a relist sweep, or in snapshot mode a pass over
-        every resident row."""
-        if self._snapshot_mode():
-            return self._audit_snapshot_impl(full=True)
+        """One full pass under its root span: a relist sweep, or in
+        snapshot mode a pass over every resident row."""
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("audit.sweep") as sp:
+            if self._snapshot_mode():
+                sp.set_attribute("source", "snapshot")
+                run = self._audit_snapshot_impl(full=True)
+            else:
+                run = self._audit_impl()
+            sp.set_attribute("objects", run.total_objects)
+            sp.set_attribute("duration_s", round(run.duration_s, 3))
+            sp.set_attribute("violations",
+                             sum(run.total_violations.values()))
+            sp.set_attribute("flatten_workers", run.flatten_workers)
+            if self.pipe_stats:
+                sp.set_attribute("schedule", "pipelined")
+                sp.set_attribute(
+                    "device_idle_fraction",
+                    self.pipe_stats.get("device_idle_fraction", 0.0))
+            if run.incomplete:
+                sp.set_attribute("incomplete", True)
+            return run
+
+    def _audit_impl(self) -> AuditRun:
         t0 = time.time()
         run = AuditRun(timestamp=_now_rfc3339())
         run.n_devices = 1 if self.evaluator is not None else 0
@@ -334,6 +365,12 @@ class AuditManager:
                           "pipelined sweep failed; degrading to the "
                           "serial schedule",
                           event_type="audit_degraded", error=str(e))
+                if self.metrics is not None:
+                    from gatekeeper_tpu_torch.metrics import registry as M
+
+                    self.metrics.inc_counter(
+                        M.RESILIENCE_DEGRADED,
+                        {"component": "audit", "to": "serial"})
                 for k in kept:
                     kept[k] = []
                 for k in totals:
@@ -358,6 +395,7 @@ class AuditManager:
         run.kept = kept
         run.duration_s = time.time() - t0
         self._write_statuses(run, constraints)
+        self._publish_metrics(run)
         return run
 
     def _render_driver(self):
@@ -399,6 +437,7 @@ class AuditManager:
                     if cg is None:
                         cg = [c for c in constraints if c.kind in g]
                         cons_of_group[g] = cg
+                    self._brownout_yield()
                     yield buf, cg
                     bufs[g] = []
             for g, buf in bufs.items():
@@ -412,6 +451,7 @@ class AuditManager:
                 chunk.append(obj)
                 counter[0] += 1
                 if len(chunk) >= self.config.chunk_size:
+                    self._brownout_yield()
                     yield chunk, constraints
                     chunk = []
             if chunk:
@@ -436,6 +476,7 @@ class AuditManager:
             budget_fn = (lambda con:
                          limit - len(kept.get(con.key(), ())))
         retries = max(0, self.config.chunk_retries)
+        from gatekeeper_tpu_torch.observability import tracing
 
         def chunk_failed(exc, phase):
             """Retry budget exhausted: skip the chunk, flag the run."""
@@ -446,10 +487,16 @@ class AuditManager:
                       "audit chunk dropped after exhausting retries",
                       event_type="audit_chunk_failed", phase=phase,
                       error=str(exc))
+            self._count_chunk_failed()
 
         def chunk_retry(exc, phase):
             if run is not None:
                 run.retried_chunks += 1
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as M
+
+                self.metrics.inc_counter(M.RESILIENCE_RETRIES,
+                                         {"dependency": "audit_chunk"})
 
         def submit_once(objs, cons):
             return self.evaluator.sweep_submit(
@@ -460,47 +507,52 @@ class AuditManager:
             # retry covers the non-mutating phases ONLY (submit/collect):
             # once the fold touches kept/totals a re-run would double
             # count, so a fold failure drops the chunk instead
-            pending, objs, cons, _chunk_i = window.popleft()
-            last = None
-            swept = None
-            for attempt in range(retries + 1):
-                try:
-                    if attempt > 0:
-                        # a failed collect can't be re-fetched: the whole
-                        # chunk re-submits through flatten/dispatch
-                        chunk_retry(last, "collect")
-                        pending = submit_once(objs, cons)
-                    swept = self.evaluator.sweep_collect(pending)
-                    break
-                except Exception as e:  # noqa: PERF203
-                    last = e
-            else:
-                chunk_failed(last, "collect")
-                return
-            try:
-                t0 = time.perf_counter()
-                self._process_swept(swept, objs, cons, kept, totals, limit)
-                self.perf["fold_render"] = (
-                    self.perf.get("fold_render", 0.0)
-                    + time.perf_counter() - t0)
-            except Exception as e:
-                chunk_failed(e, "fold")
-
-        def submit(objects, cons, chunk_i):
-            if device:
+            pending, objs, cons, chunk_i = window.popleft()
+            with tracing.span("audit.chunk.collect_fold", chunk=chunk_i,
+                              objects=len(objs)):
                 last = None
+                swept = None
                 for attempt in range(retries + 1):
                     try:
                         if attempt > 0:
-                            chunk_retry(last, "submit")
-                        pending = submit_once(objects, cons)
+                            # a failed collect can't be re-fetched: the
+                            # whole chunk re-submits through flatten/dispatch
+                            chunk_retry(last, "collect")
+                            pending = submit_once(objs, cons)
+                        swept = self.evaluator.sweep_collect(pending)
                         break
                     except Exception as e:  # noqa: PERF203
                         last = e
                 else:
-                    chunk_failed(last, "submit")
+                    chunk_failed(last, "collect")
                     return
-                window.append((pending, objects, cons, chunk_i))
+                try:
+                    t0 = time.perf_counter()
+                    self._process_swept(swept, objs, cons, kept, totals,
+                                        limit)
+                    self.perf["fold_render"] = (
+                        self.perf.get("fold_render", 0.0)
+                        + time.perf_counter() - t0)
+                except Exception as e:
+                    chunk_failed(e, "fold")
+
+        def submit(objects, cons, chunk_i):
+            if device:
+                with tracing.span("audit.chunk.submit", chunk=chunk_i,
+                                  objects=len(objects)):
+                    last = None
+                    for attempt in range(retries + 1):
+                        try:
+                            if attempt > 0:
+                                chunk_retry(last, "submit")
+                            pending = submit_once(objects, cons)
+                            break
+                        except Exception as e:  # noqa: PERF203
+                            last = e
+                    else:
+                        chunk_failed(last, "submit")
+                        return
+                    window.append((pending, objects, cons, chunk_i))
                 while window and (len(window) > max_inflight
                                   or _sweep_ready(window[0][0])):
                     self.perf["n_eager_collects"] = (
@@ -509,25 +561,27 @@ class AuditManager:
             else:
                 # interpreter lane: evaluate into CHUNK-LOCAL dicts and
                 # merge only on success, so a retry can never double count
-                last = None
-                for attempt in range(retries + 1):
-                    try:
-                        if attempt > 0:
-                            chunk_retry(last, "interp")
-                        kept_c = {c.key(): [] for c in cons}
-                        totals_c = {c.key(): 0 for c in cons}
-                        self._audit_chunk(objects, cons, kept_c,
-                                          totals_c, limit)
-                        for key, n in totals_c.items():
-                            totals[key] += n
-                        for key, vs in kept_c.items():
-                            for v in vs:
-                                if len(kept[key]) < limit:
-                                    kept[key].append(v)
-                        return
-                    except Exception as e:  # noqa: PERF203
-                        last = e
-                chunk_failed(last, "interp")
+                with tracing.span("audit.chunk.interp", chunk=chunk_i,
+                                  objects=len(objects)):
+                    last = None
+                    for attempt in range(retries + 1):
+                        try:
+                            if attempt > 0:
+                                chunk_retry(last, "interp")
+                            kept_c = {c.key(): [] for c in cons}
+                            totals_c = {c.key(): 0 for c in cons}
+                            self._audit_chunk(objects, cons, kept_c,
+                                              totals_c, limit)
+                            for key, n in totals_c.items():
+                                totals[key] += n
+                            for key, vs in kept_c.items():
+                                for v in vs:
+                                    if len(kept[key]) < limit:
+                                        kept[key].append(v)
+                            return
+                        except Exception as e:  # noqa: PERF203
+                            last = e
+                    chunk_failed(last, "interp")
 
         src = iter(self._chunk_source(constraints, device, counter))
         chunk_i = -1
@@ -868,6 +922,7 @@ class AuditManager:
 
         def render(con, obj, cache_key=None):
             self.perf["n_renders"] = self.perf.get("n_renders", 0) + 1
+            t0 = time.perf_counter()
             if review_of is not None:
                 review = review_of(cache_key)
             else:
@@ -878,9 +933,23 @@ class AuditManager:
                         object=obj, source=source))
                     if cache_key is not None:
                         cache[cache_key] = review
-            return driver.render_query(target.name, con, review, cfg).results
+            results = driver.render_query(target.name, con, review,
+                                          cfg).results
+            self._attr_render(con, time.perf_counter() - t0)
+            return results
 
         return render
+
+    @staticmethod
+    def _attr_render(con, dt: float) -> None:
+        """Exact per-template attribution of one exact-engine render (the
+        host-side cost of a device hit): the call IS template-scoped."""
+        from gatekeeper_tpu_torch.observability import costattr
+
+        attr = costattr.active()
+        if attr is not None:
+            attr.record(con.kind, costattr.EP_AUDIT,
+                        costattr.PHASE_RENDER, dt, rows=1)
 
     # --- snapshot lane (gatekeeper_tpu_torch/snapshot/) --------------------
     def _snapshot_mode(self) -> bool:
@@ -896,7 +965,20 @@ class AuditManager:
         (rows the watch patched since the last evaluation) — O(churn), not
         O(cluster).  Cluster-wide totals and kept lists come from the
         per-row verdict store (clean rows keep their last results)."""
-        return self._audit_snapshot_impl(full=False)
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("audit.tick") as sp:
+            run = self._audit_snapshot_impl(full=False)
+            sp.set_attribute("objects", run.total_objects)
+            sp.set_attribute("duration_s", round(run.duration_s, 3))
+            gc = getattr(getattr(self.evaluator, "driver", None),
+                         "gen_coord", None)
+            if gc is not None:
+                # the template generation this tick evaluated under
+                sp.set_attribute("generation", gc.gen_id)
+            if run.incomplete:
+                sp.set_attribute("incomplete", True)
+            return run
 
     def _snapshot_ready(self, constraints) -> None:
         """Adopt the constraint set, rebuild if stale, apply queued watch
@@ -955,10 +1037,15 @@ class AuditManager:
         run.kept = kept
         run.duration_s = time.time() - t0
         if ev is not None:
-            self.perf["tick_h2d_bytes"] = (
-                ev.perf.get("resident_h2d_bytes", 0.0)
-                + ev.perf.get("h2d_bytes", 0.0)) - h2d0
+            tick_h2d = (ev.perf.get("resident_h2d_bytes", 0.0)
+                        + ev.perf.get("h2d_bytes", 0.0)) - h2d0
+            self.perf["tick_h2d_bytes"] = tick_h2d
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as M
+
+                self.metrics.set_gauge(M.TICK_H2D_BYTES, float(tick_h2d))
         self._write_statuses(run, constraints)
+        self._publish_metrics(run)
         return run
 
     def _snapshot_eval(self, rows_by_store, run) -> None:
@@ -975,6 +1062,8 @@ class AuditManager:
         chunk_size = max(1, self.config.chunk_size)
         max_inflight = max(1, self.config.submit_window)
 
+        from gatekeeper_tpu_torch.observability import tracing
+
         def chunk_failed(exc):
             run.failed_chunks += 1
             run.incomplete = True
@@ -983,6 +1072,7 @@ class AuditManager:
                       "retries (rows stay dirty; previous verdicts kept)",
                       event_type="audit_chunk_failed", phase="snapshot",
                       error=str(exc))
+            self._count_chunk_failed()
 
         for store, rowlist in rows_by_store.items():
             # resident lane: sync the device mirror ONCE per store per
@@ -1012,53 +1102,57 @@ class AuditManager:
 
             def fold_oldest(_store=store, _submit=submit_chunk,
                             _window=window):
-                pending, gids, positions, objects = _window.popleft()
-                last = None
-                swept = {}
-                for attempt in range(retries + 1):
+                pending, gids, positions, objects, ci = _window.popleft()
+                with tracing.span("audit.chunk.collect_fold", chunk=ci,
+                                  objects=len(gids), source="snapshot"):
+                    last = None
+                    swept = {}
+                    for attempt in range(retries + 1):
+                        try:
+                            if attempt > 0:
+                                run.retried_chunks += 1
+                                pending = _submit(positions, objects)
+                            if pending is not None:
+                                swept = ev.sweep_collect(pending)
+                            break
+                        except Exception as e:  # noqa: PERF203
+                            last = e
+                    else:
+                        chunk_failed(last)
+                        return
                     try:
-                        if attempt > 0:
-                            run.retried_chunks += 1
-                            pending = _submit(positions, objects)
-                        if pending is not None:
-                            swept = ev.sweep_collect(pending)
-                        break
-                    except Exception as e:  # noqa: PERF203
-                        last = e
-                else:
-                    chunk_failed(last)
-                    return
-                try:
-                    t0 = time.perf_counter()
-                    self._fold_snapshot_chunk(swept, _store.cons, gids,
-                                              objects)
-                    snap.mark_clean(gids)
-                    self.perf["fold_render"] = (
-                        self.perf.get("fold_render", 0.0)
-                        + time.perf_counter() - t0)
-                except Exception as e:
-                    chunk_failed(e)
+                        t0 = time.perf_counter()
+                        self._fold_snapshot_chunk(swept, _store.cons, gids,
+                                                  objects)
+                        snap.mark_clean(gids)
+                        self.perf["fold_render"] = (
+                            self.perf.get("fold_render", 0.0)
+                            + time.perf_counter() - t0)
+                    except Exception as e:
+                        chunk_failed(e)
 
-            for i in range(0, len(rowlist), chunk_size):
+            for ci, i in enumerate(range(0, len(rowlist), chunk_size)):
                 chunk = rowlist[i: i + chunk_size]
                 gids = [g for g, _p in chunk]
                 positions = [p for _g, p in chunk]
                 objects = [store.row_obj(p) for p in positions]
                 pending = None
                 if store.lowered and ev is not None:
-                    last = None
-                    for attempt in range(retries + 1):
-                        try:
-                            if attempt > 0:
-                                run.retried_chunks += 1
-                            pending = submit_chunk(positions, objects)
-                            break
-                        except Exception as e:  # noqa: PERF203
-                            last = e
-                    else:
-                        chunk_failed(last)
-                        continue
-                window.append((pending, gids, positions, objects))
+                    with tracing.span("audit.chunk.submit", chunk=ci,
+                                      objects=len(gids)):
+                        last = None
+                        for attempt in range(retries + 1):
+                            try:
+                                if attempt > 0:
+                                    run.retried_chunks += 1
+                                pending = submit_chunk(positions, objects)
+                                break
+                            except Exception as e:  # noqa: PERF203
+                                last = e
+                        else:
+                            chunk_failed(last)
+                            continue
+                window.append((pending, gids, positions, objects, ci))
                 while window and (len(window) > max_inflight
                                   or _sweep_ready(window[0][0])):
                     fold_oldest()
@@ -1267,11 +1361,21 @@ class AuditManager:
         fresh relist sweep, compared canonically).  A divergence marks
         the run incomplete and invalidates the snapshot: the next pass
         rebuilds."""
+        from gatekeeper_tpu_torch.observability import tracing
+
+        t0 = time.time()
         rotate = max(0, self.config.resync_rotate)
         rotor = None
         if rotate > 1:
             rotor = (self._resync_phase % rotate, rotate)
             self._resync_phase = (self._resync_phase + 1) % rotate
+        with tracing.span("snapshot.resync") as sp:
+            if rotor is not None:
+                sp.set_attribute("rotor_phase", rotor[0])
+                sp.set_attribute("rotor_k", rotor[1])
+            return self._resync_impl(rotor, sp, t0)
+
+    def _resync_impl(self, rotor, sp, t0: float) -> AuditRun:
         run = self._audit_snapshot_impl(full=False)
         snap = self.snapshot
         diff = snap.resync_differential(self.lister, rotor=rotor)
@@ -1297,12 +1401,18 @@ class AuditManager:
                 run.kept, run.total_violations, kept_f, totals_f,
                 self.config.violations_limit)
         self.last_resync_diff = diff
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.set_gauge(M.SNAPSHOT_RESYNC_SECONDS,
+                                   time.time() - t0)
         if diff is None:
             log_event("info", "snapshot resync differential clean",
                       event_type="snapshot_resync_clean",
                       rows=snap.live_count(),
                       scope=f"1/{rotor[1]}" if rotor else "full")
         else:
+            sp.set_attribute("diverged", diff)
             run.incomplete = True
             snap.invalidate()
             log_event("warning",
@@ -1310,6 +1420,12 @@ class AuditManager:
                       "invalidated (next pass rebuilds)",
                       event_type="snapshot_resync_diverged",
                       difference=diff)
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as M
+
+                self.metrics.inc_counter(
+                    M.RESILIENCE_DEGRADED,
+                    {"component": "snapshot", "to": "rebuild"})
         self.perf["resync_ok"] = 0.0 if diff else 1.0
         if diff is None and self.spiller is not None:
             # a snapshot just proven consistent is the state to persist:
@@ -1422,26 +1538,34 @@ class AuditManager:
         lane for the rest — folding into the same kept/totals with the
         template's enforcementAction override and the reference's
         ``[Implied by <template>]`` message prefix."""
+        from gatekeeper_tpu_torch.observability import tracing
+
         chunk_size = max(1, self.config.chunk_size)
-        for i in range(0, len(bases), chunk_size):
-            part = bases[i:i + chunk_size]
-            t0 = time.perf_counter()
-            resultants, errors = self._expand_bases(stage, part)
-            self._perf_add("expand", time.perf_counter() - t0)
-            self._perf_add("generators", len(part))
-            self._perf_add("resultants", len(resultants))
-            for base, err in errors:
-                # mirrors the webhook's ExpansionError handling:
-                # surfaced, never silently dropped, run keeps going
-                log_event("warning",
-                          "audit expansion failed for a generator object",
-                          event_type="audit_expand_failed",
-                          name=(base.get("metadata") or {}).get("name", ""),
-                          error=str(err))
-            t0 = time.perf_counter()
-            self._eval_generated_chunks(resultants, constraints, kept,
-                                        totals, limit, run)
-            self._perf_add("generated_sweep", time.perf_counter() - t0)
+        n_resultants = 0
+        with tracing.span("expansion.stage", phase="audit",
+                          bases=len(bases)) as sp:
+            for i in range(0, len(bases), chunk_size):
+                part = bases[i:i + chunk_size]
+                t0 = time.perf_counter()
+                resultants, errors = self._expand_bases(stage, part)
+                self._perf_add("expand", time.perf_counter() - t0)
+                self._perf_add("generators", len(part))
+                self._perf_add("resultants", len(resultants))
+                n_resultants += len(resultants)
+                for base, err in errors:
+                    # mirrors the webhook's ExpansionError handling:
+                    # surfaced, never silently dropped, run keeps going
+                    log_event("warning",
+                              "audit expansion failed for a generator "
+                              "object", event_type="audit_expand_failed",
+                              name=(base.get("metadata") or {}).get(
+                                  "name", ""),
+                              error=str(err))
+                t0 = time.perf_counter()
+                self._eval_generated_chunks(resultants, constraints, kept,
+                                            totals, limit, run)
+                self._perf_add("generated_sweep", time.perf_counter() - t0)
+            sp.set_attribute("resultants", n_resultants)
 
     def _eval_generated_chunks(self, resultants, constraints, kept,
                                totals, limit, run) -> None:
@@ -1486,6 +1610,7 @@ class AuditManager:
                       "exhausting retries",
                       event_type="audit_chunk_failed", phase="generated",
                       error=str(last))
+            self._count_chunk_failed()
 
         if device:
             from gatekeeper_tpu_torch.parallel.sweep import make_kind_router
@@ -1508,6 +1633,77 @@ class AuditManager:
                 part = resultants[j:j + chunk_size]
                 fold([e[0] for e in part], constraints,
                      [(e[1], e[2]) for e in part])
+
+    # --- overload brownout (resilience/overload.py) ----------------------
+    def _brownout_yield(self) -> None:
+        """Brownout level-2 hook: while the admission queue is under heavy
+        pressure, the sweep yields the device lane before submitting its
+        next chunk (bounded per call: the audit slows, never stalls).  A
+        no-op without an installed OverloadController, and released while
+        a breaching audit-staleness objective holds
+        ``audit_yield_release`` (yield_device_lane checks it)."""
+        from gatekeeper_tpu_torch.resilience import overload
+
+        waited = overload.yield_device_lane()
+        if waited:
+            self.perf["brownout_yield_s"] = (
+                self.perf.get("brownout_yield_s", 0.0) + waited)
+
+    def _resync_deferred(self) -> bool:
+        """``resync_defer`` degradation action: a breaching audit-staleness
+        objective defers the periodic resync differential (a relist and a
+        full re-evaluation) so the interval goes to the dirty set.  A
+        deferral is counted."""
+        from gatekeeper_tpu_torch.resilience import overload
+
+        if not overload.degradation_active(overload.RESYNC_DEFER):
+            return False
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(
+                M.RESILIENCE_DEGRADED,
+                {"component": "audit", "to": "resync_defer"})
+        return True
+
+    # --- metrics -----------------------------------------------------------
+    def _count_chunk_failed(self) -> None:
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(M.RESILIENCE_CHUNKS_FAILED)
+
+    def _publish_metrics(self, run: AuditRun) -> None:
+        if self.metrics is None:
+            return
+        from gatekeeper_tpu_torch.metrics import registry as M
+
+        self.metrics.observe(M.AUDIT_DURATION, run.duration_s)
+        now = time.time()
+        self.metrics.set_gauge(M.AUDIT_LAST_RUN, now - run.duration_s)
+        # end-of-sweep timestamp: the SLO engine's audit-staleness
+        # objective ages against it
+        self.metrics.set_gauge(M.AUDIT_LAST_RUN_END, now)
+        self.metrics.set_gauge(M.AUDIT_LAST_RUN_INCOMPLETE,
+                               1.0 if run.incomplete else 0.0)
+        if not self.pipe_stats:
+            return
+        for name, st in self.pipe_stats.get("stages", {}).items():
+            lab = {"stage": name}
+            self.metrics.set_gauge(M.PIPELINE_STAGE_SECONDS,
+                                   st["busy_s"], lab)
+            self.metrics.set_gauge(M.PIPELINE_STAGE_OCCUPANCY,
+                                   st["occupancy"], lab)
+            self.metrics.set_gauge(M.PIPELINE_QUEUE_HIGHWATER,
+                                   st["queue_highwater"], lab)
+        self.metrics.set_gauge(
+            M.PIPELINE_DEVICE_IDLE,
+            self.pipe_stats.get("device_idle_fraction", 0.0))
+        self.metrics.set_gauge(M.PIPELINE_WALL,
+                               self.pipe_stats.get("wall_s", 0.0))
+        self.metrics.set_gauge(
+            M.PIPELINE_STAGE_BUSY_SUM,
+            self.pipe_stats.get("stage_busy_sum_s", 0.0))
 
     # --- status writeback (reference: writeAuditResults, manager.go:947) -
     def _write_statuses(self, run: AuditRun, constraints):

@@ -43,9 +43,9 @@ hit-buffer state (``SweepEvaluator.warm_state``) and the driver's
 ``_warm_ref`` (the latest real admission batch).  Its replay restores the
 first and runs :meth:`GenerationCoordinator.warm_serving` over the second.
 
-Dropped from the JAX module: the ``compile.generation`` tracing spans,
-the generation and cache metrics counters (``metrics=`` arguments) and the
-``compile.generation`` chaos fault site.
+The ``compile.generation`` chaos fault site is as in the JAX module; its
+``compile.generation`` tracing spans and the generation and cache metrics
+counters (``metrics=`` arguments) are not ported yet.
 """
 
 from __future__ import annotations
@@ -665,7 +665,12 @@ class GenerationCoordinator:
     def _build(self, desired: dict) -> Generation:
         """Compile the next generation: reuse unchanged programs by source
         digest, answer changed kinds from the disk cache when its vocab
-        snapshot replays, lower the rest."""
+        snapshot replays, lower the rest.  The chaos seam
+        ``compile.generation`` lets a test kill a build mid-flight and
+        check that the serving generation survives."""
+        from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+        fault_point("compile.generation", n=len(desired))
         driver = self.driver
         with self._lock:
             gen = Generation(self.gen_id + 1)

@@ -34,7 +34,10 @@ background thread once started, warms it and swaps it in atomically
 (``_install_generation``); until then, and without the flag, it lowers
 inline.  Both routes consult the ``compile_cache`` when one is given.
 
-Not ported yet: cost attribution, tracing and metrics.
+Hooks as in the JAX package: ``query_batch`` runs under a
+``device.query_batch`` span with the ``device.dispatch`` fault site and
+apportions its wall to templates by host mask occupancy when cost
+attribution is active; ``metrics`` counts lowered and fallback templates.
 """
 
 from __future__ import annotations
@@ -108,8 +111,11 @@ class TorchDriver:
 
     def __init__(self, batch_bucket: int = 256, device: str = "cuda",
                  cel_driver=None, generation_swap: bool = False,
-                 compile_cache=None):
+                 compile_cache=None, metrics=None):
         self._interp = RegoDriver()
+        # metrics.registry.MetricsRegistry (optional): lowering coverage
+        # counters per template kind
+        self.metrics = metrics
         self._cel = cel_driver  # optional CELDriver
         self._cel_kinds: set = set()  # kinds owned by the CEL engine
         self.vocab = Vocab()
@@ -169,6 +175,15 @@ class TorchDriver:
             "fallback_kinds": dict(self._lower_errors),
         }
 
+    def _count_lowering(self, kind: str, engine: str, lowered: bool) -> None:
+        if self.metrics is None:
+            return
+        from gatekeeper_tpu_torch.metrics import registry as M
+
+        self.metrics.inc_counter(
+            M.LOWERING_LOWERED if lowered else M.LOWERING_FALLBACK,
+            {"kind": kind, "engine": engine})
+
     # --- Driver protocol (delegating lifecycle to the exact engine) ------
     def name(self) -> str:
         return DRIVER_NAME
@@ -197,7 +212,7 @@ class TorchDriver:
             lambda: lower_template(compiled.modules, compiled.package,
                                    template.kind, self.vocab,
                                    schema_hint=template.parameters_schema))
-        self._install(template.kind, program, err)
+        self._install(template.kind, program, err, "rego")
 
     def _note_digest(self, template) -> None:
         from gatekeeper_tpu_torch.drivers.generation import template_digest
@@ -250,8 +265,10 @@ class TorchDriver:
                 return lower_template(staged.artifact.modules,
                                       staged.artifact.package, kind,
                                       self.vocab, schema_hint=hint)
-        return self._lower_or_cached(kind, staged.engine, staged.template,
-                                     lower_fn)
+        program, err, from_cache = self._lower_or_cached(
+            kind, staged.engine, staged.template, lower_fn)
+        self._count_lowering(kind, staged.engine, program is not None)
+        return program, err, from_cache
 
     def _install_generation(self, gen) -> None:
         """The swap point: every serving structure is REPLACED with a fresh
@@ -290,9 +307,9 @@ class TorchDriver:
             lambda: lower_cel_template(
                 compiled, template.kind, self.vocab,
                 schema_hint=template.parameters_schema))
-        self._install(template.kind, program, err)
+        self._install(template.kind, program, err, "cel")
 
-    def _install(self, kind: str, program, err) -> None:
+    def _install(self, kind: str, program, err, engine: str) -> None:
         """Install one compile result copy-on-write: the serving dicts are
         REPLACED, not mutated, so a sweep that captured them mid-flight
         never sees a half-applied template change."""
@@ -306,6 +323,7 @@ class TorchDriver:
             errors[kind] = err
         self._programs = programs
         self._lower_errors = errors
+        self._count_lowering(kind, engine, program is not None)
         self.plan_epoch += 1
         self._inv_cache.pop(kind, None)
         self._render_specs.pop(kind, None)
@@ -337,10 +355,12 @@ class TorchDriver:
             self._cel.add_constraint(constraint)
         else:
             if self.gen_coord is not None and \
-                    constraint.kind not in self._interp._templates and \
                     self.gen_coord.is_staged(constraint.kind):
-                # template staged but not swapped in yet: the constraint is
-                # accepted now and starts matching at the swap
+                # the template is in the desired set (serving, or staged
+                # and not swapped in yet): the constraint is accepted now
+                # and matches from the swap on.  Checking the serving
+                # templates here too would race a swap that lands between
+                # that check and the interpreter's own
                 return
             self._interp.add_constraint(constraint)
 
@@ -649,11 +669,38 @@ class TorchDriver:
         the grids evaluate (default: the driver's own ``device``); it is
         resolved only when some kind is lowered, so a batch of fallback
         kinds never needs the card."""
+        from gatekeeper_tpu_torch.observability import costattr, tracing
+
+        t0 = time.perf_counter()
+        occ: dict = {}
+        with tracing.span("device.query_batch", n=len(reviews),
+                          constraints=len(constraints)):
+            out = self._query_batch_impl(target, constraints, reviews, cfg,
+                                         render_messages, device,
+                                         occ_out=occ)
+        attr = costattr.active()
+        if attr is not None and occ:
+            # the shared admission pass (flatten + grid + render) splits
+            # across templates by host mask row occupancy — per-template
+            # shares sum back to this span's wall time
+            attr.attribute(time.perf_counter() - t0,
+                           {k: 1.0 + v for k, v in occ.items()},
+                           costattr.EP_WEBHOOK, costattr.PHASE_DISPATCH,
+                           rows=occ)
+        return out
+
+    def _query_batch_impl(self, target, constraints, reviews, cfg,
+                          render_messages, device,
+                          occ_out: Optional[dict] = None
+                          ) -> list[QueryResponse]:
         cfg = cfg or ReviewCfg()
         n = len(reviews)
         responses = [QueryResponse() for _ in range(n)]
         if n == 0 or not constraints:
             return responses
+        from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+        fault_point("device.dispatch", lane="query_batch", n=n)
 
         objects = [r.request.object or {} for r in reviews]
         namespaces = [r.namespace for r in reviews]
@@ -755,6 +802,8 @@ class TorchDriver:
                             batch_cache=batch_memo)
             mask = masks_mod.constraint_masks(
                 cons, batch, self.vocab, objects, namespaces, sources)
+            if occ_out is not None:
+                occ_out[kind] = int(mask.sum())
             # the admission grid is folded on the host (batches are small
             # and per-request rendering needs every hit anyway): account
             # the fetch next to the audit lane's
@@ -800,6 +849,8 @@ class TorchDriver:
                       else self._interp.query)
             mask = masks_mod.constraint_masks(
                 cons, batch, self.vocab, objects, namespaces, sources)
+            if occ_out is not None:
+                occ_out[kind] = int(mask[:, :n].sum())
             for ci, con in enumerate(cons):
                 for oi in np.nonzero(mask[ci, :n])[0].tolist():
                     qr = engine(target, [con], reviews[oi], cfg)

@@ -7,12 +7,11 @@ responses may be TTL-cached.  The transport is pluggable (``send_fn``) so
 tests and offline runs need no network; the default transport posts the
 ExternalData ProviderRequest JSON over HTTPS.
 
-Copy of ``gatekeeper_tpu/externaldata/providers.py`` (host-only).  Left out
-until the port has the hooks: the ``traceparent`` header of
-``default_send``, the metrics counters, the chaos fault site of ``_send``
-(with its ``partial`` truncation) and the overload-brownout branch of
-``fetch`` (the port has no overload controller, so that branch could never
-be taken).
+Copy of ``gatekeeper_tpu/externaldata/providers.py`` (host-only), hooks
+included: the ``traceparent`` header of ``default_send``, the metrics
+counters, the ``externaldata.send`` span and fault site (with its
+``partial`` truncation) and the stale serving of ``fetch`` under an
+overload brownout or the ``extdata_stale`` degradation.
 """
 
 from __future__ import annotations
@@ -82,6 +81,13 @@ def default_send(provider: Provider, keys: list) -> dict:
         cadata=base64.b64decode(provider.ca_bundle).decode()
     )
     headers = {"Content-Type": "application/json"}
+    # traceparent emit: the provider can join its own processing span to
+    # the admission/audit trace that triggered this fetch
+    from gatekeeper_tpu_torch.observability import tracing
+
+    tp = tracing.format_traceparent()
+    if tp is not None:
+        headers[tracing.TRACEPARENT_HEADER] = tp
     req = urllib.request.Request(
         provider.url, data=body, headers=headers)
     with urllib.request.urlopen(req, timeout=provider.timeout_s,
@@ -96,12 +102,14 @@ class ProviderCache:
     breaker; transport failures retry with seeded-jitter exponential
     backoff bounded by the ambient request deadline.  When the breaker is
     open — or the transport keeps failing — keys present in the TTL cache
-    are served STALE (the reference's external-data TTL-cache fallback);
-    keys with no cached value surface a per-key error that flows into the
+    are served STALE (the reference's external-data TTL-cache fallback)
+    and counted in ``gatekeeper_resilience_stale_served_count``; keys
+    with no cached value surface a per-key error that flows into the
     placeholder failure-policy semantics (Fail | Ignore | UseDefault)."""
 
     def __init__(self, send_fn: Optional[Callable] = None,
                  response_ttl_s: float = 180.0,
+                 metrics=None,
                  retry=None,  # resilience.policy.RetryPolicy
                  breaker_threshold: int = 3,
                  breaker_reset_s: float = 30.0):
@@ -109,13 +117,14 @@ class ProviderCache:
         self._responses: dict[tuple, tuple] = {}  # (provider, key) -> (t, val)
         self.send_fn = send_fn or default_send
         self.response_ttl_s = response_ttl_s
+        self.metrics = metrics
         self.breaker_threshold = breaker_threshold
         self.breaker_reset_s = breaker_reset_s
         if retry is None:
             from gatekeeper_tpu_torch.resilience.policy import RetryPolicy
 
             retry = RetryPolicy(attempts=3, base_s=0.05, cap_s=1.0,
-                                dependency="externaldata")
+                                dependency="externaldata", metrics=metrics)
         self.retry = retry
         self._breakers: dict[str, Any] = {}
         self._lock = threading.Lock()
@@ -146,7 +155,8 @@ class ProviderCache:
                 b = CircuitBreaker(
                     f"externaldata/{provider_name}",
                     failure_threshold=self.breaker_threshold,
-                    reset_timeout_s=self.breaker_reset_s)
+                    reset_timeout_s=self.breaker_reset_s,
+                    metrics=self.metrics)
                 self._breakers[provider_name] = b
             return b
 
@@ -177,35 +187,61 @@ class ProviderCache:
 
     # --- resolution (reference: system_external_data.go) ----------------
     def _send(self, provider: Provider, keys: list) -> dict:
-        """One transport round-trip; a response carrying ``systemError``
-        fails the whole call (retried, then stale-served)."""
-        resp = self.send_fn(provider, keys)
-        system_error = deep_get(resp, ("response", "systemError"), "")
-        if system_error:
-            raise ProviderError(f"provider {provider.name}: {system_error}")
-        return resp
+        """One transport round-trip through the chaos seam.  A partial
+        fault truncates the item list (the provider 'answered' for only a
+        fraction of the keys); the missing keys surface per-key 'key not
+        returned' errors downstream."""
+        from gatekeeper_tpu_torch.observability import tracing
+        from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+        with tracing.span("externaldata.send", provider=provider.name,
+                          n_keys=len(keys)):
+            action = fault_point("externaldata.send",
+                                 provider=provider.name, n_keys=len(keys))
+            resp = self.send_fn(provider, keys)
+            if action is not None and action.mode == "partial":
+                items = deep_get(resp, ("response", "items"), []) or []
+                keep = int(len(items) * action.spec.fraction)
+                resp = {"response": {
+                    "items": items[:keep],
+                    "systemError": deep_get(resp,
+                                            ("response", "systemError"),
+                                            ""),
+                }}
+            system_error = deep_get(resp, ("response", "systemError"), "")
+            if system_error:
+                raise ProviderError(
+                    f"provider {provider.name}: {system_error}")
+            return resp
 
     def _serve_stale(self, provider_name: str, keys: list, out: dict,
                      reason: str) -> None:
         """Fill ``out`` for ``keys`` from expired TTL-cache entries
         (graceful degradation); keys never fetched get a per-key error
         that the placeholder failure policy interprets."""
+        n_stale = 0
         with self._lock:
             for key in keys:
                 hit = self._responses.get((provider_name, key))
                 if hit is not None:
                     out[key] = hit[1]
+                    n_stale += 1
                 else:
                     out[key] = (None, f"provider {provider_name}: {reason}; "
                                       "no cached value")
+        if n_stale and self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(
+                M.RESILIENCE_STALE_SERVED,
+                {"dependency": f"externaldata/{provider_name}"},
+                value=float(n_stale))
 
     def fetch(self, provider_name: str, keys: list) -> dict:
         """Returns key -> (value, error-string-or-None); TTL-cached.
         Transport failures retry with jittered backoff (deadline-bounded);
         a tripped breaker — or exhausted retries — serves stale cache
-        entries and per-key errors instead of raising.  (The JAX package
-        also serves stale under an overload brownout; the port has no
-        overload controller yet, so that branch is left out.)"""
+        entries and per-key errors instead of raising."""
         provider = self._providers.get(provider_name)
         if provider is None:
             raise ProviderError(f"provider {provider_name!r} not found")
@@ -220,6 +256,19 @@ class ProviderCache:
                 else:
                     missing.append(key)
         if not missing:
+            return out
+        from gatekeeper_tpu_torch.resilience import overload as _overload
+
+        if _overload.current_brownout() >= 1 or \
+                _overload.degradation_active(_overload.EXTDATA_STALE):
+            # overload brownout (resilience/overload.py) — or a
+            # breaching SLO objective holding the extdata_stale
+            # degradation action: external-data joins are the expensive
+            # optional work degraded BEFORE any admission is shed —
+            # expired cache entries serve stale, keys never fetched
+            # flow into the placeholder failure policy
+            self._serve_stale(provider_name, missing, out,
+                              "overload brownout")
             return out
         breaker = self._breaker(provider_name)
         if not breaker.allow():

@@ -25,7 +25,7 @@ one pass, and every object lands in one of four outcome lanes:
     replaces the full M-mutator convergence loop.
 ``host``
     Everything else — matching host-only mutators, multiple interacting
-    mutators, error outcomes — runs the authoritative
+    mutators, error outcomes, chaos injection — runs the authoritative
     per-object reference path (``MutationSystem.mutate`` + diff), so
     mixed batches stay bit-identical by construction.
 
@@ -45,14 +45,16 @@ over the library corpus, including mixed batches with host fallback.
 Port of ``gatekeeper_tpu/mutlane/lane.py``: the prefilter's programs run
 on ``device`` (default ``"cuda"``) wherever the host numpy fast path does
 not decide a row.  The columnize lane is the dict walker; the raw-bytes
-ingest, the generation coordinator, metrics, tracing, cost attribution
-and the ``mutation.batch`` chaos point are not ported.
+ingest, the generation coordinator, metrics, the ``mutlane.compile`` and
+``mutlane.apply`` spans, cost attribution by match occupancy and the
+``mutation.batch`` chaos point are as in the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -180,13 +182,14 @@ class MutationLane:
 
     def __init__(self, system, differential: bool = False,
                  device: str = "cuda", ingest: str = "dict",
-                 coordinator=None):
+                 coordinator=None, metrics=None):
         from gatekeeper_tpu_torch import resolve_device
 
         if ingest not in self.INGEST_LANES:
             raise ValueError(f"unknown mutate ingest lane {ingest!r} "
                              f"(want one of {self.INGEST_LANES})")
         self.system = system
+        self.metrics = metrics
         self.differential = differential
         self.ingest = ingest
         self.device = resolve_device(device)
@@ -200,10 +203,17 @@ class MutationLane:
 
     # --- compile cache ----------------------------------------------------
     def _compile_now(self) -> _Compiled:
-        return _Compiled(self.system, device=self.device,
-                         flatten_lane=("differential"
-                                       if self.ingest == "differential"
-                                       else "auto"))
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("mutlane.compile",
+                          revision=self.system.revision()) as sp:
+            c = _Compiled(self.system, device=self.device,
+                          flatten_lane=("differential"
+                                        if self.ingest == "differential"
+                                        else "auto"))
+            sp.set_attribute("lowered", len(c.lowered))
+            sp.set_attribute("host_only", len(c.host_only))
+        return c
 
     def _install_compiled(self, c: _Compiled) -> None:
         with self._lock:
@@ -234,16 +244,42 @@ class MutationLane:
         """Classify + apply one burst; returns a
         :class:`MutationOutcome` per object.  ``namespaces`` is a
         parallel list of Namespace objects (or None)."""
-        outcomes = self._mutate_impl(objects, namespaces, source,
-                                     want_objects)
+        from gatekeeper_tpu_torch.observability import costattr, tracing
+
+        with tracing.span("mutlane.apply", n=len(objects),
+                          source=source) as sp:
+            t0 = time.perf_counter()
+            occ: dict = {}
+            outcomes = self._mutate_impl(objects, namespaces, source,
+                                         want_objects, occ_out=occ)
+            attr = costattr.active()
+            if attr is not None and occ:
+                # the shared lane pass splits across mutators by match
+                # occupancy (objects each mutator was relevant to)
+                attr.attribute(time.perf_counter() - t0,
+                               {k: 1.0 + v for k, v in occ.items()},
+                               costattr.EP_MUTATION,
+                               costattr.PHASE_APPLY, rows=occ)
+            lanes: dict = {}
+            for o in outcomes:
+                lanes[o.lane] = lanes.get(o.lane, 0) + 1
+            for lane, n in sorted(lanes.items()):
+                sp.set_attribute(f"lane_{lane}", n)
         if self.differential:
             self._assert_differential(objects, namespaces, source,
                                       outcomes)
         return outcomes
 
     def _mutate_impl(self, objects, namespaces, source,
-                     want_objects) -> list:
+                     want_objects, occ_out: Optional[dict] = None) -> list:
         import numpy as np
+
+        from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(M.MUTATION_BATCH)
 
         n = len(objects)
         if n == 0:
@@ -255,6 +291,14 @@ class MutationLane:
 
         def ns_of(oi):
             return namespaces[oi] if namespaces else None
+
+        try:
+            fault_point("mutation.batch", n=n)
+        except Exception:
+            # chaos: the batched program is "down" — every object takes
+            # the authoritative host path (graceful fallback, not loss)
+            return [self._host(objects[oi], ns_of(oi), source, "chaos")
+                    for oi in range(n)]
 
         rel_grid, batch = c.prefilter.relevance_and_batch(
             c.lowered, self._ingest_objects(objects))
@@ -281,6 +325,11 @@ class MutationLane:
                 except Exception:
                     raised[oi] = True
         rel = lmatch & rel_grid
+        if occ_out is not None:
+            for mi, m in enumerate(c.lowered):
+                occ_out[str(m.id)] = int(lmatch[mi].sum())
+            for hi, b in enumerate(c.host_only):
+                occ_out[str(b.id)] = int(hmatch[hi].sum())
         # lazy error split: the err program only runs for mutators that
         # actually have relevant objects in this burst
         err_rows: dict = {}
@@ -293,7 +342,7 @@ class MutationLane:
             obj = objects[oi]
             ns = ns_of(oi)
             if raised[oi]:
-                out.append(self._host(obj, ns, source))
+                out.append(self._host(obj, ns, source, "match"))
                 continue
             hits = np.nonzero(rel[:, oi])[0]
             ms = [c.lowered[int(mi)] for mi in hits]
@@ -306,7 +355,8 @@ class MutationLane:
                 if ms and not ms_ok:
                     # interacting lowered changes + matching host-only
                     # mutators: the full convergence loop owns it
-                    out.append(self._host(obj, ns, source))
+                    out.append(self._host(obj, ns, source,
+                                          "host_mutator"))
                     continue
                 # iteration-1 probe of the matching host-only mutators:
                 # solo-safety makes them independent of the lowered set,
@@ -328,7 +378,10 @@ class MutationLane:
             elif not ms_ok:
                 # several non-solo-safe mutators, an interacting one, or
                 # an error outcome
-                out.append(self._host(obj, ns, source))
+                reason = ("multi" if len(ms) > 1 else
+                          "error" if err_rows[int(hits[0])][oi]
+                          else "interacting")
+                out.append(self._host(obj, ns, source, reason))
                 continue
             m = ms[0]
             if len(ms) == 1 and c.scalar_path[m.id]:
@@ -338,6 +391,7 @@ class MutationLane:
                 out.append(self._solo_apply(m, obj, ns, source))
             else:
                 out.append(self._multi_apply(ms, obj, ns, source))
+        self._observe(out)
         return out
 
     def _ingest_objects(self, objects):
@@ -367,16 +421,21 @@ class MutationLane:
         for b in matching:
             try:
                 if b.mutate_obj(work):
-                    return self._host(obj, ns, source)
+                    return self._host(obj, ns, source, "host_mutator")
             except Exception:
-                return self._host(obj, ns, source)
+                return self._host(obj, ns, source, "host_mutator")
         return None
 
     # --- outcome lanes ----------------------------------------------------
-    def _host(self, obj, ns, source) -> MutationOutcome:
+    def _host(self, obj, ns, source, reason: str) -> MutationOutcome:
         """The authoritative per-object reference path: full fixed-point
         convergence + RFC-6902 diff (exactly what the per-object webhook
         handler does)."""
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(M.MUTATION_FALLBACK,
+                                     {"reason": reason})
         after = copy.deepcopy(obj)
         try:
             changed = self.system.mutate(after, namespace=ns,
@@ -437,7 +496,7 @@ class MutationLane:
             except Exception:
                 # the walk disagreed with the grid: the host reference
                 # path owns the outcome (and the exact message)
-                return self._host(obj, ns, source)
+                return self._host(obj, ns, source, "error")
         patch = json_patch(obj, work) or None
         if patch is None:
             return MutationOutcome(False, obj, None, None, "multi", 1)
@@ -453,17 +512,30 @@ class MutationLane:
         except Exception:
             # the grid said no error but the walk disagreed: the host
             # reference path owns the outcome (and the exact message)
-            return self._host(obj, ns, source)
+            return self._host(obj, ns, source, "error")
         if not changed:
             return MutationOutcome(False, obj, None, None, "solo", 1)
         patch = json_patch(obj, after) or None
         return MutationOutcome(True, after, patch, None, "solo", 2)
 
-    # --- differential -----------------------------------------------------
+    # --- metrics / differential -------------------------------------------
+    def _observe(self, outcomes) -> None:
+        if self.metrics is None:
+            return
+        from gatekeeper_tpu_torch.metrics import registry as M
+
+        ops = sum(len(o.patch) for o in outcomes if o.patch)
+        if ops:
+            self.metrics.inc_counter(M.MUTATION_PATCH_OPS, value=ops)
+        for o in outcomes:
+            if o.lane != "noop":
+                self.metrics.observe(M.MUTATION_CONVERGENCE,
+                                     o.iterations)
+
     def reference_outcome(self, obj, ns=None,
                           source: str = "") -> MutationOutcome:
         """The per-object reference path, exposed for differential
-        harnesses."""
+        harnesses (no fallback metric counted)."""
         after = copy.deepcopy(obj)
         try:
             changed = self.system.mutate(after, namespace=ns,

@@ -1476,6 +1476,9 @@ class Flattener:
         nthreads = self.nthreads \
             or int(os.environ.get("GTPU_FLATTEN_THREADS", "0") or 0) \
             or (os.cpu_count() or 1)
+        from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+        fault_point("ops.flatten_raw", n=len(items), nthreads=nthreads)
         import time as _time
         _t0 = _time.perf_counter()
         self.last_workers_used = 0
@@ -1606,6 +1609,9 @@ class Flattener:
             # bit-identity reference
             return None
         nw = len(bounds)
+        from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+        fault_point("ops.flatten_workers", n=len(items), workers=nw)
         t0 = _time.perf_counter()
         try:
             pool = get_flatten_pool(self.workers)

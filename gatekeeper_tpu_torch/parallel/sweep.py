@@ -42,9 +42,18 @@ the collect thread.  ``flatten_workers`` fans raw-lane chunks across
 ``ops/flatten.FlattenWorkerPool`` processes, forked when the evaluator is
 built (before any pipeline thread starts).
 
+Hooks, as in the JAX package: the ``ops.flatten.columnize``,
+``device.sweep_dispatch`` and ``device.sweep_collect`` spans (the dispatch
+span times the enqueue, the collect span the wait on the chunk's event),
+the flatten metrics, and the ``device.dispatch`` fault site, taken before
+the dispatch lock so a ``hang`` on one thread never blocks the overflow
+re-dispatch of another.  Cost attribution apportions each chunk's dispatch
+wall to templates by mask occupancy: the masks lane by the host masks'
+sums, the reduced lane by the ``occ`` half of the fused fold's packed word,
+read from the host copy the collect already fetched (no extra transfer).
+
 Not ported here: multi-device meshes, the stats branch of
-``pack_transfer_cols`` (wire narrowing), the differential collect lane,
-warm state, tracing/metrics/cost attribution.
+``pack_transfer_cols`` (wire narrowing), the differential collect lane.
 """
 
 from __future__ import annotations
@@ -64,10 +73,12 @@ from gatekeeper_tpu_torch.ir.program import (build_param_table, col_key,
                                              pack_batch_cols, slim_cols,
                                              vocab_tables)
 from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+from gatekeeper_tpu_torch.observability import costattr, tracing
 from gatekeeper_tpu_torch.ops import fold
 from gatekeeper_tpu_torch.ops.flatten import (Flattener, Schema,
                                               flatten_worker_spans,
                                               get_flatten_pool)
+from gatekeeper_tpu_torch.resilience.faults import fault_point
 
 
 COLLECT_LANES = ("reduced", "masks")
@@ -348,7 +359,8 @@ def gather_resident(idx: torch.Tensor, cols_dev: dict, mask_dev,
 class _PendingSweep:
     __slots__ = ("result", "kinds", "offsets", "by_kind", "n",
                  "return_bits", "lane", "pad_n", "hit_cap", "flat",
-                 "event", "host", "staging")
+                 "event", "host", "staging", "dispatch_wall",
+                 "attr_weights", "attr_rows")
 
     def __init__(self, result, kinds, offsets, by_kind, n, return_bits,
                  lane="masks", pad_n=0, hit_cap=0, flat=None):
@@ -372,6 +384,12 @@ class _PendingSweep:
         # page-locked upload staging of the chunk: kept alive until the
         # collect, after the event has fired
         self.staging = None
+        # cost attribution: the dispatch's wall (enqueue) and, on the masks
+        # lane, the per-template host mask occupancy weights (the reduced
+        # lane reads its weights off the device result at collect)
+        self.dispatch_wall = 0.0
+        self.attr_weights = None
+        self.attr_rows = None
 
     def ready(self) -> bool:
         """True when the device result needs no further wait."""
@@ -439,8 +457,10 @@ class SweepEvaluator:
 
     def __init__(self, driver, device: str = "cuda",
                  violations_limit: int = 20, flatten_lane: str = "auto",
-                 collect: str = "reduced", flatten_workers: int = 0):
+                 collect: str = "reduced", flatten_workers: int = 0,
+                 metrics=None):
         self.driver = driver
+        self.metrics = metrics
         self.device = resolve_device(device)
         self.violations_limit = violations_limit
         # how sweep chunks columnize (ops/flatten.py FLATTEN_LANES)
@@ -574,9 +594,22 @@ class SweepEvaluator:
         pad_n = self._pad(n)
         t0 = time.perf_counter()
         fl = self._flattener(schema)
-        batch = fl.flatten(objects, pad_n=pad_n)
-        self._perf_add("flatten", time.perf_counter() - t0)
+        with tracing.span("ops.flatten.columnize", n=n,
+                          lane=self.flatten_lane) as sp:
+            batch = fl.flatten(objects, pad_n=pad_n)
+            sp.set_attribute("lane_used", fl.lane_used)
+        dt = time.perf_counter() - t0
+        self._perf_add("flatten", dt)
         self._flatten_accounting(fl, n)
+        attr = costattr.active()
+        if attr is not None:
+            # the flatten splits across the templates whose union schema
+            # it served, by constraint count (rows are shared; columns are
+            # schema-driven)
+            attr.attribute(
+                dt, {k: float(len(by_kind[k])) for k in lowered},
+                costattr.EP_AUDIT, costattr.PHASE_FLATTEN)
+        self._flatten_metrics(fl, n, dt)
         cols = slim_cols(pack_batch_cols(batch),
                          self._needs_union(lowered, fl.alias,
                                            programs=programs))
@@ -603,6 +636,30 @@ class SweepEvaluator:
         if self.flatten_workers and \
                 len(flatten_worker_spans(n, self.flatten_workers)) > 1:
             self._perf_add("flatten_fanout_chunks", 1.0)
+
+    def _flatten_metrics(self, fl: Flattener, n: int, dt: float) -> None:
+        if self.metrics is None:
+            return
+        from gatekeeper_tpu_torch.metrics import registry as M
+
+        self.metrics.inc_counter(M.FLATTEN_LANE,
+                                 {"lane": fl.lane_used or "unknown"})
+        if dt > 0:
+            self.metrics.set_gauge(M.FLATTEN_OBJECTS_PER_SECOND, n / dt)
+        wu = getattr(fl, "last_workers_used", 0)
+        if wu:
+            self.metrics.set_gauge(M.FLATTEN_WORKER_COUNT, wu)
+            busy = fl.perf.get("worker_busy", 0.0)
+            if busy > 0:
+                # aggregate objects per worker-second
+                self.metrics.set_gauge(
+                    M.FLATTEN_WORKER_OBJECTS_PER_SECOND, n / busy)
+            self.metrics.set_gauge(M.FLATTEN_WORKER_MERGE_SECONDS,
+                                   fl.perf.get("worker_merge", 0.0))
+        fb = fl.perf.get("worker_fallbacks", 0.0)
+        if fb:
+            self.metrics.inc_counter(M.FLATTEN_WORKER_FALLBACKS,
+                                     value=float(fb))
 
     def sweep_flatten_from_batch(self, constraints: Sequence, batch,
                                  objects: Sequence[dict],
@@ -655,7 +712,22 @@ class SweepEvaluator:
         device gather + the device program.  {} passes through."""
         if not isinstance(flat, (_FlatChunk, _ResidentChunk)):
             return flat if isinstance(flat, dict) else {}
-        return self._sweep_dispatch_impl(flat, lane=self.collect)
+        t0 = time.perf_counter()
+        with tracing.span("device.sweep_dispatch", n=flat.n,
+                          kinds=len(flat.kinds), collect=self.collect):
+            pending = self._sweep_dispatch_impl(flat, lane=self.collect)
+        wall = time.perf_counter() - t0
+        pending.dispatch_wall = wall
+        attr = costattr.active()
+        if attr is not None and pending.attr_weights:
+            # the pass's wall apportioned by mask row occupancy: the
+            # per-template shares sum back to the span's wall.  The reduced
+            # lane's weights are None here; it attributes the same wall at
+            # collect, from the fused fold's occupancy counts
+            attr.attribute(wall, pending.attr_weights,
+                           costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
+                           rows=pending.attr_rows)
+        return pending
 
     def warm_state(self) -> dict:
         """The persistable warm state (drivers/generation.WarmStateCache):
@@ -780,11 +852,13 @@ class SweepEvaluator:
         return mask, budget
 
     def _sweep_dispatch_impl(self, flat, lane: str = "masks"):
+        if isinstance(flat, _ResidentChunk):
+            # the reduced collect's masks-lane overflow fallback re-enters
+            # here too
+            return self._dispatch_resident_impl(flat, lane=lane)
+        # before the lock: a hung dispatch must not hold it
+        fault_point("device.dispatch", lane="sweep", n=flat.n)
         with self._dispatch_lock:
-            if isinstance(flat, _ResidentChunk):
-                # the reduced collect's masks-lane overflow fallback
-                # re-enters here too
-                return self._dispatch_resident_impl(flat, lane=lane)
             kinds = flat.kinds
             pad_n = flat.pad_n
             progs = flat.programs if flat.programs is not None \
@@ -799,6 +873,12 @@ class SweepEvaluator:
                 for kind in kinds]
             self._perf_add("masks", time.perf_counter() - t0)
             plan = self._fold_plan(flat, lane, c_off)
+            attr_rows = None
+            if plan[0] != "reduced" and costattr.active() is not None:
+                # live (constraint, object) mask cells per template from
+                # the host masks; +1 keeps an all-masked template visible
+                attr_rows = {k: int(m.sum())
+                             for k, m in zip(kinds, mask_rows)}
             t0 = time.perf_counter()
             keep: list = []
             cols_dev = self._upload_cols(flat.cols, pad_n, keep)
@@ -815,6 +895,10 @@ class SweepEvaluator:
                              for i, kind in enumerate(kinds)], dim=0)
             pending = self._fold(flat, raw, mask, plan, budget, offsets)
             pending.staging = keep
+            if attr_rows is not None:
+                pending.attr_rows = attr_rows
+                pending.attr_weights = {k: 1.0 + r
+                                        for k, r in attr_rows.items()}
             self._perf_add("dispatch", time.perf_counter() - t0)
             return pending
 
@@ -827,6 +911,7 @@ class SweepEvaluator:
         on the budgeted reduced lane, the budget; each byte lands in
         ``perf["resident_h2d_bytes"]``, so a warm pass over unchanged rows
         reads 0."""
+        fault_point("device.dispatch", lane="sweep_resident", n=flat.n)
         with self._dispatch_lock:
             rg = flat.rg
             kinds = flat.kinds
@@ -1037,9 +1122,10 @@ class SweepEvaluator:
             return {}
         if isinstance(pending, dict):  # empty submit
             return pending
-        if pending.lane == "reduced":
-            return self._collect_reduced(pending)
-        return self._collect_masks(pending)
+        with tracing.span("device.sweep_collect", n=pending.n):
+            if pending.lane == "reduced":
+                return self._collect_reduced(pending)
+            return self._collect_masks(pending)
 
     def _collect_masks(self, pending):
         t0 = time.perf_counter()
@@ -1082,7 +1168,8 @@ class SweepEvaluator:
         return idx, valid
 
     def _collect_reduced(self, pending):
-        """Unpack one device-reduced chunk result; masks-lane fallback when
+        """Unpack one device-reduced chunk result; occupancy-weighted cost
+        attribution from the fused fold's ``occ``; masks-lane fallback when
         the hit buffer overflowed, adaptive buffer sizing for the chunks
         after it."""
         t0 = time.perf_counter()
@@ -1093,9 +1180,11 @@ class SweepEvaluator:
         if pad_n <= 0xFFFF:
             co = arr[:c_total].view(np.uint32)
             counts_all = (co & 0xFFFF).astype(np.int32)
+            occ_all = (co >> 16).astype(np.int32)
             base = c_total
         else:
             counts_all = arr[:c_total]
+            occ_all = arr[c_total: 2 * c_total]
             base = 2 * c_total
         nsel = int(arr[base])
         hits = arr[base + 1:]
@@ -1121,6 +1210,13 @@ class SweepEvaluator:
                 st["low"] = 0
             flat, pending.flat = pending.flat, None
             fb = self._sweep_dispatch_impl(flat, lane="masks")
+            attr = costattr.active()
+            if attr is not None and fb.attr_weights:
+                # the overflowed chunk's dispatch wall, by the host masks
+                # of its re-dispatch
+                attr.attribute(pending.dispatch_wall, fb.attr_weights,
+                               costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
+                               rows=fb.attr_rows)
             return self._collect_masks(fb)
         if complete and not st["pinned"]:
             # de-escalate a buffer the corpus stopped filling (16-chunk
@@ -1145,6 +1241,16 @@ class SweepEvaluator:
             kb = HitRows(sub, pad_n, n, ck) if complete else None
             out[kind] = (pending.by_kind[kind], idx_np, valid_np,
                          counts_all[lo:hi], kb)
+        attr = costattr.active()
+        if attr is not None and pending.dispatch_wall > 0:
+            # the device's occupancy counts apportion the dispatch wall as
+            # the masks lane's host sums do
+            rows = {kind: int(occ_all[lo:hi].sum())
+                    for kind, (lo, hi) in pending.offsets.items()}
+            attr.attribute(pending.dispatch_wall,
+                           {kind: 1.0 + r for kind, r in rows.items()},
+                           costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
+                           rows=rows)
         pending.flat = None
         self._perf_add("collect", time.perf_counter() - t0)
         return out

@@ -30,9 +30,10 @@ a one-core host — two GIL-hungry threads thrash):
 callers consult :func:`effective_cpu_count` and keep the serial schedule
 when the host cannot actually run stages in parallel.
 
-Copy of ``gatekeeper_tpu/pipeline/executor.py`` without its tracing spans
-and chaos fault points (the port has neither layer yet); a stage restart
-is logged through ``utils/logging.log_event``.
+Copy of ``gatekeeper_tpu/pipeline/executor.py`` with its chaos fault
+points (``pipeline.stage.<name>`` before each stage call) and without its
+tracing spans (not ported yet); a stage restart is logged through
+``utils/logging.log_event``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional, Sequence
 
+from gatekeeper_tpu_torch.resilience.faults import fault_point
 from gatekeeper_tpu_torch.utils.logging import log_event
 
 
@@ -312,6 +314,7 @@ class StagedPipeline:
                     attempt = 0
                     while True:
                         try:
+                            fault_point(f"pipeline.stage.{stage.name}")
                             out = stage.fn(item)
                             break
                         except _Aborted:

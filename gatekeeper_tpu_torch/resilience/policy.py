@@ -1,26 +1,29 @@
-"""Resilience policies: deadline budgets, jittered retry, circuit
-breakers.
+"""Unified resilience policies: deadline budgets, jittered retry,
+circuit breakers, graceful-degradation hooks.
 
-Copy of ``gatekeeper_tpu/resilience/policy.py`` (host-only).  The failure
-semantics of the reference are explicit (webhook failurePolicy fail-open
-or fail-closed, external-data failure policies with a TTL-cache fallback),
-so the failure machinery is one vocabulary:
+This replaces the stack's ad-hoc failure handling with one vocabulary
+(the reference's failure semantics are explicit — webhook failurePolicy
+fail-open/fail-closed, external-data failure policies with TTL-cache
+fallback, watch 410 resync — so the failure *machinery* should be too):
 
-- :class:`Deadline` — a wall-clock budget created per request and
-  propagated by contextvar (:func:`deadline_scope` /
-  :func:`current_deadline`), so every dependency call downstream bounds
-  its own waits by the request's remaining time.
+- :class:`Deadline` — a wall-clock budget created per admission request
+  and propagated by contextvar (:func:`deadline_scope` /
+  :func:`current_deadline`), so every dependency call downstream of the
+  webhook bounds its own waits by the request's remaining time.
 - :class:`RetryPolicy` — seeded-jitter exponential backoff with a
-  deadline cap.
+  deadline cap; retries count into
+  ``gatekeeper_resilience_retry_count{dependency}``.
 - :class:`CircuitBreaker` — closed → open on a failure run, open →
-  half-open after the reset timeout (bounded probes), half-open → closed
-  on probe success, back to open on probe failure.
+  half-open after the reset timeout (bounded probes), half-open →
+  closed on probe success / back to open on probe failure.  Transitions
+  count into
+  ``gatekeeper_resilience_breaker_transition_count{dependency,from,to}``
+  and the current state is the
+  ``gatekeeper_resilience_breaker_state{dependency}`` gauge
+  (0 closed, 1 half-open, 2 open).
 
 Everything takes an injectable ``clock`` so tests drive state machines
-without real sleeps, and a ``seed`` so jitter sequences replay.  The JAX
-package's metrics counters and tracing events are left out here (the port
-has no metrics registry or tracer yet); retries and breaker transitions
-are logged through ``utils.logging.log_event``.
+without real sleeps, and a ``seed`` so jitter sequences replay.
 """
 
 from __future__ import annotations
@@ -31,8 +34,6 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
-
-from gatekeeper_tpu_torch.utils.logging import log_event
 
 
 class DeadlineExceeded(Exception):
@@ -122,7 +123,7 @@ class RetryPolicy:
                  cap_s: float = 2.0, multiplier: float = 2.0,
                  jitter: float = 0.5, seed: int = 0,
                  sleep: Callable[[float], None] = time.sleep,
-                 dependency: str = ""):
+                 metrics=None, dependency: str = ""):
         if attempts < 1:
             raise ValueError("attempts must be >= 1")
         self.attempts = attempts
@@ -131,6 +132,7 @@ class RetryPolicy:
         self.multiplier = multiplier
         self.jitter = jitter
         self.dependency = dependency
+        self.metrics = metrics
         self._sleep = sleep
         self._rng = random.Random(seed)
         self._lock = threading.Lock()
@@ -157,6 +159,15 @@ class RetryPolicy:
         last: Optional[BaseException] = None
         for attempt in range(self.attempts):
             if deadline is not None and deadline.expired:
+                try:
+                    from gatekeeper_tpu_torch.observability import tracing
+
+                    tracing.add_event(
+                        "deadline_exceeded",
+                        dependency=self.dependency or "unknown",
+                        attempt=attempt)
+                except Exception:
+                    pass
                 raise DeadlineExceeded(
                     f"retry budget for {self.dependency or 'call'} "
                     "outlived the deadline") from last
@@ -175,22 +186,42 @@ class RetryPolicy:
                         if r <= 0:
                             raise
                         delay = min(delay, r)
-                self._log_retry(attempt, e)
+                self._count_retry(attempt, e)
                 if on_retry is not None:
                     on_retry(attempt, e)
                 self._sleep(delay)
         raise last  # unreachable (loop always returns or raises)
 
-    def _log_retry(self, attempt: int, exc: BaseException) -> None:
-        log_event("warning", "retrying after transient failure",
-                  event_type="resilience_retry",
-                  dependency=self.dependency, attempt=attempt + 1,
-                  error=str(exc))
+    def _count_retry(self, attempt: int, exc: BaseException) -> None:
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(
+                M.RESILIENCE_RETRIES,
+                {"dependency": self.dependency or "unknown"})
+        try:
+            from gatekeeper_tpu_torch.observability import tracing
+
+            tracing.add_event("retry",
+                              dependency=self.dependency or "unknown",
+                              attempt=attempt + 1, error=str(exc))
+        except Exception:
+            pass
+        try:
+            from gatekeeper_tpu_torch.utils.logging import log_event
+
+            log_event("warning", "retrying after transient failure",
+                      event_type="resilience_retry",
+                      dependency=self.dependency, attempt=attempt + 1,
+                      error=str(exc))
+        except Exception:
+            pass
 
 
 # --- circuit breaker ------------------------------------------------------
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
+_STATE_GAUGE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 class CircuitBreaker:
@@ -208,11 +239,13 @@ class CircuitBreaker:
     def __init__(self, dependency: str, failure_threshold: int = 5,
                  reset_timeout_s: float = 30.0, half_open_max: int = 1,
                  clock: Callable[[], float] = time.monotonic,
+                 metrics=None,
                  on_transition: Optional[Callable[[str, str], None]] = None):
         self.dependency = dependency
         self.failure_threshold = max(1, failure_threshold)
         self.reset_timeout_s = reset_timeout_s
         self.half_open_max = max(1, half_open_max)
+        self.metrics = metrics
         self.on_transition = on_transition
         self._clock = clock
         self._lock = threading.Lock()
@@ -220,6 +253,7 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at = 0.0
         self._probes = 0
+        self._set_gauge()
 
     @property
     def state(self) -> str:
@@ -291,9 +325,37 @@ class CircuitBreaker:
             self._probes = 0
         if new == CLOSED:
             self._failures = 0
-        log_event("warning", "circuit breaker transition",
-                  event_type="breaker_transition",
-                  dependency=self.dependency,
-                  breaker_from=old, breaker_to=new)
+        self._set_gauge()
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(
+                M.RESILIENCE_BREAKER_TRANSITIONS,
+                {"dependency": self.dependency, "from": old, "to": new})
+        try:
+            from gatekeeper_tpu_torch.observability import tracing
+
+            tracing.add_event("breaker_transition",
+                              dependency=self.dependency,
+                              breaker_from=old, breaker_to=new)
+        except Exception:
+            pass
+        try:
+            from gatekeeper_tpu_torch.utils.logging import log_event
+
+            log_event("warning", "circuit breaker transition",
+                      event_type="breaker_transition",
+                      dependency=self.dependency,
+                      breaker_from=old, breaker_to=new)
+        except Exception:
+            pass
         if self.on_transition is not None:
             self.on_transition(old, new)
+
+    def _set_gauge(self) -> None:
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.set_gauge(M.RESILIENCE_BREAKER_STATE,
+                                   _STATE_GAUGE[self._state],
+                                   {"dependency": self.dependency})

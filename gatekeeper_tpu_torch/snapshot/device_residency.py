@@ -33,8 +33,10 @@ buffer it writes.  A generation swap calls :meth:`DeviceResidency.
 invalidate` (``GenerationCoordinator.attach_residency``), freeing the old
 programs' mirrors at once; a group adopted from a disk spill is a new
 store whose ``layout_version`` moved, so its first ``prepare`` uploads it
-whole.  Not ported: the multi-chip check and the SLO eviction trigger
-(``resilience/overload``).
+whole.  The ``device_residency_evict`` degradation (an SLO breach,
+``resilience/overload``) demotes every group to host columns until it
+releases; uploads and patches run under the ``snapshot.residency.upload``
+and ``snapshot.residency.patch`` spans.  Not ported: the multi-chip check.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from gatekeeper_tpu_torch.ir import masks as masks_mod
 from gatekeeper_tpu_torch.ir.program import (extdata_key_cols,
                                              pack_batch_cols, slim_cols)
 from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+from gatekeeper_tpu_torch.observability import tracing
 from gatekeeper_tpu_torch.parallel.sweep import (pack_transfer_cols,
                                                  torch_dtype)
 from gatekeeper_tpu_torch.utils.logging import log_event
@@ -147,6 +150,7 @@ class DeviceResidency:
         self.patch_count = 0     # scatter-patch syncs
         self.patched_rows = 0    # rows those patches wrote or cleared
         self.evictions = 0
+        self._evicted_by_slo = False
 
     # --- availability ----------------------------------------------------
     def _log_fallback(self, reason: str, **fields) -> None:
@@ -168,6 +172,18 @@ class DeviceResidency:
             self._log_fallback("no CUDA device (mode=auto on a "
                                f"{ev.device.type} evaluator)")
             return False
+        from gatekeeper_tpu_torch.resilience.overload import (
+            DEVICE_RESIDENCY_EVICT, degradation_active)
+
+        if degradation_active(DEVICE_RESIDENCY_EVICT):
+            # a breaching SLO objective demotes every group to host
+            # columns until the action releases (re-upload is lazy)
+            if not self._evicted_by_slo:
+                self._evicted_by_slo = True
+                self.evict_all("slo degradation "
+                               "(device_residency_evict active)")
+            return False
+        self._evicted_by_slo = False
         return True
 
     # --- eviction --------------------------------------------------------
@@ -231,6 +247,17 @@ class DeviceResidency:
         return bufs, layout, batch, objects
 
     def _upload(self, store, rg: ResidentGroup) -> None:
+        with tracing.span("snapshot.residency.upload",
+                          rows=len(store.live_positions()), cap=store.cap):
+            self._upload_rows(store, rg)
+
+    def _patch(self, store, rg: ResidentGroup) -> None:
+        with tracing.span("snapshot.residency.patch",
+                          rows=sum(1 for p in store.patched
+                                   if p < store.n_rows)):
+            self._patch_rows(store, rg)
+
+    def _upload_rows(self, store, rg: ResidentGroup) -> None:
         """Full upload: the tall packed buffers (one copy per dtype) and
         the complete mask mirror.  Paid once per layout generation (first
         pass, capacity growth, ragged widening, compaction, re-chunk)."""
@@ -262,7 +289,7 @@ class DeviceResidency:
         self.evaluator._perf_add("resident_h2d_bytes", float(nbytes))
         self.evaluator._perf_add("resident_uploads", 1.0)
 
-    def _patch(self, store, rg: ResidentGroup) -> None:
+    def _patch_rows(self, store, rg: ResidentGroup) -> None:
         """Scatter-patch the dirty rows: sliver columns land with
         ``index_copy_`` and sliver masks with an indexed write; a dead row
         only clears its mask column.  The upload is O(patched rows)."""

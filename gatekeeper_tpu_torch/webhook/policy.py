@@ -13,9 +13,13 @@ Requests funnel into a **microbatching lane** (:class:`Batcher`) that
 coalesces concurrent admissions into one ``review_batch`` call, whose
 lowered kinds evaluate as one verdict grid per template on the device.
 
-Not ported yet: overload/QoS, shadow, the flight recorder, cost
-attribution, tracing, deadlines, metrics, the snapshot lookup, the fleet
-cluster label and validation traces.
+The served process's hooks sit around the review as in the JAX package:
+the overload/QoS gate with its failurePolicy shed answers, the deadline
+guard, the flight recorder, per-tenant cost records, request metrics, the
+``webhook.review`` span and fault site, the batcher's spans and its
+deadline check while a request is queued, and the ``ns_cache_stale``
+degradation of namespace lookups.  Not ported yet: the shadow lane, the
+snapshot namespace lookup, the fleet cluster label and validation traces.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from gatekeeper_tpu_torch.mutation.mutators import (
 from gatekeeper_tpu_torch.target.review import (AdmissionRequest,
                                                 AugmentedReview,
                                                 AugmentedUnstructured)
-from gatekeeper_tpu_torch.utils.logging import log_deny
+from gatekeeper_tpu_torch.utils.logging import log_deny, log_event
 from gatekeeper_tpu_torch.utils.unstructured import gvk_of
 
 GATEKEEPER_SA_PREFIX = "system:serviceaccount:gatekeeper-system:"
@@ -55,6 +59,9 @@ class ValidationResponse:
     code: int = 200
     warnings: list = field(default_factory=list)
     uid: str = ""
+    # shed under failurePolicy=Fail: the server emits an HTTP Retry-After
+    # header with this hint (0 = no header)
+    retry_after_s: float = 0.0
 
 
 def parse_admission_review(body: dict) -> AdmissionRequest:
@@ -85,6 +92,9 @@ class ValidationHandler:
         log_denies: bool = False,
         failure_policy: str = "fail",  # "ignore" | "fail"
         expansion_system=None,  # expansion.ExpansionSystem
+        metrics=None,  # metrics.registry.MetricsRegistry
+        deadline_budget_s: float = 0.0,  # hard per-request wall budget
+        overload=None,  # resilience.overload.OverloadController
     ):
         self.client = client
         # generator objects' resultants are reviewed with the request
@@ -94,15 +104,281 @@ class ValidationHandler:
         self.namespace_lookup = namespace_lookup or (lambda name: None)
         self.batcher = batcher
         self.log_denies = log_denies
+        self.metrics = metrics
         # failurePolicy (reference ValidatingWebhookConfiguration
         # failurePolicy): Ignore fails open, Fail fails closed
         if failure_policy not in ("ignore", "fail"):
             raise ValueError(f"failure_policy must be ignore|fail, "
                              f"got {failure_policy!r}")
         self.failure_policy = failure_policy
+        self.fail_open = failure_policy == "ignore"
+        # deadline budget: 0 disables the guard (the review runs inline on
+        # the server's handler thread)
+        self.deadline_budget_s = float(deadline_budget_s or 0.0)
+        # overload protection (resilience/overload.py): the admission gate
+        # in front of the review, plus the caches its brownout ladder
+        # degrades onto — a bounded stale namespace-lookup cache and a
+        # per-kind matched-constraint estimate for the cost model
+        self.overload = overload
+        self._ns_stale: dict = {}
+        self._kind_est: dict = {}
+        self._kind_est_total = -1
 
     # --- the handler (reference: validationHandler.Handle, policy.go:139) -
-    def handle(self, review_body: dict) -> ValidationResponse:
+    def handle(self, review_body: dict,
+               cost_hint: int = 0) -> ValidationResponse:
+        cost = 0.0
+        tenant, lane = self._route(review_body)
+        t0 = time.perf_counter()
+        if self.overload is not None:
+            from gatekeeper_tpu_torch.resilience.overload import (
+                Shed, estimate_cost)
+
+            try:
+                cost = estimate_cost(review_body, cost_hint,
+                                     self._constraint_estimate)
+                # QoS kwargs only when routing produced a lane: plain gates
+                # keep their admit(cost) shape
+                gate = (self.overload.admit(cost, tenant=tenant,
+                                            priority=lane)
+                        if lane is not None
+                        else self.overload.admit(cost))
+                with gate:
+                    resp = self._counted(review_body)
+            except Shed as shed:
+                resp = self._shed_response(review_body, shed)
+                self._record_decision(review_body, resp, cost,
+                                      shed_reason=shed.reason,
+                                      tenant=tenant, lane=lane)
+                self._attr_tenant(tenant, time.perf_counter() - t0, cost)
+                return resp
+        else:
+            resp = self._counted(review_body)
+        self._record_decision(review_body, resp, cost,
+                              tenant=tenant, lane=lane)
+        self._attr_tenant(tenant, time.perf_counter() - t0, cost)
+        return resp
+
+    def _route(self, review_body: dict) -> tuple:
+        """(tenant, PriorityLevel-or-None) for this request: the QoS
+        routing when the controller carries a QoS config, else the plain
+        namespace/serviceaccount tenant key — the attribution axis of the
+        flight recorder and the cost grid, present with or without QoS."""
+        route = getattr(self.overload, "route", None)
+        if route is not None:
+            tenant, lane = route(review_body)
+            if lane is not None:
+                return tenant, lane
+        from gatekeeper_tpu_torch.observability import costattr, flightrec
+        from gatekeeper_tpu_torch.resilience.qos import tenant_of_request
+
+        if flightrec.active() is None and costattr.active() is None:
+            return "", None  # nobody consumes the axis: skip the lookup
+        return tenant_of_request(review_body.get("request") or {}), None
+
+    def _attr_tenant(self, tenant: str, seconds: float,
+                     cost: float) -> None:
+        """Per-tenant admission cost attribution (the ``{tenant}`` axis
+        on ``gatekeeper_constraint_eval_seconds``): one wall-time sample
+        per admission, charged to the request's tenant."""
+        if not tenant:
+            return
+        from gatekeeper_tpu_torch.observability import costattr
+
+        attr = costattr.active()
+        if attr is not None:
+            attr.record_tenant(tenant, costattr.EP_WEBHOOK, seconds,
+                               cost=cost)
+
+    def _record_decision(self, review_body: dict, resp,
+                         cost: float = 0.0, shed_reason: str = "",
+                         tenant: str = "", lane=None) -> None:
+        """Flight-recorder seam: one structured entry per decision (a
+        no-op without an installed recorder)."""
+        from gatekeeper_tpu_torch.observability import flightrec
+
+        rec = flightrec.active()
+        if rec is None:
+            return
+        req = review_body.get("request") or {}
+        if shed_reason:
+            decision = "shed"
+        elif resp.allowed:
+            decision = "allow"
+        elif resp.code == 500:
+            decision = "error"
+        elif resp.code == 504:
+            decision = "deadline"
+        else:
+            decision = "deny"
+        rec.record(
+            "validate", decision,
+            uid=resp.uid or req.get("uid", "") or "",
+            obj_kind=(req.get("kind") or {}).get("kind", ""),
+            name=req.get("name", "") or "",
+            namespace=req.get("namespace", "") or "",
+            operation=req.get("operation", "") or "",
+            message=resp.message,
+            cost=cost,
+            reason=shed_reason,
+            warnings=len(resp.warnings or []),
+            code=resp.code if not resp.allowed else 0,
+            overload=self.overload,
+            tenant=tenant,
+            priority=getattr(lane, "name", "") or "",
+            # capture mode: the raw admission request rides the JSONL
+            # sink line (never the ring)
+            request=(req if getattr(rec, "capture", False) else None),
+        )
+
+    def _counted(self, review_body: dict) -> ValidationResponse:
+        if self.metrics is None:
+            return self._guarded(review_body)
+        from gatekeeper_tpu_torch.metrics import registry as m
+
+        status = "error"  # count even when _handle itself raises
+        try:
+            with self.metrics.timed(m.REQUEST_DURATION):
+                resp = self._guarded(review_body)
+            if not resp.allowed and resp.code == 500:
+                status = "error"  # internal error surfaced as Errored deny
+            else:
+                status = "allow" if resp.allowed else "deny"
+            return resp
+        finally:
+            self.metrics.inc_counter(m.REQUEST_COUNT,
+                                     {"admission_status": status})
+
+    # --- overload plumbing ------------------------------------------------
+    def _constraint_estimate(self, kind: str) -> int:
+        """Matched-constraint count per kind for the admission cost model
+        (cost = object bytes x this).  Cached until the constraint count
+        changes; an estimate, not a matcher — namespaces and labels are
+        not consulted."""
+        cons = self.client.constraints()
+        if self._kind_est_total != len(cons):
+            self._kind_est_total = len(cons)
+            self._kind_est.clear()
+        n = self._kind_est.get(kind)
+        if n is None:
+            n = 0
+            for c in cons:
+                entries = (c.match or {}).get("kinds") or []
+                if not entries:
+                    n += 1
+                    continue
+                for e in entries:
+                    ks = e.get("kinds") or []
+                    if not ks or "*" in ks or kind in ks:
+                        n += 1
+                        break
+            n = max(1, n)
+            self._kind_est[kind] = n
+        return n
+
+    def _shed_response(self, review_body: dict, shed) -> ValidationResponse:
+        """Shed semantics == deadline-miss semantics: the request's
+        failurePolicy decides (Ignore = allow + warning annotation,
+        Fail = deny 429 with Retry-After)."""
+        uid = ((review_body.get("request") or {}).get("uid", "")) or ""
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("webhook.shed", uid=uid, reason=shed.reason,
+                          policy=self.failure_policy):
+            pass
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as m
+
+            self.metrics.inc_counter(m.REQUEST_COUNT,
+                                     {"admission_status": "shed"})
+        log_event("warning", "admission request shed under overload",
+                  event_type="overload_shed_resolved",
+                  shed_reason=shed.reason,
+                  failure_policy=self.failure_policy)
+        if self.fail_open:
+            return ValidationResponse(
+                allowed=True, uid=uid,
+                warnings=[
+                    f"gatekeeper shed this request under overload "
+                    f"({shed.reason}); failurePolicy=Ignore admitted it "
+                    f"unreviewed"],
+            )
+        return ValidationResponse(
+            allowed=False, uid=uid, code=429,
+            message=(f"gatekeeper shed this request under overload "
+                     f"({shed.reason}) (failurePolicy=Fail); retry after "
+                     f"{shed.retry_after_s:.0f}s"),
+            retry_after_s=shed.retry_after_s or 1.0,
+        )
+
+    def _guarded(self, review_body: dict) -> ValidationResponse:
+        """Deadline-budget guard (reference: the apiserver's webhook
+        ``timeoutSeconds`` enforced server-side so the ANSWER — not the
+        apiserver's socket timeout — honors failurePolicy).  The review
+        runs on a helper thread with the budget propagated by contextvar
+        (dependencies bound their own waits by it); if the budget expires
+        the request resolves per failurePolicy immediately: Ignore allows
+        with a warning annotation, Fail denies with reason.  A timed-out
+        review thread finishes in the background and its result is
+        dropped."""
+        if self.deadline_budget_s <= 0:
+            return self._handle(review_body)
+        from gatekeeper_tpu_torch.observability import tracing
+        from gatekeeper_tpu_torch.resilience.policy import (Deadline,
+                                                            deadline_scope)
+
+        dl = Deadline(self.deadline_budget_s)
+        done = threading.Event()
+        slot: dict = {}
+        parent_span = tracing.current_span()  # request span -> helper thread
+
+        def run():
+            try:
+                with tracing.use_span(parent_span), deadline_scope(dl):
+                    slot["resp"] = self._handle(review_body)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                slot["err"] = e
+            finally:
+                done.set()
+
+        threading.Thread(target=run, daemon=True,
+                         name="admit-deadline").start()
+        if done.wait(dl.remaining()):
+            err = slot.get("err")
+            if err is not None:
+                raise err
+            return slot["resp"]
+        uid = ((review_body.get("request") or {}).get("uid", "")) or ""
+        tracing.add_event("deadline_exceeded", component="webhook",
+                          policy=self.failure_policy,
+                          budget_s=self.deadline_budget_s)
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as m
+
+            self.metrics.inc_counter(
+                m.RESILIENCE_DEADLINE_EXCEEDED,
+                {"component": "webhook", "policy": self.failure_policy})
+        log_event("warning", "admission deadline budget exceeded",
+                  event_type="deadline_exceeded",
+                  deadline_budget_s=self.deadline_budget_s,
+                  failure_policy=self.failure_policy)
+        if self.fail_open:
+            return ValidationResponse(
+                allowed=True, uid=uid,
+                warnings=[
+                    f"gatekeeper review exceeded its "
+                    f"{self.deadline_budget_s:.3f}s deadline budget; "
+                    f"failurePolicy=Ignore admitted the request "
+                    f"unreviewed"],
+            )
+        return ValidationResponse(
+            allowed=False, uid=uid, code=504,
+            message=(f"gatekeeper review exceeded its "
+                     f"{self.deadline_budget_s:.3f}s deadline budget "
+                     f"(failurePolicy=Fail)"),
+        )
+
+    def _handle(self, review_body: dict) -> ValidationResponse:
         req = parse_admission_review(review_body)
         username = (req.user_info or {}).get("username", "")
 
@@ -121,7 +397,7 @@ class ValidationHandler:
             if self.process_excluder.is_excluded("webhook", req.namespace):
                 return ValidationResponse(allowed=True, uid=req.uid)
 
-        ns_obj = self.namespace_lookup(req.namespace) if req.namespace \
+        ns_obj = self._lookup_namespace(req.namespace) if req.namespace \
             else None
         augmented = AugmentedReview(
             admission_request=req, namespace=ns_obj,
@@ -133,7 +409,7 @@ class ValidationHandler:
             # admission.Errored equivalent (policy.go:664-668): a
             # well-formed allowed=false code-500 response under
             # failurePolicy=Fail; Ignore admits with a warning
-            if self.failure_policy == "ignore":
+            if self.fail_open:
                 return ValidationResponse(
                     allowed=True, uid=req.uid,
                     warnings=[f"review failed: {e}"],
@@ -184,10 +460,47 @@ class ValidationHandler:
             )
         return ValidationResponse(allowed=True, warnings=warns, uid=req.uid)
 
+    def _lookup_namespace(self, name: str):
+        """Namespace lookup with brownout degradation: at brownout level
+        >= 1 — or while a breaching SLO objective holds the
+        ``ns_cache_stale`` degradation action — the lookup is skipped and
+        the last-seen value serves STALE: the first rung of the ladder,
+        degraded before any request is shed."""
+        from gatekeeper_tpu_torch.resilience import overload as _ovl
+
+        degraded = (self.overload is not None
+                    and self.overload.brownout_level() >= 1) or \
+            _ovl.degradation_active(_ovl.NS_CACHE_STALE)
+        if degraded and name in self._ns_stale:
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as m
+
+                self.metrics.inc_counter(
+                    m.RESILIENCE_STALE_SERVED,
+                    {"dependency": "webhook/namespace_lookup"})
+            return self._ns_stale[name]
+        ns_obj = self.namespace_lookup(name)
+        if self.overload is not None or \
+                _ovl.active_degradations() is not None:
+            if len(self._ns_stale) >= 4096 and name not in self._ns_stale:
+                self._ns_stale.pop(next(iter(self._ns_stale)))
+            self._ns_stale[name] = ns_obj
+        return ns_obj
+
     def _review(self, augmented):
-        if self.batcher is not None:
-            return self.batcher.review(augmented)
-        return self.client.review(augmented, enforcement_point=WEBHOOK_EP)
+        req = augmented.admission_request
+        from gatekeeper_tpu_torch.observability import tracing as otel
+
+        with otel.span("webhook.review", uid=req.uid,
+                       kind=(req.kind or {}).get("kind", "")):
+            from gatekeeper_tpu_torch.resilience.faults import fault_point
+
+            fault_point("webhook.review", uid=req.uid,
+                        kind=(req.kind or {}).get("kind", ""))
+            if self.batcher is not None:
+                return self.batcher.review(augmented)
+            return self.client.review(augmented,
+                                      enforcement_point=WEBHOOK_EP)
 
     # --- deny/warn partition (reference: getValidationMessages,
     # policy.go:205-355) --------------------------------------------------
@@ -260,11 +573,15 @@ class Batcher:
     size (written by the batcher thread only)."""
 
     def __init__(self, client, window_s: float = 0.003, max_batch: int = 64,
-                 stats: bool = False, small_batch: Optional[int] = None):
+                 stats: bool = False, small_batch: Optional[int] = None,
+                 metrics=None):
         self.client = client
         self.window_s = window_s
         self.max_batch = max_batch
         self.stats = stats
+        # serving-lane contention: how long each review sat queued before
+        # its batch ran, and the coalesced batch sizes
+        self.metrics = metrics
         self.small_batch = 8 if small_batch is None else small_batch
         self.lane_counts: Counter = Counter()
         self.batch_sizes: Counter = Counter()
@@ -293,15 +610,44 @@ class Batcher:
         return self._queue.qsize()
 
     def review(self, augmented):
+        from gatekeeper_tpu_torch.observability import tracing
+        from gatekeeper_tpu_torch.resilience.policy import (
+            DeadlineExceeded, current_deadline)
+
         done = threading.Event()
         slot: dict = {}
-        self._queue.put((augmented, done, slot))
-        done.wait()
+        # the caller's span rides the queue entry so the batch thread's
+        # flush span can parent into the request's trace (cross-thread
+        # propagation is explicit — contextvars don't cross the lane)
+        with tracing.span("webhook.batcher.enqueue") as sp:
+            self._queue.put((augmented, done, slot, time.perf_counter(),
+                             tracing.current_span()))
+            dl = current_deadline()
+            timeout = None if dl is None else dl.remaining()
+            if not done.wait(timeout):
+                # the request's deadline budget expired while queued (or on
+                # the device): abandon the slot — the batch loop still sets
+                # it later, nobody is waiting
+                sp.add_event("deadline_exceeded", component="batcher")
+                raise DeadlineExceeded("batched review outlived the "
+                                       "request deadline budget")
         if "error" in slot:
             raise slot["error"]
         return slot["responses"]
 
+    def _observe_batch(self, batch) -> None:
+        if self.metrics is None:
+            return
+        from gatekeeper_tpu_torch.metrics import registry as m
+
+        now = time.perf_counter()
+        self.metrics.observe(m.WEBHOOK_BATCH_SIZE, len(batch))
+        for entry in batch:
+            self.metrics.observe(m.WEBHOOK_QUEUE_WAIT, now - entry[3])
+
     def _loop(self):
+        from gatekeeper_tpu_torch.observability import tracing
+
         while True:
             try:
                 first = self._queue.get(timeout=0.05)
@@ -330,26 +676,35 @@ class Batcher:
                         batch.append(self._queue.get(timeout=timeout))
                     except queue.Empty:
                         break
+            self._observe_batch(batch)
             lane = "interp" if len(batch) <= self.small_batch else "grid"
             self.lane_counts[lane] += 1
             self.batch_sizes[len(batch)] += 1
-            if lane == "interp":
-                # per-review exact interpreter: each slot completes as
-                # soon as ITS review finishes (no head-of-line wait)
-                for aug, done, slot in batch:
-                    try:
-                        slot["responses"] = self.client.review(
-                            aug, enforcement_point=WEBHOOK_EP,
-                            stats=self.stats)
-                    except Exception as e:
-                        slot["error"] = e
-                    done.set()
-                continue
             try:
-                all_responses = self.client.review_batch(
-                    [b[0] for b in batch], enforcement_point=WEBHOOK_EP,
-                    stats=self.stats)
-                for (_, done, slot), responses in zip(batch, all_responses):
+                # the flush span lives on the batch thread, parented into
+                # the FIRST entry's trace (its request waited longest); the
+                # other coalesced requests are recorded by count
+                with tracing.span("webhook.batcher.flush",
+                                  parent=batch[0][4],
+                                  batch_size=len(batch), lane=lane):
+                    if lane == "interp":
+                        # per-review exact interpreter: each slot completes
+                        # as soon as ITS review finishes (no head-of-line
+                        # wait)
+                        for aug, done, slot, _t, _sp in batch:
+                            try:
+                                slot["responses"] = self.client.review(
+                                    aug, enforcement_point=WEBHOOK_EP,
+                                    stats=self.stats)
+                            except Exception as e:
+                                slot["error"] = e
+                            done.set()
+                        continue
+                    all_responses = self.client.review_batch(
+                        [b[0] for b in batch], enforcement_point=WEBHOOK_EP,
+                        stats=self.stats)
+                for (_, done, slot, _t, _sp), responses in zip(
+                        batch, all_responses):
                     # per-slot isolation: one bad request must not poison
                     # the coalesced batch (review_batch returns Exception
                     # entries)
@@ -359,6 +714,6 @@ class Batcher:
                         slot["responses"] = responses
                     done.set()
             except Exception as e:
-                for _, done, slot in batch:
+                for _, done, slot, _t, _sp in batch:
                     slot["error"] = e
                     done.set()

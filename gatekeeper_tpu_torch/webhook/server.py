@@ -10,8 +10,17 @@ is optional (``certfile``/``keyfile``).  ``reuse_port`` binds with
 ``SO_REUSEPORT``, so the replicas of ``--webhook-workers`` share one port
 and the kernel spreads connections over them.
 
-Not ported yet: ``/metrics`` and the ``/debug/*`` surface (they answer
-404), tracing, mTLS and cert rotation.
+Beside them the observability surface: ``/metrics`` (Prometheus text, or
+OpenMetrics with exemplars when the scraper asks), ``/debug/profile``
+(with ``enable_profile``), ``/debug/traces``, ``/debug/cost``,
+``/debug/slo``, ``/debug/decisions`` and ``/debug/overload``; each answers
+404 until its piece is enabled.  Every POST runs under a
+``webhook.request`` span that takes in and echoes a W3C ``traceparent``,
+with the ``webhook.request`` fault site inside it.  A shed answer under
+failurePolicy=Fail carries ``Retry-After``.
+
+Not ported yet: ``/debug/shadow`` (the shadow lane), mTLS and cert
+rotation.
 """
 
 from __future__ import annotations
@@ -24,11 +33,21 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs, urlparse
+
+from gatekeeper_tpu_torch.observability import tracing
 
 ADMIT_PATH = "/v1/admit"
 MUTATE_PATH = "/v1/mutate"
 ADMIT_LABEL_PATH = "/v1/admitlabel"
 HEALTH_PATH = "/healthz"
+METRICS_PATH = "/metrics"
+PROFILE_PATH = "/debug/profile"
+TRACES_PATH = "/debug/traces"
+COST_PATH = "/debug/cost"
+SLO_PATH = "/debug/slo"
+DECISIONS_PATH = "/debug/decisions"
+OVERLOAD_PATH = "/debug/overload"
 MAX_BODY_BYTES = 64 * 1024 * 1024  # the apiserver's admission payload bound
 
 
@@ -66,22 +85,53 @@ class WebhookServer:
         batcher=None,  # Batcher to drain inside stop() (zero-loss shutdown)
         mutation_batcher=None,  # MutationBatcher, drained the same way
         reuse_port: bool = False,  # SO_REUSEPORT multi-process serving
+        readiness_check=None,  # callable -> bool
+        metrics=None,  # MetricsRegistry for /metrics exposition
+        enable_profile: bool = False,  # pprof-equivalent /debug/profile
+        backlog: int = 128,  # --webhook-backlog: kernel accept queue
+        cost_attribution=None,  # CostAttribution for /debug/cost
+        slo_engine=None,  # SLOEngine for /debug/slo
+        flight_recorder=None,  # FlightRecorder for /debug/decisions
     ):
         self.validation_handler = validation_handler
         self.namespace_label_handler = namespace_label_handler
         self.mutation_handler = mutation_handler
         self.batcher = batcher
         self.mutation_batcher = mutation_batcher
-        # graceful drain: once set, /healthz answers 503 {"draining": true}
-        # and every reply closes its connection
+        self.readiness_check = readiness_check
+        self.metrics = metrics
+        self.enable_profile = enable_profile
+        # the debug surface next to /metrics: explicit instances win; None
+        # falls back to the process-global actives
+        self._cost_attribution = cost_attribution
+        self._slo_engine = slo_engine
+        self._flight_recorder = flight_recorder
+        # graceful drain (resilience/overload.DrainCoordinator drives the
+        # process view; this event is the server-local view): once set,
+        # /healthz answers 503 {"draining": true} and every reply closes
+        # its connection
         self._draining = threading.Event()
+        # admissions being handled by this process and the high-water mark
+        # (each --webhook-workers replica exports its own)
         self._inflight = 0
+        self._inflight_highwater = 0
         self._inflight_lock = threading.Lock()
         outer = self
 
         def _track_inflight(delta: int) -> None:
+            # always counted (the drain waits on it), exported only with
+            # a metrics registry
             with outer._inflight_lock:
                 outer._inflight += delta
+                if outer._inflight > outer._inflight_highwater:
+                    outer._inflight_highwater = outer._inflight
+                cur, hi = outer._inflight, outer._inflight_highwater
+            if outer.metrics is None:
+                return
+            from gatekeeper_tpu_torch.metrics import registry as m
+
+            outer.metrics.set_gauge(m.WEBHOOK_INFLIGHT, cur)
+            outer.metrics.set_gauge(m.WEBHOOK_INFLIGHT_HIGHWATER, hi)
 
         class Handler(BaseHTTPRequestHandler):
             # HTTP/1.1 keep-alive: the default 1.0 closes the connection
@@ -101,10 +151,127 @@ class WebhookServer:
                     if outer._draining.is_set():
                         self._reply(503, {"ready": False, "draining": True},
                                     close=True)
+                        return
+                    ready = (outer.readiness_check is None
+                             or outer.readiness_check())
+                    self._reply(200 if ready else 503, {"ready": bool(ready)})
+                elif self.path.startswith(PROFILE_PATH) and \
+                        outer.enable_profile:
+                    self._profile()
+                elif self.path == TRACES_PATH:
+                    # the tail-sampled span ring (Tracer.snapshot)
+                    tracer = tracing.active_tracer()
+                    if tracer is None:
+                        self._reply(404, {"error": "tracing not enabled "
+                                                   "(run with --trace)"})
                     else:
-                        self._reply(200, {"ready": True})
+                        self._reply(200, tracer.snapshot())
+                elif self.path == COST_PATH:
+                    from gatekeeper_tpu_torch.observability import costattr
+
+                    attr = outer._cost_attribution or costattr.active()
+                    if attr is None:
+                        self._reply(404, {"error": "cost attribution not "
+                                                   "enabled (run with "
+                                                   "--cost-attribution on)"})
+                    else:
+                        self._reply(200, attr.snapshot())
+                elif self.path == SLO_PATH or \
+                        self.path.startswith(SLO_PATH + "?"):
+                    eng = outer._slo_engine
+                    if eng is None:
+                        self._reply(404, {"error": "SLO engine not "
+                                                   "enabled (run with "
+                                                   "--slo on)"})
+                    else:
+                        q = parse_qs(urlparse(self.path).query)
+                        cluster = (q.get("cluster") or [None])[0]
+                        snap = eng.snapshot(cluster=cluster)
+                        if not snap:
+                            eng.tick()
+                            snap = eng.snapshot(cluster=cluster)
+                        self._reply(200, snap)
+                elif self.path == OVERLOAD_PATH:
+                    from gatekeeper_tpu_torch.resilience import overload
+
+                    ctl = overload.active_controller()
+                    if ctl is None:
+                        self._reply(404, {"error": "overload limiter not "
+                                                   "enabled (run with "
+                                                   "--overload-limiter "
+                                                   "on)"})
+                    else:
+                        self._reply(200, ctl.snapshot())
+                elif self.path.startswith(DECISIONS_PATH):
+                    # the flight recorder: every decision in the ring, or
+                    # one uid's history (?uid=)
+                    from gatekeeper_tpu_torch.observability import flightrec
+
+                    rec = outer._flight_recorder or flightrec.active()
+                    if rec is None:
+                        self._reply(404, {"error": "flight recorder not "
+                                                   "enabled (run with "
+                                                   "--flight-recorder N)"})
+                        return
+                    q = parse_qs(urlparse(self.path).query)
+                    uid = (q.get("uid") or [""])[0]
+                    try:
+                        limit = int((q.get("limit") or ["100"])[0])
+                        # time range: unix seconds, half-open [since, until)
+                        since = (q.get("since") or [None])[0]
+                        until = (q.get("until") or [None])[0]
+                        since = float(since) if since else None
+                        until = float(until) if until else None
+                    except ValueError:
+                        self._reply(400, {"error": "bad limit/since/until"})
+                        return
+                    kinds = {k for v in (q.get("decision") or [])
+                             for k in v.split(",") if k}
+                    tenant = (q.get("tenant") or [None])[0]
+                    cluster = (q.get("cluster") or [None])[0]
+                    self._reply(200, rec.snapshot(
+                        uid=uid or None, limit=limit, since=since,
+                        until=until, kinds=kinds or None, tenant=tenant,
+                        cluster=cluster))
+                elif self.path == METRICS_PATH and outer.metrics is not None:
+                    # content negotiation: OpenMetrics (exemplars + # EOF)
+                    # when the scraper asks, the classic text otherwise
+                    from gatekeeper_tpu_torch.metrics.registry import (
+                        OPENMETRICS_CONTENT_TYPE, TEXT_CONTENT_TYPE)
+
+                    om = "application/openmetrics-text" in (
+                        self.headers.get("Accept", "") or "")
+                    self._send_bytes(
+                        outer.metrics.render(openmetrics=om).encode(),
+                        OPENMETRICS_CONTENT_TYPE if om
+                        else TEXT_CONTENT_TYPE)
                 else:
                     self._reply(404, {"error": "not found"})
+
+            def _profile(self):
+                # pprof-equivalent: profile this process for ?seconds=N
+                # (default 2) and return cProfile stats text
+                import cProfile
+                import io
+                import pstats
+
+                q = parse_qs(urlparse(self.path).query)
+                secs = min(float(q.get("seconds", ["2"])[0]), 30.0)
+                prof = cProfile.Profile()
+                prof.enable()
+                time.sleep(secs)
+                prof.disable()
+                buf = io.StringIO()
+                pstats.Stats(prof, stream=buf).sort_stats(
+                    "cumulative").print_stats(50)
+                self._send_bytes(buf.getvalue().encode(), "text/plain")
+
+            def _send_bytes(self, data: bytes, content_type: str):
+                self.send_response(200)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
 
             def do_POST(self):
                 if self.headers.get("Content-Length") is None:
@@ -139,15 +306,29 @@ class WebhookServer:
                     return
                 uid = ((body.get("request") or {}).get("uid", "")) or ""
                 _track_inflight(+1)
+                # W3C trace-context ingest: a traceparent header parents
+                # the request span into the caller's trace; absent or
+                # malformed starts a fresh trace
+                remote = tracing.parse_traceparent(
+                    self.headers.get(tracing.TRACEPARENT_HEADER))
                 try:
-                    if self.path == ADMIT_PATH:
-                        self._admit(body, uid)
-                    elif self.path == MUTATE_PATH:
-                        self._mutate(body, uid)
-                    elif self.path == ADMIT_LABEL_PATH:
-                        self._admit_label(body, uid)
-                    else:
-                        self._reply(404, {"error": "not found"})
+                    with tracing.span("webhook.request", parent=remote,
+                                      path=self.path, uid=uid):
+                        from gatekeeper_tpu_torch.resilience.faults import \
+                            fault_point
+
+                        fault_point("webhook.request", path=self.path)
+                        if self.path == ADMIT_PATH:
+                            # the body's wire size is the cheap half of the
+                            # overload cost estimate (object bytes x
+                            # matched constraints)
+                            self._admit(body, uid, cost_hint=length)
+                        elif self.path == MUTATE_PATH:
+                            self._mutate(body, uid, cost_hint=length)
+                        elif self.path == ADMIT_LABEL_PATH:
+                            self._admit_label(body, uid)
+                        else:
+                            self._reply(404, {"error": "not found"})
                 except Exception as e:
                     # handler bug: admission.Errored equivalent — a
                     # well-formed allowed=false code-500 response
@@ -156,24 +337,31 @@ class WebhookServer:
                 finally:
                     _track_inflight(-1)
 
-            def _admit(self, body, uid):
+            def _admit(self, body, uid, cost_hint=0):
                 h = outer.validation_handler
                 if h is None:
                     self._reply(200, admission_response(uid, True))
                     return
-                v = h.handle(body)
+                v = (h.handle(body, cost_hint=cost_hint)
+                     if _accepts_cost_hint(h) else h.handle(body))
                 self._reply(200, admission_response(
-                    v.uid or uid, v.allowed, v.message, v.code, v.warnings))
+                    v.uid or uid, v.allowed, v.message, v.code, v.warnings),
+                    headers=_retry_after(v))
 
-            def _mutate(self, body, uid):
+            def _mutate(self, body, uid, cost_hint=0):
                 h = outer.mutation_handler
                 if h is None:
                     self._reply(200, admission_response(uid, True))
                     return
-                m = h.handle(body)
+                # the batched handler takes the wire size as the overload
+                # cost hint; the per-object handler does not
+                m = (h.handle(body, cost_hint=cost_hint)
+                     if _accepts_cost_hint(h) else h.handle(body))
                 self._reply(200, admission_response(
-                    m.uid or uid, m.allowed, m.message, m.code,
-                    warnings=m.warnings, patch=m.patch))
+                    m.uid or uid, m.allowed, m.message,
+                    getattr(m, "code", 200),
+                    warnings=getattr(m, "warnings", None), patch=m.patch),
+                    headers=_retry_after(m))
 
             def _admit_label(self, body, uid):
                 h = outer.namespace_label_handler
@@ -185,11 +373,19 @@ class WebhookServer:
                     r.uid or uid, r.allowed, r.message, r.code))
 
             def _reply(self, status: int, payload: dict,
-                       close: bool = False):
+                       close: bool = False, headers: Optional[dict] = None):
                 data = json.dumps(payload).encode()
                 self.send_response(status)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                # traceparent emit: callers correlate their timeline with
+                # the server-side request span
+                tp = tracing.format_traceparent()
+                if tp is not None:
+                    tracing.set_attribute("http.status", status)
+                    self.send_header(tracing.TRACEPARENT_HEADER, tp)
                 if close or outer._draining.is_set():
                     # also sets close_connection: the socket drops after
                     # this response
@@ -200,7 +396,7 @@ class WebhookServer:
         class _Server(ThreadingHTTPServer):
             # the socketserver default backlog of 5 resets bursts of
             # concurrent connects (the apiserver opens many at once)
-            request_queue_size = 128
+            request_queue_size = backlog
 
             def server_bind(self):
                 if reuse_port:
@@ -237,6 +433,10 @@ class WebhookServer:
         connections; the listener keeps accepting until :meth:`stop`."""
         self._draining.set()
 
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
     def inflight(self) -> int:
         with self._inflight_lock:
             return self._inflight
@@ -250,19 +450,53 @@ class WebhookServer:
         self.begin_drain()
         batchers = [b for b in (self.batcher, self.mutation_batcher)
                     if b is not None]
-        self._server.shutdown()  # listener stops accepting
-        deadline = t0 + max(0.0, drain_timeout)
-        while time.perf_counter() < deadline:
-            if self.inflight() == 0 and all(
-                    b.queue_depth() == 0 for b in batchers):
-                break
-            time.sleep(0.005)
-        drained = self.inflight() == 0
-        for b in batchers:
-            # nothing new can arrive: drain whatever is still queued
-            b.stop(timeout=max(0.1, deadline - time.perf_counter()))
-            drained = drained and b.queue_depth() == 0
-        self._server.server_close()
+        with tracing.span("server.drain"):
+            self._server.shutdown()  # listener stops accepting
+            deadline = t0 + max(0.0, drain_timeout)
+            while time.perf_counter() < deadline:
+                if self.inflight() == 0 and all(
+                        b.queue_depth() == 0 for b in batchers):
+                    break
+                time.sleep(0.005)
+            drained = self.inflight() == 0
+            for b in batchers:
+                # nothing new can arrive: drain whatever is still queued
+                # (abandoned deadline-missed entries included)
+                b.stop(timeout=max(0.1, deadline - time.perf_counter()))
+                drained = drained and b.queue_depth() == 0
+            self._server.server_close()
+            tracing.set_attribute("drained", drained)
+            tracing.set_attribute("inflight_at_close", self.inflight())
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as m
+
+            self.metrics.set_gauge(m.DRAIN_SECONDS, time.perf_counter() - t0)
         if self._thread:
             self._thread.join(timeout=2)
         return drained
+
+
+def _accepts_cost_hint(handler) -> bool:
+    """Whether ``handler.handle`` takes the ``cost_hint`` keyword (the
+    overload-gated handlers do; plain handlers do not).  Read once from
+    its signature and cached on the handler."""
+    accepts = getattr(handler, "_accepts_cost_hint", None)
+    if accepts is None:
+        import inspect
+
+        accepts = "cost_hint" in inspect.signature(
+            handler.handle).parameters
+        try:
+            handler._accepts_cost_hint = accepts
+        except AttributeError:
+            pass
+    return accepts
+
+
+def _retry_after(resp) -> Optional[dict]:
+    """The HTTP ``Retry-After`` header of a shed answer under
+    failurePolicy=Fail (the AdmissionReview carries code 429)."""
+    retry_after = getattr(resp, "retry_after_s", 0.0)
+    if not retry_after:
+        return None
+    return {"Retry-After": str(max(1, int(retry_after + 0.999)))}

@@ -1,0 +1,85 @@
+"""Fault sites and metric names of the port against the JAX package, read
+from both packages' sources as text (``tools/lint_observability.py``
+lints only the JAX package):
+
+- the port's ``fault_point("<site>")`` sites are the JAX package's, less
+  the two of ``sync/kube.py`` (``kube.request``, ``kube.watch``), a module
+  the port has not ported yet;
+- the port's ``metrics/registry.py`` constants equal the JAX ones, name
+  for name and value for value;
+- every registry constant the port emits is one the JAX package emits."""
+
+import ast
+import glob
+import os
+import re
+
+ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
+NOT_PORTED_SITES = {"kube.request", "kube.watch"}  # sync/kube.py
+
+_SITE = re.compile(r"""fault_point\(\s*f?["']([^"']+)["']""")
+# a registry constant read through the module alias: M.NAME / m.NAME
+_EMIT = re.compile(r"\b[Mm]\.([A-Z][A-Z0-9_]+)\b")
+
+
+def _sources(package: str) -> dict:
+    paths = sorted(glob.glob(os.path.join(ROOT, package, "**", "*.py"),
+                             recursive=True))
+    out = {}
+    for path in paths:
+        with open(path) as f:
+            out[os.path.relpath(path, ROOT)] = f.read()
+    return out
+
+
+def _sites(package: str) -> set:
+    sites = set()
+    for rel, text in _sources(package).items():
+        if rel.endswith(os.path.join("resilience", "faults.py")):
+            continue  # the seam itself and its docstring examples
+        sites.update(_SITE.findall(text))
+    return sites
+
+
+def test_fault_sites_equal_the_jax_packages():
+    jax, port = _sites("gatekeeper_tpu"), _sites("gatekeeper_tpu_torch")
+    assert NOT_PORTED_SITES <= jax
+    assert port == jax - NOT_PORTED_SITES
+    assert {"device.dispatch", "webhook.review", "webhook.request",
+            "pipeline.stage.{stage.name}"} <= port
+
+
+def _registry_constants(package: str) -> dict:
+    path = os.path.join(ROOT, package, "metrics", "registry.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name) and \
+                node.targets[0].id.isupper() and \
+                isinstance(node.value, ast.Constant):
+            out[node.targets[0].id] = node.value.value
+    return out
+
+
+def test_registry_constants_equal_the_jax_ones():
+    jax = _registry_constants("gatekeeper_tpu")
+    port = _registry_constants("gatekeeper_tpu_torch")
+    assert len(jax) > 100
+    assert port == jax
+
+
+def _emitted(package: str) -> set:
+    consts = _registry_constants(package)
+    names = set()
+    for text in _sources(package).values():
+        names.update(n for n in _EMIT.findall(text) if n in consts)
+    return names
+
+
+def test_every_emitted_metric_is_one_the_jax_package_emits():
+    port, jax = _emitted("gatekeeper_tpu_torch"), _emitted("gatekeeper_tpu")
+    assert port <= jax, sorted(port - jax)
+    assert {"REQUEST_COUNT", "OVERLOAD_SHED", "AUDIT_LAST_RUN_INCOMPLETE",
+            "RESILIENCE_FAULTS", "CONSTRAINT_EVAL"} <= port
