@@ -22,7 +22,7 @@ Phases (any failure raises and exits non-zero):
    must agree, each fold kernel must have been launched by its lane, the
    rows of both CEL kinds must have ridden at least one of those launches
    and each CEL constraint must have violations, and a CPU run of the port
-   (plain versions) must equal the card's run on the first 8,192 objects;
+   (plain versions) must equal the card's run on the first 4,096 objects;
 4. pipeline: the audit's host path, on the path phase's objects, reduced
    lane: (a0) a dict lister on the default schedule (``auto``, which
    resolves to serial: the port's stages share the interpreter lock) and
@@ -30,11 +30,11 @@ Phases (any failure raises and exits non-zero):
    ``RawJSON`` objects (serialized before the timer starts), serial,
    ``flatten_lane="raw"``; (c) that lister on the staged pipeline
    (``pipeline="on"``), raw lane, W flatten worker processes (W =
-   min(4, effective cores - 2), at least 2); (d) on the first 8,192
+   min(4, effective cores - 2), at least 2); (d) on the first 4,096
    objects, ``pipeline="differential"`` with the ``RawJSON`` lister and W
    workers on both collect lanes; then (c)'s manager once more, warm,
    under ``torch.profiler``.  Every run must equal the path phase's run
-   canonically ((d): its card run of the first 8,192 objects), (a0)'s
+   canonically ((d): its card run of the first 4,096 objects), (a0)'s
    walls may sum to at most 1.3 times (a)'s (the host's run-to-run
    noise), (d) must
    set ``pipeline_differential_ok``, (c) must run pipelined and (c) and
@@ -73,7 +73,7 @@ Phases (any failure raises and exits non-zero):
    phase's relist run canonically, the repeat of step 2 must upload 0
    bytes, the dirty tick must evaluate only dirty rows and upload under 5%
    of the resident bytes, and the card must equal a CPU snapshot run
-   (``mode="on"``) on the first 8,192 objects, step by step, where (5)
+   (``mode="on"``) on the first 4,096 objects, step by step, where (5)
    ``audit_resync()`` runs after the churn tick and must find no
    difference on either device (the resync runs at that depth, not at the
    full one: at 131,072 objects it took ~44 s per lane).  Prints each
@@ -92,7 +92,7 @@ Phases (any failure raises and exits non-zero):
    resident-snapshot first pass, which must equal the relist canonically
    and hold ``[Implied by expand-deployments]`` violations in its
    generated verdicts, and a 1% churn tick.  The card must equal a CPU run
-   on the first 8,192 objects.  Prints each pass's wall, generators,
+   on the first 4,096 objects.  Prints each pass's wall, generators,
    resultants, and the expand and generated-sweep seconds;
 8. extdata: the library plus the reference docs' two image templates
    (``K8sExtData``, one ``external_data`` call over every container
@@ -107,7 +107,7 @@ Phases (any failure raises and exits non-zero):
    (counted, with their (C, N)), their totals must equal a count made in
    Python from the objects and the stub's rule, the cold pass may send at
    most ceil(unique keys / 256) per provider per chunk (and each key
-   once), and a warm repeat must send nothing.  At the first 8,192
+   once), and a warm repeat must send nothing.  At the first 4,096
    objects, the image templates alone with exact totals, the batched
    (grid), perkey (interpreter) and differential lanes on the card and
    the batched lane on the CPU must agree canonically; with the library,
@@ -121,8 +121,9 @@ Phases (any failure raises and exits non-zero):
    p50/p99;
 9. lifecycle: the served process's life, as ``python -m
    gatekeeper_tpu_torch --manifests library`` boots it (46 templates, 52
-   constraints), with the first 1,024 admission bodies (64 clients; cut
-   from 2,048 for the time limit) and the path phase's objects (the
+   constraints), with the first 512 admission bodies (64 clients; cut
+   from 2,048 and then 1,024 for the time limit) and the path phase's
+   objects (the
    first 65,536 of them for (b) and (d), cut from 131,072).  (a) generations under load: the CLI's
    serving stack on the card with ``generation_swap`` on, off, off, on
    (ABBA); while
@@ -184,20 +185,63 @@ Phases (any failure raises and exits non-zero):
    ladder at level 1 or more on ``/debug/overload``, and the audit's
    device-lane yield above 0 s (its counter in the metrics).  No hook may
    be left installed after a part;
-11. shapes (after the pipeline, snapshot, expand, extdata, lifecycle and
-   hooks phases): as phase 5, at the (C, N, k) the pipeline, snapshot,
-   expand, extdata, lifecycle and hooks paths launched too;
-12. profile: the reduced-lane audit once more under ``torch.profiler``,
+11. kube: the served process over an apiserver, at the path phase's
+   width.  The port's ``MockApiServer`` runs in a spawned child process
+   that builds the same objects from the seed, the library's templates
+   and sample constraints and a Config syncing Ingresses, with a resource
+   for every constraint kind and per-pod status kind.  (a) a
+   ``KubeCluster`` with raw pages and the CLI's discovery-driven lister
+   (``__main__.kube_lister``) through ``AuditManager.audit()`` on both
+   collect lanes: canonically equal to the path phase's runs, every chunk
+   on the raw lane, each lane's fold kernel launched; prints the wall,
+   objects/s, LIST requests, page bytes and ``flatten`` /
+   ``c_columnize`` / ``upload`` beside the path phase's relist.  (b) a
+   ``WatchIngester`` over a ``KubeCluster`` (residency ``auto``): step 1
+   and a resident pass (both equal to the path phase's run, every lowered
+   group resident), a 1% churn written over HTTP (PUT, POST, DELETE) and
+   its tick, equal to a fresh relist of the churned state.  (c) a spill,
+   then a fresh ``KubeCluster`` and ingester resuming from the spill's
+   versions: no LIST request of a data kind (counted on the mock), the
+   first tick equal to (b)'s; prints load + first tick against (b)'s
+   step 1 and
+   the lifecycle phase's FakeCluster replay.  Then, on the resumed world,
+   (b)'s end: 64 Pods dropped behind the watches, the watch cache
+   compacted and every watch broken with a 410 (the relists' DELETED
+   diff absorbed: the snapshot loses exactly those rows) and a resync that
+   finds no difference.  (d) ``python -m gatekeeper_tpu_torch
+   --kubeconfig K --audit-source snapshot --port 0 --emit-audit-events
+   --emit-admission-events --export-dir D`` (the JAX defaults otherwise),
+   started right after phase 2 over a second such child (its boot and
+   its first audit pass, at the JAX defaults' exact totals ~200-330 s at
+   this width, run beside phases 3-10; the first child sees none of its
+   writes): ``/healthz`` 503 until the readiness tracker is satisfied,
+   then 200, both with its stats, and latched; the first audit pass
+   exported; 1,024 admission bodies from 64 clients, every answer equal
+   to the CPU handler's (computed as ``_held_against_cpu`` does, over the
+   CLI's apiserver's Namespaces and Ingresses, in a third child process
+   beside the 410 step) or of the JAX shed form (the overload limiter is
+   on), the shed bodies posted again by 8 clients until every body has a
+   reviewed answer, each equal to the CPU handler's; a constraint written
+   to the apiserver turns a later answer into a deny (then it is deleted
+   again, so the audit loop has nothing to re-evaluate at the drain); the
+   template's ``ConstraintTemplatePodStatus``, audit and admission Events
+   on the apiserver; the export directory holds the audit's violations;
+   SIGTERM drains and exits 0;
+12. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
+   hooks and kube phases): as phase 5, at the (C, N, k) the pipeline,
+   snapshot, expand, extdata, lifecycle, hooks and kube paths launched
+   too;
+13. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-13. admission: the library (all 46 templates and their sample
+14. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
    ``Batcher`` at its default window, batch size and interpreter cut-off
    (with batch stats on), failurePolicy=Fail and the
    ``ExpansionSystem`` of the expand phase (each Deployment body's implied
-   Pod reviewed with ``Source=Generated``).  ``--admissions`` (2,048 by
-   default, cut from 4,096 for the time limit)
+   Pod reviewed with ``Source=Generated``).  ``--admissions`` (1,024 by
+   default, cut from 4,096 and then 2,048 for the time limit)
    AdmissionReview bodies (the library's ``samples/example_*.yaml``
    objects, then ``make_cluster_objects(..., seed=3)``; every tenth an
    UPDATE that carries an ``oldObject``, every twentieth of the others a
@@ -215,7 +259,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-14. served: the served process's two threads on one driver and vocab, as
+15. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -226,7 +270,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-15. mutate: the admission bodies posted to ``/v1/mutate`` of a
+16. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -240,7 +284,7 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-16. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+17. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
@@ -250,7 +294,9 @@ Phases (any failure raises and exits non-zero):
    lane's ``epilogue``), ``lifecycle_launches`` those of the lifecycle
    phase (its snapshot passes' ``epilogue``, the relist's ``fused_fold``),
    ``hooks_launches`` those of the hooks phase (its relists, chaos relists
-   and brownout audit loop; the CLI processes of (a) are not counted).
+   and brownout audit loop; the CLI processes of (a) are not counted),
+   ``kube_launches`` those of the kube phase's (a)-(c) (the CLI process
+   of (d) is not counted).
    The served and lifecycle (e) phases pass ``HOOKS_OFF`` to the CLI: the
    configuration they measured before the CLI had the hooks.
 
@@ -282,7 +328,7 @@ INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor rate (data sheet)
 # the library's two CEL (K8sNativeValidation) templates
 CEL_TEMPLATE_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")
 C_MAIN, N_MAIN, K_MAIN = 44, 32768, 20
-CPU_PREFIX = 8192
+CPU_PREFIX = 4096  # cut from 8,192 for the time limit
 CHURN_SHARE = 0.01  # of the objects, per dirty tick of the snapshot phase
 GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
 GRAPH_REPLAYS = 25  # timed replays of that graph (median taken)
@@ -670,6 +716,7 @@ def path_phase(n_objects: int) -> tuple:
     shapes = {}
     results = {}
     runs = {}
+    timings = {}
     for collect, kernel in (("reduced", "fused_fold"),
                             ("masks", "epilogue")):
         dispatches: list = []
@@ -715,6 +762,7 @@ def path_phase(n_objects: int) -> tuple:
                                  f"no violations: {cel_totals}")
         results[collect] = summary(run)
         runs[collect] = run
+        timings[collect] = (dt, phases)
     if results["reduced"] != results["masks"]:
         raise AssertionError("reduced and masks lanes disagree")
     prefix = objects[:CPU_PREFIX]
@@ -724,11 +772,11 @@ def path_phase(n_objects: int) -> tuple:
         raise AssertionError("CPU run of the port differs from the card's")
     log(f"cpu == cuda on the first {CPU_PREFIX} objects "
         f"({sum(on_cpu[1].values())} violations)")
-    return launches, shapes, objects, runs, on_card
+    return launches, shapes, objects, runs, on_card, timings
 
 
 # --- the audit's host path: schedules, lanes, worker processes --------------
-PIPE_DIFF_PREFIX = 8192  # objects of the differential runs (d)
+PIPE_DIFF_PREFIX = 4096  # objects of the differential runs (d)
 # the default schedule's relists may take at most this share of the serial
 # ones' wall, summed over two runs of each in ABBA order: single relists of
 # these objects on the H100 host, same code, differed by up to 21% (11.118
@@ -1425,18 +1473,21 @@ LOAD_DEADLINE_S = 600.0
 
 def post_concurrently(port: int, bodies: list,
                       path: str = "/v1/admit",
-                      retry_after: dict = None) -> tuple:
-    """Post every body to ``path`` from LOAD_PROCS processes x LOAD_CONNS
-    keep-alive connections.  Returns (replies by index, latencies s, wall
+                      retry_after: dict = None, procs: int = None,
+                      conns: int = None) -> tuple:
+    """Post every body to ``path`` from ``procs`` processes x ``conns``
+    keep-alive connections (LOAD_PROCS x LOAD_CONNS by default).  Returns
+    (replies by index, latencies s, wall
     s); ``retry_after`` (a dict) receives each reply's ``Retry-After``
     header by index, where it has one.  Each process runs ``_LOAD_CLIENT`` under this interpreter and is
     waited for (or killed past ``LOAD_DEADLINE_S``) before this returns, so
     no client outlives the call."""
+    n_procs = procs or LOAD_PROCS
     items = [(i, json.dumps(b)) for i, b in enumerate(bodies)]
     procs = [subprocess.Popen(
         [sys.executable, "-c", _LOAD_CLIENT, str(port), path,
-         str(LOAD_CONNS)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        text=True) for _ in range(LOAD_PROCS)]
+         str(conns or LOAD_CONNS)], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True) for _ in range(n_procs)]
 
     def kill_all():
         for proc in procs:
@@ -1449,7 +1500,7 @@ def post_concurrently(port: int, bodies: list,
     t_start = time.perf_counter()
     try:
         for p, proc in enumerate(procs):
-            proc.stdin.write(json.dumps(items[p::LOAD_PROCS]) + "\n")
+            proc.stdin.write(json.dumps(items[p::n_procs]) + "\n")
             proc.stdin.flush()
         for p, proc in enumerate(procs):
             if proc.stdout.readline() != "ready\n":
@@ -1537,12 +1588,11 @@ def profile_grid_batch(client, bodies, namespaces) -> None:
             for e in top))
 
 
-def _held_against_cpu(label: str, objects, namespaces, bodies,
-                      replies, expansion_system=None,
-                      extdata: bool = False) -> tuple:
-    """Hold every served answer against the port's in-process handler on
-    the CPU without a batcher (the exact engines), the deny message as its
-    set of lines.  Raises on a difference; returns (denied, code 500)."""
+def _cpu_answers(objects, namespaces, bodies, expansion_system=None,
+                 extdata: bool = False) -> list:
+    """The answer (``_answer``) of the port's in-process handler on the
+    CPU without a batcher (the exact engines) to every body, over the
+    inventory of ``objects`` and the Namespaces ``namespaces``."""
     from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
     from gatekeeper_tpu_torch.webhook.server import admission_response
 
@@ -1553,12 +1603,26 @@ def _held_against_cpu(label: str, objects, namespaces, bodies,
         "expansion_system": expansion_system}
     ref = ValidationHandler(ref_client, namespace_lookup=namespaces.get,
                             failure_policy="fail", **kw)
-    t0 = time.perf_counter()
-    diffs, denied, code500, reordered = [], 0, 0, 0
-    for i, body in enumerate(bodies):
+    out = []
+    for body in bodies:
         v = ref.handle(copy.deepcopy(body))
-        want = _answer(admission_response(v.uid, v.allowed, v.message,
-                                          v.code, v.warnings)["response"])
+        out.append(_answer(admission_response(v.uid, v.allowed, v.message,
+                                              v.code, v.warnings)
+                           ["response"]))
+    return out
+
+
+def _held_against_cpu(label: str, objects, namespaces, bodies,
+                      replies, expansion_system=None,
+                      extdata: bool = False) -> tuple:
+    """Hold every served answer against ``_cpu_answers``, the deny message
+    as its set of lines.  Raises on a difference; returns (denied, code
+    500)."""
+    t0 = time.perf_counter()
+    refs = _cpu_answers(objects, namespaces, bodies, expansion_system,
+                        extdata)
+    diffs, denied, code500, reordered = [], 0, 0, 0
+    for i, want in enumerate(refs):
         got = _answer(replies[i])
         denied += not got[0]
         code500 += got[1] == 500
@@ -2773,7 +2837,7 @@ def extdata_phase(objects, n_traffic: int, card: str,
 # (a): the first LIFE_BODIES admission bodies under template churn, then a
 # final burst of LIFE_FINAL; the churn removes and re-adds five Rego
 # templates one at a time and edits the message of a sixth
-LIFE_BODIES, LIFE_FINAL = 1024, 256  # bodies cut from 2,048 (time limit)
+LIFE_BODIES, LIFE_FINAL = 512, 256  # bodies cut from 2,048 (time limit)
 # (b)/(d): the snapshot spill and warm restart run on this many of the
 # path phase's objects (cut from 131,072 for the time limit)
 LIFE_SNAPSHOT_OBJECTS = 65536
@@ -3572,7 +3636,9 @@ HOOKS_BURST_CHUNK = 500
 # the audit thread, starved of the interpreter lock, reached a chunk
 # boundary there about once in ~10 s of burst (PERF.md)
 HOOKS_BURST_REPEAT = 4
-HOOKS_BURST_ROUNDS = 6  # (d): bursts at most, until the audit has yielded
+# (d): bursts at most, until the audit has yielded (on a slower H100 host
+# the first yield came in the fifth burst, or not within six)
+HOOKS_BURST_ROUNDS = 10
 HOOKS_DIR = os.path.join(ROOT_DIR, "_hooks")
 SHED_PREFIX = "gatekeeper shed this request under overload ("
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
@@ -4280,12 +4346,928 @@ def hooks_phase(objects, card: str, device: str = "cuda",
     return launches, shapes, record
 
 
+# --- kube: the served process over an apiserver ------------------------------
+
+KUBE_DIR = os.path.join(ROOT_DIR, "_kube")
+KUBE_BODIES = 1024  # (d): admission bodies
+KUBE_WAIT_S = 300.0
+KUBE_VANISH = 64  # (b): objects removed behind the watches before the 410
+KUBE_DATA_KINDS = ("Pod", "Service", "Ingress", "Deployment", "Namespace",
+                   "RoleBinding", "ClusterRoleBinding")
+STATUS_GROUP = "status.gatekeeper.sh"
+# an installed Gatekeeper's Config: the Ingresses synced as the
+# referential inventory (uniqueingresshost), as the other phases load them
+KUBE_CONFIG = {
+    "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
+    "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+    "spec": {"sync": {"syncOnly": [{"group": "networking.k8s.io",
+                                    "version": "v1", "kind": "Ingress"}]}}}
+# (d): written to the apiserver after the CLI serves
+KUBE_LATE_CONSTRAINT = {
+    "apiVersion": "constraints.gatekeeper.sh/v1beta1",
+    "kind": "K8sRequiredLabels", "metadata": {"name": "all-must-have-team"},
+    "spec": {"match": {"kinds": [{"apiGroups": [""],
+                                  "kinds": ["Namespace"]}]},
+             "parameters": {"labels": [{"key": "team"}]}}}
+
+
+def library_policy_docs() -> list:
+    """The library's templates and their sample constraints, as
+    ``load_library`` installs them."""
+    import glob
+
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+    from gatekeeper_tpu_torch.utils.unstructured import load_yaml_file
+
+    docs = []
+    for tpath in sorted(
+            glob.glob(os.path.join(library_dir(), "general", "*",
+                                   "template.yaml")) +
+            glob.glob(os.path.join(library_dir(), "pod-security-policy", "*",
+                                   "template.yaml"))):
+        docs += load_yaml_file(tpath)[:1]
+        cpath = os.path.join(os.path.dirname(tpath), "samples",
+                             "constraint.yaml")
+        if os.path.exists(cpath):
+            docs += load_yaml_file(cpath)
+    return docs
+
+
+def _kube_apiserver(conn, n_objects: int) -> None:
+    """The child process of the kube phase: the port's ``MockApiServer``
+    holding the library's templates and sample constraints, a Config, and
+    ``make_cluster_objects(n_objects, seed=0)``, with a resource for every
+    constraint kind and every per-pod status kind (the CRDs an installed
+    Gatekeeper has; the mock does not derive resources from CRDs).  It
+    builds everything itself, so nothing but commands crosses the pipe,
+    and encodes its pages without the audit's interpreter lock.  Commands:
+    ``stats`` (requests by verb and kind), ``rv`` (the current
+    resourceVersion), ``vanish`` (drop objects without an event),
+    ``compact`` (compact the watch cache, break every watch with a 410 and
+    write the Config unchanged; answers the version of that write),
+    ``stop``."""
+    from gatekeeper_tpu_torch.controller.manager import STATUS_KIND_FOR
+    from gatekeeper_tpu_torch.sync.mock_apiserver import MockApiServer
+    from gatekeeper_tpu_torch.utils.synthetic import make_cluster_objects
+
+    srv = MockApiServer()
+    for kind in sorted(set(STATUS_KIND_FOR.values())):
+        srv.add_resource(kind, STATUS_GROUP, "v1beta1", kind.lower() + "es",
+                         True)
+    docs = library_policy_docs()
+    for doc in docs:
+        if doc["kind"] != "ConstraintTemplate":
+            srv.add_resource(doc["kind"], "constraints.gatekeeper.sh",
+                             "v1beta1", doc["kind"].lower(), False)
+    for doc in docs + [KUBE_CONFIG] + make_cluster_objects(n_objects,
+                                                           seed=0):
+        srv.put_object(doc)
+    srv.start()
+    conn.send(("ready", srv.url, len(srv._objects)))
+    while True:
+        cmd, arg = conn.recv()
+        if cmd == "stats":
+            conn.send(dict(srv.requests))
+        elif cmd == "vanish":
+            with srv._lock:
+                for key in arg:
+                    srv._objects.pop(tuple(key), None)
+                srv._sorted.clear()
+            conn.send(len(srv._objects))
+        elif cmd == "rv":
+            conn.send(srv._rv)
+        elif cmd == "compact":
+            srv.compact()
+            for kind in list(srv.resources):
+                srv.break_watches(kind)
+            # one unchanged write past the compaction: a watch whose mark
+            # reaches its version has relisted since
+            srv.put_object(dict(srv._objects[("Config", "gatekeeper-system",
+                                              "config")]))
+            conn.send(srv._rv)
+        elif cmd == "stop":
+            srv.stop()
+            conn.send("stopped")
+            return
+
+
+def _wait(label: str, pred, timeout: float = KUBE_WAIT_S,
+          every: float = 0.05) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"kube: {label}: not within {timeout:.0f}s")
+        time.sleep(every)
+    return time.perf_counter() - t0
+
+
+def _caught_up(kc, gvks, rv: int) -> bool:
+    """Every watch of ``kc`` over ``gvks`` has handed its consumer every
+    event at or below ``rv`` (its resume mark, a list's or a bookmark's
+    version, is at least ``rv``): unlike a count of events, blind to
+    other writers' events."""
+    return all(int(kc.resume_rv(g) or 0) >= rv for g in gvks)
+
+
+def _lists(before: dict, after: dict, kinds=None) -> int:
+    return sum(n - before.get(k, 0) for k, n in after.items()
+               if k[0] == "list" and (kinds is None or k[1] in kinds))
+
+
+def _kube_cluster(url: str, **kw):
+    from gatekeeper_tpu_torch.sync.kube import KubeCluster, KubeConfig
+
+    return KubeCluster(KubeConfig(server=url), watch_backoff_s=0.2, **kw)
+
+
+def kube_relist(client, driver, url, ask, path_verdicts, path_timings,
+                card: str, device: str = "cuda") -> dict:
+    """(a): ``AuditManager.audit()`` over the CLI's discovery-driven lister
+    (``__main__.kube_lister``) of a ``KubeCluster`` with raw pages, on both
+    collect lanes: canonically equal to the path phase's runs, every chunk
+    on the raw flatten lane, the lane's fold kernel launched."""
+    from gatekeeper_tpu_torch.__main__ import kube_lister
+    from gatekeeper_tpu_torch.audit.manager import (AuditConfig,
+                                                    AuditManager)
+    from gatekeeper_tpu_torch.ops import fold
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+    out = {}
+    for collect, kernel in (("reduced", "fused_fold"),
+                            ("masks", "epilogue")):
+        kc = _kube_cluster(url)
+        page_bytes = [0]
+        request_once = kc._request_once
+
+        def counted(method, path, body=None, timeout=30.0, raw=False,
+                    request_once=request_once):
+            if not raw:
+                return request_once(method, path, body, timeout)
+            data = request_once(method, path, body, timeout, raw=True)
+            page_bytes[0] += len(data)
+            return data
+
+        kc._request_once = counted
+        ev = SweepEvaluator(driver, device=device, violations_limit=20,
+                            collect=collect)
+        mgr = AuditManager(client, lister=kube_lister(kc),
+                           config=AuditConfig(violations_limit=20,
+                                              chunk_size=32768,
+                                              exact_totals=False,
+                                              submit_window=4),
+                           evaluator=ev)
+        try:
+            launched0 = getattr(fold, kernel).launches
+            stats0 = ask("stats")
+            t0 = time.perf_counter()
+            run = mgr.audit()
+            _sync(device)
+            wall = time.perf_counter() - t0
+            stats1 = ask("stats")
+        finally:
+            kc.close()
+        phases = {**ev.perf, **mgr.perf}
+        _schedule_held(f"kube relist[{collect}]", mgr.perf)
+        lanes = _lanes(ev.perf)
+        launched = getattr(fold, kernel).launches - launched0
+        kept, totals = path_verdicts[collect]
+        diff = AuditManager._verdicts_differ_canonical(
+            run.kept, run.total_violations, kept, totals, 20)
+        path_wall, path_phases = path_timings[collect]
+        rec = {"wall_s": wall, "objects": run.total_objects,
+               "objects_per_s": run.total_objects / wall,
+               "list_requests": _lists(stats0, stats1),
+               "page_bytes": page_bytes[0], "lanes": lanes,
+               "launches": launched,
+               **{k: phases.get(k, 0.0) for k in
+                  ("flatten", "fl_c_columnize", "upload")},
+               "path_wall_s": path_wall,
+               **{f"path_{k}": path_phases.get(k, 0.0) for k in
+                  ("flatten", "fl_c_columnize", "upload")}}
+        out[collect] = rec
+        log(f"kube relist[{collect}]: {run.total_objects} objects, "
+            f"{sum(run.total_violations.values())} violations, "
+            f"{wall:.3f}s, {rec['objects_per_s']:.1f} objects/s, "
+            f"{rec['list_requests']} LIST requests, {page_bytes[0]} page "
+            f"bytes, flatten {rec['flatten']:.3f}s, c_columnize "
+            f"{rec['fl_c_columnize']:.3f}s, upload {rec['upload']:.3f}s, "
+            f"lanes {lanes}, {launched} {kernel} launches; the path "
+            f"phase's relist (in-memory dict lister) {path_wall:.3f}s, "
+            f"flatten {rec['path_flatten']:.3f}s, c_columnize "
+            f"{rec['path_fl_c_columnize']:.3f}s, upload "
+            f"{rec['path_upload']:.3f}s ({card})")
+        if diff is not None or run.incomplete:
+            raise AssertionError(f"kube relist[{collect}] differs from the "
+                                 f"path phase's run: {diff}")
+        if set(lanes) != {"raw"}:
+            raise AssertionError(f"kube relist[{collect}]: chunks left the "
+                                 f"raw lane: {lanes}")
+        if device == "cuda" and launched <= 0:
+            raise AssertionError(f"kube relist[{collect}]: {kernel} never "
+                                 f"launched")
+        if rec["list_requests"] <= 0:
+            raise AssertionError(f"kube relist[{collect}]: no LIST request")
+    return out
+
+
+def _kube_world(client, driver, url, device, from_rvs=None):
+    """The CLI's ``--audit-source snapshot`` stack over a fresh
+    ``KubeCluster``: (kube cluster, ingester, snapshot, manager,
+    residency); the ingester is not started."""
+    from gatekeeper_tpu_torch.__main__ import kube_lister
+    from gatekeeper_tpu_torch.audit.manager import (AuditConfig,
+                                                    AuditManager)
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                               DeviceResidency,
+                                               SnapshotConfig, WatchIngester)
+
+    kc = _kube_cluster(url)
+    ev = SweepEvaluator(driver, device=device, violations_limit=20,
+                        collect="reduced")
+    snap = ClusterSnapshot(ev, SnapshotConfig())
+    ing = WatchIngester(snap, kc, kc.server_preferred_gvks(),
+                        from_rvs=from_rvs)
+    residency = DeviceResidency(ev, mode="auto" if device == "cuda"
+                                else "on")
+    mgr = AuditManager(client, lister=kube_lister(kc),
+                       config=AuditConfig(violations_limit=20,
+                                          chunk_size=32768,
+                                          exact_totals=False,
+                                          submit_window=4,
+                                          audit_source="snapshot"),
+                       evaluator=ev, snapshot=snap, residency=residency)
+    return kc, ing, snap, mgr, residency
+
+
+def _churn_over_http(writer, ops) -> None:
+    """Each operation a PUT (after a POST that finds the object) or a
+    POST, or a DELETE, through the apiserver, eight at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(op):
+        kind, obj = op
+        (writer.apply if kind == "apply" else writer.delete)(obj)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, ops))
+
+
+def _canon_or_raise(label: str, run, kept, totals) -> None:
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    diff = AuditManager._verdicts_differ_canonical(
+        run.kept, run.total_violations, kept, totals, 20)
+    if diff is not None or run.incomplete:
+        raise AssertionError(f"kube snapshot: {label}: {diff}")
+
+
+def _kube_step(out: dict, label: str, fn, card: str, device: str):
+    t0 = time.perf_counter()
+    run = fn()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    out[label] = {"wall_s": wall, "objects": run.total_objects,
+                  "violations": sum(run.total_violations.values())}
+    log(f"kube snapshot {label}: {run.total_objects} objects, "
+        f"{out[label]['violations']} violations, {wall:.3f}s ({card})")
+    return run
+
+
+def kube_watched(client, driver, objects, url, ask, out: dict,
+                 path_verdicts, card: str, device: str = "cuda") -> tuple:
+    """(b), up to the spill: a ``WatchIngester`` over a ``KubeCluster``
+    (residency ``auto``): step 1 and a resident pass, both equal to the
+    path phase's run; a 1% churn written over HTTP and its tick, equal to
+    a fresh relist of the churned state; then the snapshot spilled with
+    the ingester's resume marks.  Returns (spill, the churn tick's run)."""
+    from gatekeeper_tpu_torch.__main__ import kube_lister
+    from gatekeeper_tpu_torch.audit.manager import (AuditConfig,
+                                                    AuditManager)
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.snapshot import SnapshotSpill, templates_digest
+
+    kc, ing, snap, mgr, residency = _kube_world(client, driver, url, device)
+    try:
+        t0 = time.perf_counter()
+        rv0 = ask("rv")
+        ing.start()
+        _wait("the watch replay", lambda: _caught_up(kc, ing.gvks, rv0))
+        out["watch_replay_s"] = time.perf_counter() - t0
+        step1 = _kube_step(out, "step 1", mgr.audit, card, device)
+        _canon_or_raise("step 1 against the path phase", step1,
+                        *path_verdicts["reduced"])
+        seen_pass = ing.events_seen  # the resident pass pumps up to here
+        resident = _kube_step(out, "resident pass", mgr.audit, card, device)
+        _canon_or_raise("the resident pass against the path phase",
+                        resident, *path_verdicts["reduced"])
+        lowered = [s for s in snap.routed_stores() if s.lowered]
+        if not lowered or not all(residency.is_resident(s)
+                                  for s in lowered) or \
+                mgr.perf.get("snapshot_host_chunks", 0.0):
+            raise AssertionError("kube snapshot: a group served host "
+                                 "columns")
+        ops = snapshot_churn(objects, max(8, int(len(objects)
+                                                  * CHURN_SHARE)))
+        writer = _kube_cluster(url)
+        t0 = time.perf_counter()
+        try:
+            _churn_over_http(writer, ops)
+        finally:
+            writer.close()
+        out["churn_http_s"] = time.perf_counter() - t0
+        rv1 = ask("rv")
+        _wait("the churn's events", lambda: _caught_up(kc, ing.gvks, rv1))
+        tick = _kube_step(out, f"churn tick ({len(ops)} operations)",
+                          mgr.audit_tick, card, device)
+        # the churn's events and the CLI's boot writes since the resident
+        # pass bound the rows the tick may evaluate
+        events = ing.events_seen - seen_pass
+        rows = mgr.perf.get("last_rows_evaluated", 0)
+        if not 0 < rows <= events:
+            raise AssertionError(f"kube snapshot: the churn tick evaluated "
+                                 f"{rows} rows for {events} watch events")
+        relist_kc = _kube_cluster(url)
+        try:
+            ev = SweepEvaluator(driver, device=device, violations_limit=20,
+                                collect="reduced")
+            relist = _kube_step(out, "relist of the churned state",
+                                AuditManager(
+                                    client, lister=kube_lister(relist_kc),
+                                    config=AuditConfig(
+                                        violations_limit=20,
+                                        chunk_size=32768,
+                                        exact_totals=False,
+                                        submit_window=4),
+                                    evaluator=ev).audit, card, device)
+        finally:
+            relist_kc.close()
+        _canon_or_raise("the churn tick against a relist of the churned "
+                        "state", tick, relist.kept, relist.total_violations)
+        out["mark_wait_s"] = _wait("a resume mark for every watch",
+                                   lambda: all(ing.resume_rvs().get(g)
+                                               for g in ing.gvks))
+        spill = SnapshotSpill(os.path.join(KUBE_DIR, "spill"))
+        res = spill.save(snap, rvs=ing.resume_rvs(),
+                         templates=templates_digest(client))
+        if not res.get("ok"):
+            raise AssertionError(f"kube snapshot: spill failed: {res}")
+        out["spill"] = {"bytes": res["bytes"], "write_s": res["seconds"],
+                        "capture_s": spill.last_capture_s}
+        return spill, tick
+    finally:
+        t0 = time.perf_counter()
+        ing.stop()
+        kc.close()
+        out["close_s"] = time.perf_counter() - t0
+
+
+def kube_resumed(client, driver, url, ask, spill, tick, out: dict,
+                 life_record, card: str, device: str = "cuda") -> tuple:
+    """(c): a fresh ``KubeCluster`` and ingester resuming from the spill's
+    versions: no LIST request of a data kind (counted on the mock; the
+    CLI of (d) audits meanwhile and may list status kinds), the first
+    tick equal to (b)'s churn tick.  Returns the resumed world, its
+    ingester started."""
+    from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
+    from gatekeeper_tpu_torch.snapshot import templates_digest
+
+    world = _kube_world(client, driver, url, device)
+    kc, ing, snap, mgr, _residency = world
+    stats0 = ask("stats")
+    t0 = time.perf_counter()
+    loaded = spill.load(snap, [c for c in client.constraints()
+                               if c.actions_for(AUDIT_EP)],
+                        templates=templates_digest(client))
+    load_s = time.perf_counter() - t0
+    if loaded is None:
+        kc.close()
+        raise AssertionError(f"kube snapshot: the spill missed: "
+                             f"{spill.stats()['miss_reasons']}")
+    ing.from_rvs = dict(loaded["rvs"])
+    ing.rvs.update(loaded["rvs"])
+    mgr.restore_spill_aux(loaded["aux"])
+    ing.start()
+    warm = _kube_step(out, "warm first tick", mgr.audit_tick, card, device)
+    first_s = time.perf_counter() - t0
+    stats1 = ask("stats")
+    lists = _lists(stats0, stats1)  # the CLI of (d) may list its own
+    data_lists = _lists(stats0, stats1, KUBE_DATA_KINDS)
+    replay = (life_record.get("snapshot") or {}).get("replay_s")
+    out["warm"] = {"load_s": load_s, "load_and_tick_s": first_s,
+                   "list_requests": lists,
+                   "discovery_requests": sum(
+                       n - stats0.get(k, 0) for k, n in stats1.items()
+                       if k[0] == "discovery"),
+                   "step1_s": out["step 1"]["wall_s"],
+                   "fakecluster_replay_s": replay}
+    log(f"kube warm resume: load {load_s:.3f}s, load + first tick "
+        f"{first_s:.3f}s against step 1 {out['step 1']['wall_s']:.3f}s "
+        f"and the lifecycle phase's FakeCluster replay "
+        f"{replay if replay is None else round(replay, 3)}s (at "
+        f"{LIFE_SNAPSHOT_OBJECTS} objects); {lists} LIST requests "
+        f"({data_lists} of data kinds), "
+        f"{out['warm']['discovery_requests']} discovery requests; "
+        f"spill {out['spill']['bytes']} bytes ({card})")
+    try:
+        if data_lists:
+            raise AssertionError(f"kube warm resume listed data kinds: "
+                                 f"{data_lists}")
+        _canon_or_raise("the warm first tick against the churn tick",
+                        warm, tick.kept, tick.total_violations)
+    except BaseException:
+        ing.stop()
+        kc.close()
+        raise
+    return world
+
+
+def kube_gone(world, objects, ask, out: dict, card: str,
+              device: str = "cuda") -> None:
+    """(b)'s end, on the resumed world: Pods dropped behind the watches,
+    the watch cache compacted and every watch broken with a 410 (the
+    relists' DELETED diff absorbed: the snapshot loses exactly those
+    rows), then a resync that finds no difference."""
+    kc, ing, snap, mgr, _residency = world
+    gone = [("Pod", o["metadata"].get("namespace", ""),
+             o["metadata"]["name"]) for o in objects
+            if o["kind"] == "Pod"][::97][:KUBE_VANISH]
+    ing.pump()  # what the watches delivered since (c): the CLI's boot
+    rows0 = snap.live_count()
+    ask("vanish", gone)
+    t0 = time.perf_counter()
+    rv = ask("compact")
+    _wait("the 410 relists", lambda: _caught_up(kc, ing.gvks, rv))
+    out["relist_410_s"] = time.perf_counter() - t0
+    _kube_step(out, "tick after the 410", mgr.audit_tick, card, device)
+    if snap.live_count() != rows0 - len(gone):
+        raise AssertionError(f"kube snapshot: {snap.live_count()} rows "
+                             f"after the 410, want {rows0 - len(gone)}")
+    _kube_step(out, "resync", mgr.audit_resync, card, device)
+    if mgr.last_resync_diff is not None:
+        raise AssertionError(f"kube snapshot: the resync differs: "
+                             f"{mgr.last_resync_diff}")
+    log(f"kube snapshot: {len(gone)} objects dropped behind the watches, "
+        f"the 410 relists took {out['relist_410_s']:.3f}s, the snapshot "
+        f"holds {snap.live_count()} rows, resync diff None ({card})")
+
+
+def _kubeconfig(path: str, url: str) -> str:
+    with open(path, "w") as f:
+        f.write(f"apiVersion: v1\nkind: Config\ncurrent-context: mock\n"
+                f"contexts:\n- name: mock\n  context: {{cluster: mock, "
+                f"user: mock}}\nclusters:\n- name: mock\n  cluster: "
+                f"{{server: \"{url}\"}}\nusers:\n- name: mock\n  user: {{}}\n")
+    return path
+
+
+def _export_lines(root: str) -> list:
+    out = []
+    for dirpath, _d, files in os.walk(root):
+        for name in files:
+            with open(os.path.join(dirpath, name)) as f:
+                out += [json.loads(ln) for ln in f if ln.strip()]
+    return out
+
+
+def _kube_references(conn, ingresses, namespaces, bodies) -> None:
+    """A child process of the kube phase: ``_cpu_answers`` over the
+    apiserver's Ingresses (the synced inventory) and Namespaces."""
+    conn.send(_cpu_answers(ingresses, namespaces, bodies))
+
+
+class KubeCli:
+    """(d)'s CLI process: ``python -m gatekeeper_tpu_torch --kubeconfig K
+    --audit-source snapshot --port 0 --emit-audit-events
+    --emit-admission-events --export-dir D``, the JAX defaults otherwise;
+    its stderr is read on a thread."""
+
+    def __init__(self, url: str, device: str = "cuda"):
+        os.makedirs(KUBE_DIR, exist_ok=True)
+        self.export = os.path.join(KUBE_DIR, "export")
+        cmd = [sys.executable, "-m", "gatekeeper_tpu_torch", "--kubeconfig",
+               _kubeconfig(os.path.join(KUBE_DIR, "kubeconfig"), url),
+               "--audit-source", "snapshot", "--port", "0",
+               "--emit-audit-events", "--emit-admission-events",
+               "--export-dir", self.export]
+        if device != "cuda":
+            cmd += ["--device", device]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=ROOT_DIR,
+                                     stderr=subprocess.PIPE, text=True)
+        self.lines: list = []
+        self.port: list = []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stderr:
+            self.lines.append(line)
+            m = re.search(r"webhook serving on :(\d+)", line)
+            if m:
+                self.port.append(int(m.group(1)))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(10)
+
+
+class KubeCliRun:
+    """(d)'s apiserver and CLI, started right after the kernels phase so
+    that the CLI's boot and its first audit pass (at the JAX defaults'
+    exact totals, 200-330 s at 131,072 objects) run beside the earlier
+    phases: a second mock apiserver child built from the same seed (the
+    first, the kube phase's own, sees no write of the CLI), the CLI over
+    it once that child has seeded, and ``/healthz`` polled from the
+    serving line until it answers 200 (every answer kept), all on a
+    thread.  ``wait`` returns once the CLI was started; ``stop`` ends it
+    all."""
+
+    def __init__(self, n_objects: int, device: str = "cuda"):
+        import multiprocessing
+        import shutil
+
+        shutil.rmtree(KUBE_DIR, ignore_errors=True)
+        os.makedirs(KUBE_DIR)
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child_conn = ctx.Pipe()
+        self.child = ctx.Process(target=_kube_apiserver,
+                                 args=(child_conn, n_objects),
+                                 name="kube-cli-apiserver")
+        self.device = device
+        self.cli = None
+        self.url = None
+        self.error = None
+        self.stopped = threading.Event()
+        self.started = threading.Event()
+        self.health: list = []  # (seconds from start, status, doc)
+        self.child.start()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="kube-cli")
+        self.thread.start()
+
+    def _run(self):
+        try:
+            if not self.conn.poll(KUBE_WAIT_S):
+                raise AssertionError("kube: the CLI's apiserver did not "
+                                     "start")
+            _ready, self.url, n_server = self.conn.recv()
+            if not self.stopped.is_set():
+                self.cli = KubeCli(self.url, self.device)
+            log(f"kube: the CLI of (d) starts over a second mock apiserver "
+                f"{self.url} holding {n_server} objects")
+        except BaseException as e:  # noqa: BLE001 — read by wait()
+            self.error = e
+        finally:
+            self.started.set()
+        cli = self.cli
+        if cli is None:
+            return
+        while not cli.port:
+            if cli.proc.poll() is not None or self.stopped.is_set():
+                return
+            time.sleep(0.05)
+        while cli.proc.poll() is None and not self.stopped.is_set():
+            try:
+                status, body = _get(cli.port[0], "/healthz")
+            except OSError:
+                return
+            self.health.append((time.perf_counter() - cli.t0, status,
+                                json.loads(body)))
+            if status == 200:
+                return
+            time.sleep(0.2)
+
+    def wait(self) -> "KubeCliRun":
+        if not self.started.wait(KUBE_WAIT_S) or self.error is not None \
+                or self.cli is None:
+            raise AssertionError(f"kube: the CLI did not start: "
+                                 f"{self.error}")
+        return self
+
+    def stop(self):
+        import shutil
+
+        self.stopped.set()
+        self.started.wait(KUBE_WAIT_S)
+        if self.cli is not None:
+            self.cli.stop()
+        self.thread.join(30)
+        if self.child.is_alive():
+            self.child.terminate()
+            self.child.join(30)
+        self.conn.close()
+        shutil.rmtree(KUBE_DIR, ignore_errors=True)
+
+
+def kube_cli_ready(run: "KubeCliRun") -> dict:
+    """(d)'s readiness, read from the poller's record: ``/healthz`` 503
+    (with its readiness stats, ``ready`` false) until the tracker is
+    satisfied, then 200 with every kind satisfied and the 46 templates
+    expected, latched."""
+    cli = run.wait().cli
+    _wait("the CLI's serving line", lambda: cli.port or
+          cli.proc.poll() is not None)
+    if not cli.port:
+        raise AssertionError(f"kube cli exited: {''.join(cli.lines)}")
+    _wait("readiness", lambda: run.health and run.health[-1][1] == 200
+          or cli.proc.poll() is not None, every=0.2)
+    for _t, status, doc in run.health:
+        if "readiness" not in doc or status not in (200, 503) or \
+                doc["ready"] != (status == 200):
+            raise AssertionError(f"kube cli: /healthz {status} {doc}")
+    ready_s, _status, doc = run.health[-1]
+    stats = doc["readiness"]
+    if not all(s["satisfied"] for s in stats.values()) or \
+            stats["templates"]["expected"] != 46:
+        raise AssertionError(f"kube cli: readiness stats {stats}")
+    if _get(cli.port[0], "/healthz")[0] != 200:
+        raise AssertionError("kube cli: readiness did not latch")
+    return {"serving_s": None, "ready_s": ready_s,
+            "healthz_codes": dict(collections.Counter(
+                status for _t, status, _d in run.health))}
+
+
+def kube_cli(cli: "KubeCli", url, bodies, refs, out: dict,
+             card: str) -> dict:
+    """(d) once the CLI is ready (``kube_cli_ready``): the bodies from 64
+    clients, every answer equal to the CPU handler's (``refs``) or of the
+    JAX shed form, and the shed ones posted again by 8 clients until each
+    has a reviewed answer equal to the CPU handler's; a constraint written
+    after boot turns a later answer into a deny (and is deleted again); the
+    template's status object."""
+    kc = _kube_cluster(url)
+    port = cli.port[0]
+    try:
+        retry: dict = {}
+        replies, lat, wall = post_concurrently(port, bodies,
+                                               retry_after=retry)
+        out.update(_rate(len(bodies), lat, wall))
+        shed = [i for i in range(len(bodies))
+                if _answer(replies[i])[1] == 429]
+        bad = [i for i in shed if not _shed_form(_answer(replies[i]),
+                                                 retry.get(i))]
+        if bad:
+            raise AssertionError(f"kube cli: {len(bad)} code-429 answers "
+                                 f"not of the shed form: "
+                                 f"{_answer(replies[bad[0]])}")
+        out["shed"] = len(shed)
+        rounds = 0
+        while shed:
+            rounds += 1
+            if rounds > 5:
+                raise AssertionError(f"kube cli: {len(shed)} bodies still "
+                                     f"shed after 5 rounds at 8 clients")
+            again, _lat, _w = post_concurrently(
+                port, [bodies[i] for i in shed], procs=1, conns=8)
+            for j, i in enumerate(shed):
+                replies[i] = again[j]
+            shed = [i for i in shed if _answer(replies[i])[1] == 429]
+        out["retry_rounds"] = rounds
+        diffs = [i for i in range(len(bodies))
+                 if _unordered(_answer(replies[i])) != _unordered(refs[i])]
+        code500 = sum(_answer(r)[1] == 500 for r in replies.values())
+        out["denied"] = sum(not _answer(r)[0] for r in replies.values())
+        log(f"kube cli: {len(bodies)} admissions in {wall:.3f}s, "
+            f"{out['per_s']:.1f}/s, p50 {out['p50_ms']:.3f} ms, p99 "
+            f"{out['p99_ms']:.3f} ms, {out['shed']} shed (the JAX shed "
+            f"form, posted again by 8 clients in {rounds} rounds); "
+            f"{out['denied']} denied, {len(diffs)} differ from the CPU "
+            f"handler, {code500} with code 500 ({card})")
+        if diffs or code500:
+            i = (diffs or [0])[0]
+            raise AssertionError(f"kube cli: answers differ from the CPU "
+                                 f"handler, first {i}: "
+                                 f"{_answer(replies[i])} against {refs[i]}")
+        kc.apply(copy.deepcopy(KUBE_LATE_CONSTRAINT))
+        t0 = time.perf_counter()
+        probe = admission_body(
+            {"apiVersion": "v1", "kind": "Namespace",
+             "metadata": {"name": "kube-late",
+                          "labels": {"owner": "me.agilebank.demo"}}},
+            "kube-late")
+
+        def late_deny():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request("POST", "/v1/admit", json.dumps(probe),
+                             {"Content-Type": "application/json"})
+                resp = json.loads(conn.getresponse().read())["response"]
+            finally:
+                conn.close()
+            return "[all-must-have-team]" in (resp.get("status") or {}).get(
+                "message", "")
+        _wait("the late constraint's deny", late_deny, every=0.5)
+        out["late_constraint_s"] = time.perf_counter() - t0
+        # deleted again: the audit loop's next tick then sees the constraint
+        # set it last evaluated, and re-evaluates nothing at the drain
+        kc.delete(copy.deepcopy(KUBE_LATE_CONSTRAINT))
+        _wait("the late constraint's removal", lambda: not late_deny(),
+              every=0.5)
+        status_obj = kc.get((STATUS_GROUP, "v1beta1",
+                             "ConstraintTemplatePodStatus"),
+                            "gatekeeper-system",
+                            "gatekeeper-tpu-0-constrainttemplate-"
+                            "k8srequiredlabels")
+        if status_obj is None or not status_obj["status"].get("created"):
+            raise AssertionError(f"kube cli: template status {status_obj}")
+    finally:
+        kc.close()
+    return out
+
+
+def kube_cli_end(run: "KubeCliRun", bodies, refs, card: str) -> dict:
+    """(d): readiness (``kube_cli_ready``), the first audit pass's export,
+    the burst and the late constraint (``kube_cli``), the audit's
+    violations in the export and audit and admission Events on the
+    apiserver; then SIGTERM, a drain and exit 0."""
+    import signal
+
+    cli = run.cli
+    out = kube_cli_ready(run)
+    _wait("the first audit pass's export", lambda: any(
+        ln.get("event") == "audit_ended"
+        for ln in _export_lines(cli.export)), every=0.5)
+    out["first_audit_s"] = time.perf_counter() - cli.t0
+    kube_cli(cli, run.url, bodies, refs, out, card)
+    kc = _kube_cluster(run.url)
+    try:
+        components = collections.Counter()
+
+        def events():
+            components.clear()
+            components.update(e.get("source", {}).get("component")
+                              for e in kc.list(("", "v1", "Event")))
+            return components["gatekeeper-audit"] and \
+                components["gatekeeper-webhook"]
+        _wait("audit and admission Events", events, every=0.5)
+        exported = collections.Counter(ln.get("event")
+                                       for ln in _export_lines(cli.export))
+        if not exported["violation"]:
+            raise AssertionError(f"kube cli: export {dict(exported)}")
+        t0 = time.perf_counter()
+        cli.proc.send_signal(signal.SIGTERM)
+        rc = cli.proc.wait(timeout=KUBE_WAIT_S)
+        out.update({"events": dict(components), "exported": dict(exported),
+                    "drain_s": time.perf_counter() - t0, "rc": rc})
+    finally:
+        kc.close()
+        cli.stop()
+    log(f"kube cli: ready {out['ready_s']:.3f}s after start (/healthz "
+        f"{out['healthz_codes']}), first audit pass exported by "
+        f"{out['first_audit_s']:.3f}s; the late constraint denied after "
+        f"{out['late_constraint_s']:.3f}s; Events {out['events']}; "
+        f"exported {out['exported']}; SIGTERM to exit {rc} in "
+        f"{out['drain_s']:.3f}s ({card})")
+    if rc != 0 or not any("drain complete" in ln for ln in cli.lines):
+        raise AssertionError(f"kube cli: exit {rc}: "
+                             f"{''.join(cli.lines[-40:])}")
+    return out
+
+
+def kube_phase(objects, path_verdicts, path_timings, life_record,
+               cli_run: "KubeCliRun", card: str, device: str = "cuda",
+               n_bodies: int = KUBE_BODIES) -> tuple:
+    """The served process over an apiserver, (a)-(d): (launches, shapes,
+    record).  (a)-(c) and the 410 step run against the port's mock in a
+    spawned child process holding the library and ``objects`` (rebuilt
+    there from the same seed); fold launches count over them, in this
+    process.  (d) reads ``cli_run``, the CLI started after the kernels
+    phase over a second such child; its CPU reference answers come from a
+    third child process, beside the 410 step and the resync."""
+    import multiprocessing
+
+    from gatekeeper_tpu_torch.ops import fold
+
+    for wrapper in (fold.fused_fold, fold.epilogue):
+        wrapper.launches = 0
+        wrapper.shapes.clear()
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    child = ctx.Process(target=_kube_apiserver, args=(child_conn,
+                                                      len(objects)),
+                        name="kube-apiserver")
+    lock = threading.Lock()
+
+    def ask(cmd, arg=None):
+        with lock:
+            conn.send((cmd, arg))
+            if not conn.poll(KUBE_WAIT_S):
+                raise AssertionError(f"kube: the apiserver did not answer "
+                                     f"{cmd}")
+            return conn.recv()
+
+    record: dict = {"timeline": {}}
+    t_phase = time.perf_counter()
+
+    def mark(name):
+        record["timeline"][name] = time.perf_counter() - t_phase
+
+    refs_proc = refs_conn = world = None
+    child.start()
+    try:
+        if not conn.poll(KUBE_WAIT_S):
+            raise AssertionError("kube: the apiserver did not start")
+        _ready, url, n_server = conn.recv()
+        mark("apiserver seeded")
+        log(f"kube: mock apiserver {url} (pid {child.pid}) holds {n_server} "
+            f"objects, seeded in "
+            f"{record['timeline']['apiserver seeded']:.3f}s")
+        client, driver, _nt, _nc = _client(objects, device=device)
+        mark("client")
+        record["relist"] = kube_relist(client, driver, url, ask,
+                                       path_verdicts, path_timings, card,
+                                       device)
+        mark("(a) relists")
+        gc.collect()
+        snap_rec: dict = {}
+        record["snapshot"] = snap_rec
+        spill, tick = kube_watched(client, driver, objects, url, ask,
+                                   snap_rec, path_verdicts, card, device)
+        mark("(b) watched")
+        gc.collect()
+        world = kube_resumed(client, driver, url, ask, spill, tick,
+                             snap_rec, life_record, card, device)
+        mark("(c) resumed")
+        # (d)'s references, over the CLI's apiserver's Namespaces and
+        # Ingresses (the synced inventory), in a child process beside the
+        # 410 step and the resync
+        bodies, _objs = admission_traffic(n_bodies)
+        reader = _kube_cluster(cli_run.wait().url)
+        try:
+            namespaces = {o["metadata"]["name"]: o
+                          for o in reader.list(("", "v1", "Namespace"))}
+            ingresses = reader.list(("networking.k8s.io", "v1", "Ingress"))
+        finally:
+            reader.close()
+        refs_conn, child_refs = ctx.Pipe()
+        refs_proc = ctx.Process(target=_kube_references,
+                                args=(child_refs, ingresses, namespaces,
+                                      bodies), name="kube-references")
+        refs_proc.start()
+        kube_gone(world, objects, ask, snap_rec, card, device)
+        mark("(b) 410 and resync")
+        world[1].stop()
+        world[0].close()
+        world = None
+        launches = {"fused_fold": fold.fused_fold.launches,
+                    "epilogue": fold.epilogue.launches}
+        shapes = {"fused_fold": dict(fold.fused_fold.shapes),
+                  "epilogue": dict(fold.epilogue.shapes)}
+        record["requests"] = {f"{v}/{k}": n for (v, k), n in
+                              sorted(ask("stats").items())}
+        ask("stop")
+        child.join(30)
+        gc.collect()
+        if not refs_conn.poll(KUBE_WAIT_S):
+            raise AssertionError("kube: the CPU references did not arrive")
+        refs = refs_conn.recv()
+        refs_proc.join(30)
+        mark("(d) references")
+        record["cli"] = kube_cli_end(cli_run, bodies, refs, card)
+        mark("(d) cli")
+    finally:
+        if world is not None:
+            world[1].stop()
+            world[0].close()
+        if refs_proc is not None and refs_proc.is_alive():
+            refs_proc.terminate()
+            refs_proc.join(30)
+        if refs_conn is not None:
+            refs_conn.close()
+        if child.is_alive():
+            child.terminate()
+            child.join(30)
+        conn.close()
+    timeline = {k: round(v, 3) for k, v in record["timeline"].items()}
+    log(f"kube: timeline (s from the phase's start) {timeline}; fold "
+        f"launches {launches} at (C, N, k) "
+        f"{ {k: sorted(v) for k, v in shapes.items()} }")
+    if device == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"kube: a fold kernel never launched: "
+                             f"{launches}")
+    return launches, shapes, record
+
+
+def _stop_resource_tracker() -> None:
+    """End the resource tracker that spawning the kube phase's children
+    started (it would outlive the script by a moment otherwise); call it
+    once every spawned child has exited."""
+    from multiprocessing import resource_tracker
+
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--objects", type=int, default=131072,
                    help="synthetic cluster objects (131,072 = 4 chunks; up "
                         "to 1,000,000)")
-    p.add_argument("--admissions", type=int, default=2048,
+    p.add_argument("--admissions", type=int, default=1024,
                    help="AdmissionReviews served in the admission phase")
     args = p.parse_args()
     if not 0 < args.objects <= 1_000_000:
@@ -4301,9 +5283,23 @@ def main() -> int:
     card = device_phase()["card"]
     phase("kernels")
     rows, err = kernel_phase()
+    # the kube phase's CLI boots and audits beside the phases between
+    cli_run = KubeCliRun(args.objects)
+    try:
+        return run_phases(args, card, rows, err, cli_run, t_start, phase)
+    finally:
+        cli_run.stop()
+        _stop_resource_tracker()
+
+
+def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
+               t_start: float, phase) -> int:
+    """Phases 3-17 (see the module docstring)."""
     phase("path")
-    launches, shapes, objects, relist_runs, prefix_summary = path_phase(
-        args.objects)
+    launches, shapes, objects, relist_runs, prefix_summary, path_timings = \
+        path_phase(args.objects)
+    path_verdicts = {c: (run.kept, dict(run.total_violations))
+                     for c, run in relist_runs.items()}
     plain_totals = {c: dict(run.total_violations)
                     for c, run in relist_runs.items()}
     phase("pipeline")
@@ -4331,6 +5327,11 @@ def main() -> int:
     hook_launches, hook_shapes, hook_record = hooks_phase(
         objects, card, n_bodies=min(HOOKS_BODIES, args.admissions))
     gc.collect()
+    phase("kube")
+    kube_launches, kube_shapes, kube_record = kube_phase(
+        objects, path_verdicts, path_timings, life_record, cli_run, card,
+        n_bodies=min(KUBE_BODIES, args.admissions))
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
@@ -4339,7 +5340,8 @@ def main() -> int:
                    + collections.Counter(exp_shapes[name])
                    + collections.Counter(ext_shapes.get(name, {}))
                    + collections.Counter(life_shapes[name])
-                   + collections.Counter(hook_shapes[name]))
+                   + collections.Counter(hook_shapes[name])
+                   + collections.Counter(kube_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -4358,6 +5360,7 @@ def main() -> int:
     log(f"pipeline runs: {json.dumps(pipe_records, default=str)}")
     log(f"lifecycle: {json.dumps(life_record, default=str)}")
     log(f"hooks: {json.dumps(hook_record, default=str)}")
+    log(f"kube: {json.dumps(kube_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -4368,6 +5371,7 @@ def main() -> int:
         row["extdata_launches"] = ext_launches[row["name"]]
         row["lifecycle_launches"] = life_launches[row["name"]]
         row["hooks_launches"] = hook_launches[row["name"]]
+        row["kube_launches"] = kube_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

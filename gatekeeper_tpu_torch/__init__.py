@@ -20,8 +20,11 @@ its device residency (``snapshot/``), mutation (``mutation/``, with the
 device prefilter) and its batched lane (``mutlane/``), expansion
 (``expansion/``), the webhook (``webhook/``: ``/v1/admit``, ``/v1/mutate``),
 external data (``externaldata/``, ``extdata/``: the provider cache and the
-batched join lane, whose ``ext:`` tables the grid reads) and
-``python -m gatekeeper_tpu_torch --manifests DIR [--once]``.
+batched join lane, whose ``ext:`` tables the grid reads), the cluster
+sources (``sync/``: the apiserver's ``KubeCluster`` and a mock apiserver)
+and the controller plane (``controller/``, ``readiness/``, ``export/``),
+and ``python -m gatekeeper_tpu_torch --manifests DIR | --kubeconfig FILE
+[--once]``.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Entry point of the port: one audit sweep, or the admission webhook
-beside the audit loop.
+beside the audit loop, over manifests or a live apiserver.
 
     python -m gatekeeper_tpu_torch --manifests DIR --once \
         [--collect reduced|masks] [--device cuda|cpu] \
@@ -20,19 +20,31 @@ beside the audit loop.
     [--flatten-workers N] [--flatten-lane auto|dict|raw|py|differential]
     [--mutate-ingest dict|raw|differential] [--compile-cache DIR]
     [--snapshot-spill DIR] [--snapshot-spill-compress none|zlib]
-    [--snapshot-spill-delta] [--snapshot-spill-full-every N])
+    [--snapshot-spill-delta] [--snapshot-spill-full-every N]
+    [--kubeconfig FILE|in-cluster] [--management-manifests DIR]
+    [--readiness-retries N] [--export-dir DIR] [--emit-audit-events]
+    [--emit-admission-events] [--gatekeeper-namespace NS] ...)
 
-Loads ConstraintTemplates, constraints and cluster objects from YAML
-(files or directories, ``--manifests`` repeatable).  ``--device`` is where
-both the audit sweep and the webhook's batched reviews run.
+The boot is the JAX CLI's: the controller ``Manager``
+(``controller/manager.py``) starts over the cluster source, a
+``KubeCluster`` under ``--kubeconfig`` or an in-memory ``FakeCluster``,
+and reconciles ConstraintTemplates (each with a watch on its constraint
+kind), constraints, Config and SyncSet (the synced inventory), mutators,
+ExpansionTemplates, Providers, Connections and the webhook configuration
+into the systems, writing a per-pod status object for each template and
+for each object it refuses.  The YAML of ``--manifests`` (files or
+directories, repeatable) is then applied to the source; the readiness
+tracker expects every template and constraint the source held at boot.
+``--device`` is where both the audit sweep and the webhook's batched
+reviews run.
 
 ``--once`` runs one audit sweep on the device and prints the same summary
 (stderr) and kept-violation lines (stdout) as ``python -m gatekeeper_tpu
---manifests DIR --once``.  Every manifest object is audited, templates and
-constraints included.  The JAX package's CLI runs its controller plane and
-also audits the status objects it writes (one ConstraintTemplatePodStatus
-per template); the port has no controller plane yet, so its object count
-leaves those out.
+--manifests DIR --once``.  Every object of the source is audited: the
+manifests and the status objects the Manager wrote.  Under
+``--kubeconfig`` the audit lists every listable GVK by discovery, in pages
+of raw bytes (a GVK whose list fails is skipped), and the snapshot source
+watches every such GVK, resuming from a spill's resourceVersions.
 
 Mutators (``mutations.gatekeeper.sh``: Assign, AssignMetadata, ModifySet,
 AssignImage) load into a ``MutationSystem`` and ExpansionTemplates
@@ -45,7 +57,8 @@ violations prefixed ``[Implied by <template>]``.
 
 Provider manifests (``externaldata.gatekeeper.sh`` ``Provider``) load
 into one ``ProviderCache``; a Provider that fails validation (a URL that
-is not https, no ``caBundle``) is reported on stderr and not loaded.  One
+is not https, no ``caBundle``) is not loaded, and its status object
+carries the error.  One
 ``ExtDataLane`` over that cache (``--extdata-lane``, default ``batched``)
 is installed for the process: templates that call ``external_data`` join
 ``ext:`` tables on the device grid at admission and in the audit, their
@@ -73,8 +86,8 @@ worker processes, and ``--mutate-ingest`` picks the ``/v1/mutate``
 burst's columnizer.
 
 ``--audit-source snapshot`` audits the resident columnar snapshot
-instead of relisting: the manifests populate an in-memory ``FakeCluster``
-that a ``WatchIngester`` watches, the first pass builds the snapshot, and
+instead of relisting: a ``WatchIngester`` watches the cluster source, the
+first pass builds the snapshot, and
 with ``--snapshot-residency`` ``auto`` (on a CUDA device) or ``on`` its
 columns and match masks stay on the device.  ``--once`` prints the same
 lines in either mode.
@@ -82,12 +95,16 @@ lines in either mode.
 Without ``--once`` the CLI serves ``/v1/admit``, ``/v1/mutate``,
 ``/v1/admitlabel`` and ``/healthz`` on ``--port`` (0 picks a free port;
 stderr prints ``webhook serving on :PORT``) until SIGINT or SIGTERM, then
-drains.  ``/v1/admit`` reviews each generator object's resultants with it.
+drains; ``/healthz`` answers 503 until the readiness tracker has observed
+every expected template and constraint, then 200, both with the tracker's
+stats.  ``/v1/admit`` reviews each generator object's resultants with it;
+its namespace lookup reads the resident snapshot first, then the source
+(under ``--kubeconfig`` a watch-fed cache with a GET fallback).
 ``/v1/mutate`` answers through the batched mutation lane and its
 microbatcher (``--mutate-lane batched``, the default), the per-object
 reference handler (``host``) or the batched lane checked against the
 reference on every batch (``differential``).  ``--operation`` (repeatable;
-default all three) picks what the process runs, as the reference's
+default all) picks what the process runs, as the reference's
 process split does: ``audit`` (the audit loop), ``webhook`` (validation)
 and ``mutation-webhook`` (mutation); ``--once`` audits whatever it is
 given.  Beside
@@ -95,14 +112,19 @@ the webhook a thread runs ``AuditManager.run_forever()``: a relist sweep
 every ``--audit-interval`` seconds, or in snapshot mode a first full pass,
 then an incremental tick per interval and every
 ``--snapshot-resync-every``-th interval the resync differential.  The
-audit thread stops on drain.  The
-namespace of a request is looked up among the manifests' Namespace
-objects.  ``--certs-dir`` serves TLS from its existing ``tls.crt`` and
-``tls.key``.  Before serving, one grid-lane batch of the batcher's largest
-size warms the device path.
+audit thread stops on drain.  ``--certs-dir`` serves TLS from its
+``tls.crt`` and ``tls.key``, generating them when missing (under
+``--kubeconfig`` through the certificate Secret, with the caBundle
+injected into the webhook configurations), renewed by a rotation loop
+every ``--cert-rotation-check-s``; ``--client-ca-file`` requires client
+certificates.  Before serving, one grid-lane batch of the batcher's
+largest size warms the device path.  ``--emit-admission-events`` and
+``--emit-audit-events`` write Events to the source, ``--export-dir``
+exports each audit's violations to disk, and ``--exempt-namespace*``,
+``--fail-open-on-error`` and ``--log-stats-admission`` are the JAX CLI's.
 
-The served process's lifecycle.  Boot, in this order: templates install
-through ``--compile-cache`` (lowered programs keyed by template digest and
+The served process's lifecycle.  Boot, in this order: the Manager and the
+manifests, templates installing through ``--compile-cache`` (lowered programs keyed by template digest and
 the torch and CUDA versions; a warm boot lowers nothing), constraints,
 data, mutators; with ``--audit-source snapshot`` and ``--snapshot-spill``
 the spill loads before the first pass (a hit: the watch resubscribes from
@@ -122,7 +144,8 @@ gatekeeper_tpu_torch`` with this argv less ``--webhook-workers``,
 --operation mutation-webhook``): each is a whole replica of the serving
 stack with its own CUDA context, bound to the same port with
 ``SO_REUSEPORT``, and the audit runs in the parent only.  It needs an
-explicit ``--port``; with ``--certs-dir`` the certificate pair must exist;
+explicit ``--port``; with ``--certs-dir`` a missing certificate pair is
+generated before the children start, and only the parent rotates it;
 ``--once`` ignores it.
 
 The served process's hooks are built before anything else, in the JAX
@@ -148,8 +171,9 @@ then ``--drain-timeout`` for what the server holds); a second signal
 while draining is ignored.
 
 A ``Config`` named ``config`` is read for ``spec.sync.syncOnly`` (the
-kinds synced into ``data.inventory``) and ``spec.match`` (the per-process
-namespace exclusions); its other fields are not read.  CEL
+kinds synced into ``data.inventory``), ``spec.match`` (the per-process
+namespace exclusions) and ``spec.validation.traces`` (per-request
+traces).  CEL
 (K8sNativeValidation) templates install through a ``CELDriver`` beside the
 device driver, as in the JAX CLI.
 """
@@ -163,8 +187,6 @@ TEMPLATES_GROUP = "templates.gatekeeper.sh"
 CONSTRAINTS_GROUP = "constraints.gatekeeper.sh"
 CONFIG_GROUP = "config.gatekeeper.sh"
 AUDIT_JOIN_S = 120.0  # drain's wait for an audit pass in flight
-# the process split of --operation (reference pkg/operations)
-OPERATIONS = ("audit", "webhook", "mutation-webhook")
 
 
 def load_manifests(paths) -> list:
@@ -219,21 +241,19 @@ def warm_batcher(client, batcher) -> None:
     client.review_batch(warm)
 
 
-def build_client(objects, device: str = "cuda",
-                 generation_swap: bool = False, compile_cache=None,
-                 metrics=None):
-    """(client, driver) with every template and constraint of
-    ``objects`` installed and the Config-synced inventory loaded; the
-    driver's batched reviews run on ``device``.  With ``generation_swap``
-    the driver gets a (not yet started) ``GenerationCoordinator``, whose
-    warm reads the client's constraints; ``compile_cache`` is a
-    ``CompileCache`` the template installs go through."""
+def new_client(device: str = "cuda", generation_swap: bool = False,
+               compile_cache=None, metrics=None) -> tuple:
+    """(client, driver), empty: a ``TorchDriver`` whose batched reviews run
+    on ``device`` beside a ``CELDriver``, as the JAX CLI builds them.  With
+    ``generation_swap`` the driver gets a (not yet started)
+    ``GenerationCoordinator``, whose warm reads the client's constraints;
+    ``compile_cache`` is a ``CompileCache`` the template installs go
+    through."""
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
     from gatekeeper_tpu_torch.client.client import Client
     from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
     from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.target.target import K8sValidationTarget
-    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
 
     cel = CELDriver()
     driver = TorchDriver(device=device, cel_driver=cel,
@@ -243,6 +263,21 @@ def build_client(objects, device: str = "cuda",
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
     if driver.gen_coord is not None:
         driver.gen_coord.constraints_fn = client.constraints
+    return client, driver
+
+
+def build_client(objects, device: str = "cuda",
+                 generation_swap: bool = False, compile_cache=None,
+                 metrics=None):
+    """(client, driver) of :func:`new_client` with every template and
+    constraint of ``objects`` installed and the Config-synced inventory
+    loaded (the benches' and tests' fixture; the CLI installs through the
+    controller ``Manager``)."""
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+
+    client, driver = new_client(device=device,
+                                generation_swap=generation_swap,
+                                compile_cache=compile_cache, metrics=metrics)
     sync: set = set()
     for obj in objects:
         group, _v, kind = gvk_of(obj)
@@ -270,24 +305,34 @@ def build_client(objects, device: str = "cuda",
     return client, driver
 
 
-def build_extdata(objects, mode: str = "batched", max_keys: int = 256,
-                  fanout: int = 4, metrics=None) -> tuple:
-    """(ProviderCache, ExtDataLane): every Provider manifest of
-    ``objects`` loaded into one cache, and a lane over it in ``mode``,
-    installed for the process (the webhook's batches, the audit sweep and
-    the mutation placeholders all join through it).  A Provider that
-    ``Provider.from_unstructured`` refuses is reported on stderr and not
-    loaded."""
+def new_extdata(mode: str = "batched", max_keys: int = 256,
+                fanout: int = 4, metrics=None) -> tuple:
+    """(ProviderCache, ExtDataLane): an empty cache and a lane over it in
+    ``mode``, installed for the process (the webhook's batches, the audit
+    sweep and the mutation placeholders all join through it)."""
     from gatekeeper_tpu_torch.extdata import lane as extlane
-    from gatekeeper_tpu_torch.externaldata.providers import (PROVIDER_GROUP,
-                                                             ProviderCache,
-                                                             ProviderError)
-    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+    from gatekeeper_tpu_torch.externaldata.providers import ProviderCache
 
     cache = ProviderCache(metrics=metrics)
     lane = extlane.ExtDataLane(cache, mode=mode, max_keys_per_call=max_keys,
-                               fanout=fanout)
+                               metrics=metrics, fanout=fanout)
     extlane.install(lane)
+    return cache, lane
+
+
+def build_extdata(objects, mode: str = "batched", max_keys: int = 256,
+                  fanout: int = 4, metrics=None) -> tuple:
+    """:func:`new_extdata` with every Provider manifest of ``objects``
+    loaded into the cache (a fixture; the CLI reconciles Providers through
+    the controller ``Manager``).  A Provider that
+    ``Provider.from_unstructured`` refuses is reported on stderr and not
+    loaded."""
+    from gatekeeper_tpu_torch.externaldata.providers import (PROVIDER_GROUP,
+                                                             ProviderError)
+    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
+
+    cache, lane = new_extdata(mode=mode, max_keys=max_keys, fanout=fanout,
+                              metrics=metrics)
     for obj in objects:
         group, _v, kind = gvk_of(obj)
         if group != PROVIDER_GROUP or kind != "Provider":
@@ -339,10 +384,72 @@ def main(argv=None) -> int:
         stop_workers(workers)
 
 
+def abandoned_audit() -> bool:
+    """True when a drain left an audit pass running (``serve`` waits
+    ``AUDIT_JOIN_S`` for it): its daemon thread may be inside torch or the
+    native columnizer, which the interpreter's teardown would abort."""
+    import threading
+
+    return any(t.name == "audit-loop" and t.is_alive()
+               for t in threading.enumerate())
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m gatekeeper_tpu_torch")
     p.add_argument("--manifests", action="append", default=[],
                    help="YAML file or directory (repeatable)")
+    p.add_argument("--kubeconfig", default="",
+                   help="run against a live Kubernetes apiserver (watch + "
+                        "paged list informer plane); 'in-cluster' uses the "
+                        "service-account environment")
+    p.add_argument("--management-manifests", default="",
+                   help="remote-cluster mode: status/secret state routes to "
+                        "a separate management cluster seeded from this "
+                        "directory (reference --enable-remote-cluster)")
+    p.add_argument("--readiness-retries", type=int, default=0,
+                   help="ingestion attempts allowed before a failing "
+                        "resource's readiness expectation is cancelled; "
+                        "-1 retries indefinitely (reference "
+                        "--readiness-retries, object_tracker.go:36)")
+    p.add_argument("--export-dir", default="",
+                   help="enable disk export of audit violations")
+    p.add_argument("--emit-admission-events", action="store_true",
+                   help="emit K8s Events on admission violations "
+                        "(reference --emit-admission-events)")
+    p.add_argument("--admission-events-involved-namespace",
+                   action="store_true",
+                   help="emit admission Events in the violating object's "
+                        "namespace instead of the gatekeeper namespace")
+    p.add_argument("--emit-audit-events", action="store_true",
+                   help="emit K8s Events on audit violations "
+                        "(reference --emit-audit-events)")
+    p.add_argument("--audit-events-involved-namespace",
+                   action="store_true",
+                   help="emit audit Events in the violating object's "
+                        "namespace instead of the gatekeeper namespace")
+    p.add_argument("--gatekeeper-namespace", default="gatekeeper-system",
+                   help="namespace Events land in by default")
+    p.add_argument("--log-stats-admission", action="store_true",
+                   help="log per-request evaluation stats (reference "
+                        "--log-stats-admission)")
+    p.add_argument("--client-ca-file", default="",
+                   help="require and verify client certificates against "
+                        "this CA (reference --client-ca-name)")
+    p.add_argument("--cert-rotation-check-s", type=float, default=3600.0,
+                   help="cert expiry check interval for the rotation loop")
+    p.add_argument("--fail-open-on-error", action="store_true",
+                   help="admit (with a warning) when the review path raises "
+                        "internally, instead of the reference's Errored "
+                        "allowed=false code-500 response")
+    p.add_argument("--exempt-namespace", action="append", default=[],
+                   help="namespace allowed to set the ignore label "
+                        "(repeatable; reference --exempt-namespace)")
+    p.add_argument("--exempt-namespace-prefix", action="append", default=[],
+                   help="namespace name prefix allowed to set the ignore "
+                        "label (repeatable)")
+    p.add_argument("--exempt-namespace-suffix", action="append", default=[],
+                   help="namespace name suffix allowed to set the ignore "
+                        "label (repeatable)")
     p.add_argument("--once", action="store_true",
                    help="run one audit sweep and exit (no server)")
     p.add_argument("--collect", default="reduced",
@@ -356,7 +463,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8443,
                    help="webhook port (0 picks a free one)")
     p.add_argument("--certs-dir", default="",
-                   help="serve TLS with tls.crt and tls.key from this dir")
+                   help="serve TLS using (or generating) certs in this dir")
     p.add_argument("--tls-min-version", default="1.3",
                    choices=["1.2", "1.3"])
     p.add_argument("--log-denies", action="store_true",
@@ -481,7 +588,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "'differential' runs raw THEN dict per chunk "
                         "and asserts bit-identical columns (debugging)")
     p.add_argument("--operation", action="append", default=[],
-                   choices=OPERATIONS,
                    help="audit|webhook|mutation-webhook (repeatable; "
                         "default all)")
     p.add_argument("--generation-swap", default="on", choices=["on", "off"],
@@ -847,8 +953,10 @@ def _install_hooks(args, hooks: Hooks) -> None:
 def worker_argv(argv) -> list:
     """A worker child's arguments: ``argv`` without ``--webhook-workers``,
     ``--operation`` (and their values) and ``--once``, plus ``--reuse-port
-    --operation webhook --operation mutation-webhook``, so the child serves
-    the webhooks only and starts no grandchildren."""
+    --operation webhook --operation mutation-webhook
+    --cert-rotation-check-s 0``, so the child serves the webhooks only,
+    starts no grandchildren and leaves certificate rotation to the
+    parent."""
     stripped: list = []
     skip = False
     for a in argv:
@@ -863,7 +971,10 @@ def worker_argv(argv) -> list:
             continue
         stripped.append(a)
     return stripped + ["--reuse-port", "--operation", "webhook",
-                       "--operation", "mutation-webhook"]
+                       "--operation", "mutation-webhook",
+                       # only the parent rotates certificates: N renewals
+                       # would interleave into mismatched tls.crt/tls.key
+                       "--cert-rotation-check-s", "0"]
 
 
 def start_workers(parser, args, argv) -> list:
@@ -883,12 +994,14 @@ def start_workers(parser, args, argv) -> list:
     if args.port == 0:
         parser.error("--webhook-workers needs an explicit --port "
                      "(an ephemeral port cannot be shared)")
-    if args.certs_dir and not all(
-            os.path.exists(os.path.join(args.certs_dir, f))
-            for f in ("tls.crt", "tls.key")):
-        parser.error(f"--webhook-workers with --certs-dir needs "
-                     f"{args.certs_dir}/tls.crt and tls.key (they are not "
-                     f"generated)")
+    if args.certs_dir and not os.path.exists(
+            os.path.join(args.certs_dir, "tls.crt")):
+        # generate the serving certificates before the children start: N
+        # processes generating them at first boot would overwrite each
+        # other's pairs
+        from gatekeeper_tpu_torch.webhook.certs import generate_certs
+
+        generate_certs(args.certs_dir)
     from gatekeeper_tpu_torch.pipeline import effective_cpu_count
 
     cores = effective_cpu_count()
@@ -950,69 +1063,83 @@ def run(args, workers=()) -> int:
 
 
 def _run(args, hooks: Hooks, workers) -> int:
+    """The JAX CLI's boot (``gatekeeper_tpu/__main__.py``): the controller
+    ``Manager`` starts over the cluster source, the manifests populate it,
+    the evaluator and the audit plane come up, then one sweep or the
+    server."""
+    from gatekeeper_tpu_torch.controller.manager import (ALL_OPERATIONS,
+                                                         Manager)
+    from gatekeeper_tpu_torch.export.system import ExportSystem
+    from gatekeeper_tpu_torch.sync.source import FileSource
+
     metrics = hooks.metrics
-    objects = load_manifests(args.manifests)
-    provider_cache, _lane = build_extdata(
-        objects, mode=args.extdata_lane, max_keys=args.extdata_max_keys,
-        fanout=args.extdata_fanout, metrics=metrics)
-    if args.extdata_lane != "batched":
-        print(f"extdata lane: {args.extdata_lane}", file=sys.stderr)
+    operations = args.operation or list(ALL_OPERATIONS)
     compile_cache = None
     if args.compile_cache:
         from gatekeeper_tpu_torch.drivers.generation import CompileCache
 
-        compile_cache = CompileCache(args.compile_cache)
-    client, driver = build_client(
-        objects, device=args.device,
-        generation_swap=args.generation_swap == "on",
+        compile_cache = CompileCache(args.compile_cache, metrics=metrics)
+    client, driver = new_client(
+        device=args.device, generation_swap=args.generation_swap == "on",
         compile_cache=compile_cache, metrics=metrics)
-    if compile_cache is not None:
-        print(f"compile cache: {args.compile_cache} "
-              f"{compile_cache.stats()}", file=sys.stderr)
-    mutation_system, expansion_system = build_mutation(
-        objects, provider_cache=provider_cache)
-    print(f"templates: {len(client.templates())} "
-          f"({len(driver.lowered_kinds())} on the device verdict path), "
-          f"constraints: {len(client.constraints())}, mutators: "
-          f"{len(mutation_system.mutators())}, expansion templates: "
-          f"{len(expansion_system.templates())}", file=sys.stderr)
-    operations = set(args.operation or OPERATIONS)
-    mgr = ingester = warm_cache = None
-    if args.once or "audit" in operations:
-        mgr, ingester = build_audit(args, objects, client, driver,
-                                    expansion_system=expansion_system,
-                                    extdata_lane=_lane, metrics=metrics)
-        if args.compile_cache and not args.once:
-            from gatekeeper_tpu_torch.drivers.generation import \
-                WarmStateCache
-
-            warm_cache = WarmStateCache(args.compile_cache)
-            rep = warm_cache.replay(driver, mgr.evaluator)
-            if rep["hit"]:
-                print(f"warm state replayed: {rep['hit_states']} hit-buffer "
-                      f"states, admission warm batch "
-                      f"{'run' if rep['warm_ref'] else 'absent'}",
-                      file=sys.stderr)
-    gen_coord = driver.gen_coord
+    cluster, kube_cluster = build_cluster(args, metrics)
+    export = ExportSystem()
+    if args.export_dir:
+        export.upsert_connection("disk", "disk", {"path": args.export_dir})
+    provider_cache, lane = new_extdata(
+        mode=args.extdata_lane, max_keys=args.extdata_max_keys,
+        fanout=args.extdata_fanout, metrics=metrics)
+    if args.extdata_lane != "batched":
+        print(f"extdata lane: {args.extdata_lane}", file=sys.stderr)
+    ctl = Manager(client, cluster, operations=operations,
+                  provider_cache=provider_cache, extdata_lane=lane,
+                  export_system=export, metrics=metrics,
+                  readiness_retries=args.readiness_retries).start()
+    audit_mgr = ingester = warm_cache = None
     try:
+        if args.manifests:
+            FileSource(*args.manifests).populate(cluster)
+        ctl.tracker.all_populated()
+        if compile_cache is not None:
+            print(f"compile cache: {args.compile_cache} "
+                  f"{compile_cache.stats()}", file=sys.stderr)
+        print(f"templates: {len(client.templates())} "
+              f"({len(driver.lowered_kinds())} on the device verdict path),"
+              f" constraints: {len(client.constraints())}, mutators: "
+              f"{len(ctl.mutation_system.mutators())}, expansion "
+              f"templates: {len(ctl.expansion_system.templates())}",
+              file=sys.stderr)
+        if ctl.is_assigned("audit") or args.once:
+            audit_mgr, ingester = audit_plane(
+                args, client, driver, cluster, kube_cluster=kube_cluster,
+                expansion_system=ctl.expansion_system, extdata_lane=lane,
+                export_system=export, metrics=metrics)
+            if args.compile_cache and not args.once:
+                from gatekeeper_tpu_torch.drivers.generation import \
+                    WarmStateCache
+
+                warm_cache = WarmStateCache(args.compile_cache,
+                                            metrics=metrics)
+                rep = warm_cache.replay(driver, audit_mgr.evaluator)
+                if rep["hit"]:
+                    print(f"warm state replayed: {rep['hit_states']} "
+                          f"hit-buffer states, admission warm batch "
+                          f"{'run' if rep['warm_ref'] else 'absent'}",
+                          file=sys.stderr)
         if args.once:
-            rc = audit_once(mgr)
+            rc = audit_once(audit_mgr)
             hooks.export_trace()
             return rc
-        if gen_coord is not None:
-            # boot is done: later template changes compile off the
-            # serving path
-            gen_coord.start()
-            print("generation swap active: template changes compile on a "
-                  "background thread", file=sys.stderr)
-        return serve(args, objects, client, mgr, operations,
-                     mutation_system, expansion_system, hooks,
-                     driver=driver, workers=workers, warm_cache=warm_cache)
+        return serve(args, client, ctl, audit_mgr, hooks, driver=driver,
+                     cluster=cluster, kube_cluster=kube_cluster,
+                     workers=workers, warm_cache=warm_cache)
     finally:
-        if gen_coord is not None:
-            gen_coord.stop()
+        if driver.gen_coord is not None:
+            driver.gen_coord.stop()
         if ingester is not None:
             ingester.stop()
+        if kube_cluster is not None:
+            kube_cluster.close()  # the Manager's and the namespace watches
         if args.flatten_workers:
             from gatekeeper_tpu_torch.ops.flatten import \
                 shutdown_flatten_pools
@@ -1020,16 +1147,86 @@ def _run(args, hooks: Hooks, workers) -> int:
             shutdown_flatten_pools()  # the worker processes exit with us
 
 
+def build_cluster(args, metrics=None) -> tuple:
+    """(cluster, kube_cluster): the source the controller ``Manager``
+    reconciles from.  ``--kubeconfig`` makes it a ``KubeCluster`` over the
+    apiserver (also returned as ``kube_cluster``, whose discovery the audit
+    lister and the snapshot's watch use); otherwise an in-memory
+    ``FakeCluster`` that ``--manifests`` populates.
+    ``--management-manifests`` routes the gatekeeper-internal state (the
+    status group and Secrets) to a second ``FakeCluster`` seeded from that
+    directory."""
+    from gatekeeper_tpu_torch.sync.source import FakeCluster, FileSource
+
+    kube_cluster = None
+    if args.kubeconfig:
+        from gatekeeper_tpu_torch.sync.kube import KubeCluster, KubeConfig
+
+        cfg = (KubeConfig.in_cluster() if args.kubeconfig == "in-cluster"
+               else KubeConfig.from_kubeconfig(args.kubeconfig))
+        kube_cluster = cluster = KubeCluster(cfg, metrics=metrics)
+        print(f"informer plane: apiserver {cfg.server}", file=sys.stderr)
+    else:
+        cluster = FakeCluster()
+    if args.management_manifests:
+        from gatekeeper_tpu_torch.sync.routing import RoutingCluster
+
+        mgmt = FakeCluster()
+        FileSource(args.management_manifests).populate(mgmt)
+        cluster = RoutingCluster(mgmt, cluster)
+        if kube_cluster is not None:
+            kube_cluster = cluster  # audit discovery routes via the target
+    return cluster, kube_cluster
+
+
 def build_audit(args, objects, client, driver,
                 expansion_system=None, extdata_lane=None,
                 metrics=None) -> tuple:
-    """(AuditManager, WatchIngester or None) as the flags ask: a relisting
-    lister over the manifests, or the resident snapshot fed by a watch on a
-    ``FakeCluster`` that holds them.  With ``--audit-expand`` the manager
-    expands generator objects through ``expansion_system``.  With
-    ``--snapshot-spill`` the spill loads before the watch starts (its
-    resourceVersions seed the ingester) and a ``SnapshotSpiller`` rides the
-    manager; its extdata section goes through ``extdata_lane``."""
+    """:func:`audit_plane` over a ``FakeCluster`` holding ``objects`` (the
+    benches' fixture)."""
+    from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+    cluster = FakeCluster()
+    for obj in objects:
+        cluster.apply(obj)
+    return audit_plane(args, client, driver, cluster,
+                       expansion_system=expansion_system,
+                       extdata_lane=extdata_lane, metrics=metrics)
+
+
+def kube_lister(kube_cluster):
+    """The audit's discovery-driven lister (auditResources,
+    pkg/audit/manager.go:369-422): every listable GVK, paged.  A failed
+    discovery skips the sweep and a failed list skips that GVK; neither
+    ends the process."""
+    def lister():
+        try:
+            gvks = kube_cluster.server_preferred_gvks()
+        except Exception as e:
+            print(f"audit discovery failed: {e}", file=sys.stderr)
+            return
+        for gvk in gvks:
+            try:
+                yield from kube_cluster.list_iter(gvk)
+            except Exception as e:
+                print(f"audit list {gvk}: {e}", file=sys.stderr)
+    return lister
+
+
+def audit_plane(args, client, driver, cluster, kube_cluster=None,
+                expansion_system=None, extdata_lane=None,
+                export_system=None, metrics=None) -> tuple:
+    """(AuditManager, WatchIngester or None) as the flags ask, over
+    ``cluster``: a relisting lister (under ``--kubeconfig`` the
+    discovery-driven :func:`kube_lister` of ``kube_cluster``), or the
+    resident snapshot fed by a watch on the same source.  With
+    ``--audit-expand`` the manager expands generator objects through
+    ``expansion_system``.  With ``--snapshot-spill`` the spill loads before
+    the watch starts (its resourceVersions seed the ingester, so an
+    apiserver resumes from them) and a ``SnapshotSpiller`` rides the
+    manager; its extdata section goes through ``extdata_lane``.  Finished
+    runs go to ``export_system`` and, with ``--emit-audit-events``, to
+    Events on ``cluster``."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
     from gatekeeper_tpu_torch.pipeline import (effective_cpu_count,
@@ -1044,6 +1241,21 @@ def build_audit(args, objects, client, driver,
     print(f"audit schedule: {resolve_schedule(args.pipeline, relist)} "
           f"(--pipeline {args.pipeline}, {effective_cpu_count()} effective "
           f"cores)", file=sys.stderr)
+    if kube_cluster is not None:
+        lister = kube_lister(kube_cluster)
+    else:
+        def lister():
+            return iter(cluster.list())
+    event_sink = None
+    if args.emit_audit_events:
+        from gatekeeper_tpu_torch.sync import events
+
+        event_sink = events.audit_event_sink(events.EventRecorder(
+            cluster, "gatekeeper-audit",
+            gk_namespace=args.gatekeeper_namespace,
+            involved_namespace=args.audit_events_involved_namespace,
+            on_error=lambda e: print(f"audit event emit failed: {e}",
+                                     file=sys.stderr)))
     config = AuditConfig(
         interval_s=args.audit_interval,
         violations_limit=args.constraint_violations_limit,
@@ -1054,26 +1266,23 @@ def build_audit(args, objects, client, driver,
         resync_every=args.snapshot_resync_every,
         resync_rotate=args.snapshot_resync_rotate,
         expand_generated=args.audit_expand)
+    seams = {"expansion_system": expansion_system, "metrics": metrics,
+             "export_system": export_system, "event_sink": event_sink,
+             "log_violations": args.log_denies}
     if args.audit_source != "snapshot":
-        return AuditManager(client, lister=lambda: iter(objects),
-                            config=config, evaluator=evaluator,
-                            expansion_system=expansion_system,
-                            metrics=metrics), None
+        return AuditManager(client, lister=lister, config=config,
+                            evaluator=evaluator, **seams), None
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
     from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
                                                DeviceResidency,
                                                SnapshotConfig, SnapshotSpill,
                                                SnapshotSpiller, WatchIngester,
                                                gvks_of, templates_digest)
-    from gatekeeper_tpu_torch.sync.source import FakeCluster
 
-    cluster = FakeCluster()
-    for obj in objects:
-        cluster.apply(obj)
-    snapshot = ClusterSnapshot(evaluator, SnapshotConfig())
+    snapshot = ClusterSnapshot(evaluator, SnapshotConfig(), metrics=metrics)
     spill = spill_load = None
     if args.snapshot_spill:
-        spill = SnapshotSpill(args.snapshot_spill,
+        spill = SnapshotSpill(args.snapshot_spill, metrics=metrics,
                               compress=args.snapshot_spill_compress,
                               delta=args.snapshot_spill_delta,
                               full_every=args.snapshot_spill_full_every)
@@ -1083,34 +1292,41 @@ def build_audit(args, objects, client, driver,
             extdata_lane=extdata_lane, templates=templates_digest(client))
         if spill_load is not None:
             print(f"snapshot spill loaded: {spill_load['rows']} rows warm, "
-                  f"zero relist", file=sys.stderr)
+                  f"zero relist (resubscribing from recorded rv)",
+                  file=sys.stderr)
         else:
             print(f"snapshot spill miss ({spill.stats()['miss_reasons']}); "
                   f"booting with a clean relist", file=sys.stderr)
-    gvks = gvks_of(cluster.list())
+    if kube_cluster is not None:
+        try:
+            gvks = kube_cluster.server_preferred_gvks()
+        except Exception as e:
+            print(f"snapshot discovery failed: {e}", file=sys.stderr)
+            gvks = []
+    else:
+        gvks = gvks_of(cluster.list())
     ingester = WatchIngester(
-        snapshot, cluster, gvks,
-        from_rvs=(spill_load or {}).get("rvs"),
+        snapshot, kube_cluster if kube_cluster is not None else cluster,
+        gvks, from_rvs=(spill_load or {}).get("rvs"),
         on_error=lambda e: print(f"snapshot watch subscribe failed: {e}",
                                  file=sys.stderr)).start()
-    residency = DeviceResidency(evaluator, mode=args.snapshot_residency)
+    residency = DeviceResidency(evaluator, mode=args.snapshot_residency,
+                                metrics=metrics)
     if driver.gen_coord is not None:
         # a swap drops the device mirrors at once (new schemas)
         driver.gen_coord.attach_residency(residency)
     spiller = None
     if spill is not None:
         spiller = SnapshotSpiller(
-            spill, snapshot, rvs_fn=lambda: dict(ingester.rvs),
+            spill, snapshot, rvs_fn=ingester.resume_rvs,
             extdata_lane=extdata_lane,
             templates_fn=lambda: templates_digest(client))
     print(f"resident snapshot active: watching {len(gvks)} GVKs, resync "
           f"every {args.snapshot_resync_every} intervals, residency "
           f"{args.snapshot_residency}", file=sys.stderr)
-    mgr = AuditManager(client, lister=cluster.list, config=config,
+    mgr = AuditManager(client, lister=lister, config=config,
                        evaluator=evaluator, snapshot=snapshot,
-                       residency=residency,
-                       expansion_system=expansion_system, spiller=spiller,
-                       metrics=metrics)
+                       residency=residency, spiller=spiller, **seams)
     if spill_load is not None:
         mgr.restore_spill_aux(spill_load.get("aux") or {})
     return mgr, ingester
@@ -1184,27 +1400,57 @@ def mutation_handler(args, mutation_system, namespace_lookup,
         failure_policy=args.webhook_failure_policy), batcher
 
 
-def serve(args, objects, client, audit_mgr, operations, mutation_system,
-          expansion_system, hooks: Hooks, driver=None, workers=(),
+def namespace_lookup_for(cluster, kube_cluster=None):
+    """The webhook's namespace lookup.  With a live apiserver it serves
+    from a watch-fed cache with a GET fallback (the reference's cached
+    client with API-reader fallback, policy.go:694-702), never a blocking
+    GET per admission; otherwise it reads ``cluster``."""
+    ns_gvk = ("", "v1", "Namespace")
+    if kube_cluster is None:
+        return lambda name: cluster.get(ns_gvk, "", name)
+    ns_cache: dict = {}
+
+    def on_event(ev):
+        name = (ev.obj.get("metadata") or {}).get("name", "")
+        if ev.type == "DELETED":
+            ns_cache.pop(name, None)
+        else:
+            ns_cache[name] = ev.obj
+
+    kube_cluster.subscribe(ns_gvk, on_event, replay=True)
+
+    def lookup(name):
+        hit = ns_cache.get(name)
+        if hit is not None:
+            return hit
+        return kube_cluster.get(ns_gvk, "", name)
+    return lookup
+
+
+def serve(args, client, ctl, audit_mgr, hooks: Hooks, driver=None,
+          cluster=None, kube_cluster=None, workers=(),
           warm_cache=None) -> int:
     """Serve the admission webhook (the ``webhook`` and
-    ``mutation-webhook`` operations), with ``audit_mgr.run_forever()`` on
-    a thread beside it (the ``audit`` operation), until SIGINT or SIGTERM;
-    then drain through ``hooks.drain`` (a ``DrainCoordinator``): the
-    webhook stops accepting and finishes what it holds, the audit loop
-    stops, the final spill, the warm state's save to ``warm_cache``, the
-    trace export, then the ``workers`` children, each terminated and
-    waited for in turn.  ``driver`` is the client's ``TorchDriver`` (its
-    generation coordinator recompiles the mutation lane's programs).  The
-    batcher threads and the audit thread share the device on its default
-    stream.  A signal also terminates the children at once, so they drain
+    ``mutation-webhook`` operations of the controller ``ctl``), with
+    ``audit_mgr.run_forever()`` on a thread beside it (the ``audit``
+    operation), until SIGINT or SIGTERM; then drain through ``hooks.drain``
+    (a ``DrainCoordinator``): the webhook stops accepting and finishes what
+    it holds, the audit loop stops, the final spill, the warm state's save
+    to ``warm_cache``, the trace export, then the ``workers`` children,
+    each terminated and waited for in turn.  ``/healthz`` answers 200 once
+    ``ctl``'s readiness tracker is satisfied, with its stats.  ``driver``
+    is the client's ``TorchDriver`` (its generation coordinator recompiles
+    the mutation lane's programs and starts once the server serves).
+    ``cluster`` is the Manager's source (namespace lookups, admission
+    Events, the certificates' Secret under ``--kubeconfig``).  The batcher
+    threads and the audit thread share the device on its default stream.
+    A signal also terminates the children at once, so they drain
     alongside; a second signal while draining is ignored."""
     import os
     import signal
     import threading
     import time
 
-    from gatekeeper_tpu_torch.utils.unstructured import gvk_of, name_of
     from gatekeeper_tpu_torch.webhook.namespacelabel import \
         NamespaceLabelHandler
     from gatekeeper_tpu_torch.webhook.policy import (Batcher,
@@ -1213,10 +1459,8 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
 
     metrics = hooks.metrics
     drain = hooks.drain
-    namespaces = {name_of(o): o for o in objects
-                  if gvk_of(o) == ("", "v1", "Namespace")}
-    excluder = process_excluder(objects)
     server = batcher = mutation_batcher = None
+    rot_stop = threading.Event()
     # the drain's signal handler goes in before anything serves: a signal
     # between the serving line and its install would end the process
     # undrained
@@ -1244,48 +1488,74 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
     signal.signal(signal.SIGTERM, _on_signal)
     signal.signal(signal.SIGINT, _on_signal)
 
-    if operations & {"webhook", "mutation-webhook"}:
+    if ctl.is_assigned("webhook") or ctl.is_assigned("mutation-webhook"):
         try:
+            namespace_lookup = namespace_lookup_for(cluster, kube_cluster)
+            batcher = Batcher(client, stats=args.log_stats_admission,
+                              small_batch=args.webhook_small_batch,
+                              metrics=metrics).start()
             validation = mutation = None
-            if "webhook" in operations:
-                batcher = Batcher(client,
-                                  small_batch=args.webhook_small_batch,
-                                  metrics=metrics).start()
+            if ctl.is_assigned("webhook"):
                 warm_batcher(client, batcher)
+                admission_sink = None
+                if args.emit_admission_events:
+                    from gatekeeper_tpu_torch.sync import events
+
+                    admission_sink = events.admission_event_sink(
+                        events.EventRecorder(
+                            cluster, "gatekeeper-webhook",
+                            gk_namespace=args.gatekeeper_namespace,
+                            involved_namespace=(
+                                args.admission_events_involved_namespace),
+                            on_error=lambda e: print(
+                                f"admission event emit failed: {e}",
+                                file=sys.stderr)))
                 validation = ValidationHandler(
                     client,
-                    process_excluder=excluder,
-                    namespace_lookup=namespaces.get,
+                    process_excluder=ctl.excluder,
+                    namespace_lookup=namespace_lookup,
                     batcher=batcher,
                     log_denies=args.log_denies,
-                    failure_policy=args.webhook_failure_policy,
-                    expansion_system=expansion_system,
+                    event_sink=admission_sink,
+                    fail_open=args.fail_open_on_error,
+                    failure_policy=("ignore" if args.fail_open_on_error
+                                    else args.webhook_failure_policy),
+                    expansion_system=ctl.expansion_system,
                     metrics=metrics,
                     deadline_budget_s=args.webhook_deadline,
+                    trace_config=lambda: ctl.validation_traces,
+                    log_stats=args.log_stats_admission,
                     overload=hooks.overload,
+                    snapshot=getattr(audit_mgr, "snapshot", None),
                 )
-            if "mutation-webhook" in operations:
+            if ctl.is_assigned("mutation-webhook"):
                 mutation, mutation_batcher = mutation_handler(
-                    args, mutation_system, namespaces.get, excluder,
+                    args, ctl.mutation_system, namespace_lookup,
+                    ctl.excluder,
                     coordinator=getattr(driver, "gen_coord", None),
                     metrics=metrics, overload=hooks.overload)
             certfile = keyfile = None
             if args.certs_dir:
-                certfile = os.path.join(args.certs_dir, "tls.crt")
-                keyfile = os.path.join(args.certs_dir, "tls.key")
+                certfile, keyfile = serving_certs(args, kube_cluster)
             server = WebhookServer(
                 validation_handler=validation,
                 mutation_handler=mutation,
-                namespace_label_handler=NamespaceLabelHandler(),
+                namespace_label_handler=NamespaceLabelHandler(
+                    exempt_namespaces=args.exempt_namespace,
+                    exempt_prefixes=args.exempt_namespace_prefix,
+                    exempt_suffixes=args.exempt_namespace_suffix),
                 port=args.port,
                 certfile=certfile,
                 keyfile=keyfile,
+                client_ca_file=args.client_ca_file or None,
                 tls_min_version=args.tls_min_version,
                 batcher=batcher,
                 mutation_batcher=mutation_batcher,
                 reuse_port=args.reuse_port,
                 # the drain pulls readiness before the listener closes
-                readiness_check=lambda: not drain.draining,
+                readiness_check=lambda: (not drain.draining
+                                         and ctl.tracker.satisfied()),
+                readiness_stats=ctl.tracker.stats,
                 metrics=metrics,
                 enable_profile=args.enable_profile,
                 backlog=args.webhook_backlog,
@@ -1299,14 +1569,31 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
                     b.stop()
             raise
         print(f"webhook serving on :{server.port} (operations "
-              f"{sorted(operations)}, pid {os.getpid()})", file=sys.stderr,
-              flush=True)
-    auditor = start_audit_loop(audit_mgr) if "audit" in operations \
-        else None
+              f"{sorted(ctl.operations)}, pid {os.getpid()})",
+              file=sys.stderr, flush=True)
+        if args.certs_dir and args.cert_rotation_check_s > 0:
+            # <= 0 disables rotation (the worker children: only the
+            # parent renews, or N renewals would race)
+            from gatekeeper_tpu_torch.webhook.certs import rotation_loop
+
+            threading.Thread(
+                target=rotation_loop,
+                args=(args.certs_dir, server, rot_stop,
+                      args.cert_rotation_check_s),
+                kwargs={"cluster": kube_cluster}, daemon=True,
+                name="cert-rotation").start()
+    # boot reconcile and warm are done: later template changes compile on
+    # the generation thread and swap in off the serving path
+    if ctl.begin_background_compile():
+        print("generation swap active: template changes compile on a "
+              "background thread", file=sys.stderr)
+    auditor = start_audit_loop(audit_mgr) if audit_mgr is not None \
+        and ctl.is_assigned("audit") else None
 
     while not stopping.wait(1.0):
         pass
     drain.begin("shutdown")
+    rot_stop.set()
     drained = True
     if auditor is not None:
         audit_mgr.stop()
@@ -1341,5 +1628,35 @@ def serve(args, objects, client, audit_mgr, operations, mutation_system,
     return 0
 
 
+def serving_certs(args, kube_cluster=None) -> tuple:
+    """(certfile, keyfile) under ``--certs-dir``.  With a live apiserver
+    the chain lives in the certificate Secret (one replica generates, all
+    read it) and its caBundle goes into the webhook configurations;
+    otherwise a missing pair is generated in place."""
+    import os
+
+    if kube_cluster is not None:
+        from gatekeeper_tpu_torch.webhook.certs import ensure_cluster_certs
+
+        certfile, keyfile = ensure_cluster_certs(kube_cluster,
+                                                 args.certs_dir)
+        args.certs_dir = os.path.dirname(certfile)
+        return certfile, keyfile
+    from gatekeeper_tpu_torch.webhook.certs import generate_certs
+
+    if not os.path.exists(os.path.join(args.certs_dir, "tls.crt")):
+        generate_certs(args.certs_dir)
+    return (os.path.join(args.certs_dir, "tls.crt"),
+            os.path.join(args.certs_dir, "tls.key"))
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    if abandoned_audit():
+        # skip the teardown the abandoned pass would abort (SIGABRT)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        import os
+
+        os._exit(code)
+    sys.exit(code)

@@ -41,7 +41,10 @@ yield of the device lane before each relist chunk is submitted
 (``resilience/overload.yield_device_lane``); the ``resync_defer``
 degradation; and exact per-template render cost records.
 
-Not ported yet: the fleet seams and export.
+Each finished run goes, as in the JAX package, to the export system
+(``export_system=``: audit started, every kept violation, audit ended),
+to the structured log (``log_violations=``) and to an event sink
+(``event_sink=``, called with the run).  Not ported yet: the fleet seams.
 """
 
 from __future__ import annotations
@@ -189,9 +192,15 @@ class AuditManager:
         expansion_system=None,  # expansion.ExpansionSystem (expand stage)
         spiller=None,  # snapshot.SnapshotSpiller (--snapshot-spill)
         metrics=None,  # metrics.registry.MetricsRegistry
+        export_system=None,  # export.system.ExportSystem
+        event_sink: Optional[Callable] = None,  # run -> None
+        log_violations: bool = False,
     ):
         self.client = client
         self.metrics = metrics
+        self.export_system = export_system
+        self.event_sink = event_sink
+        self.log_violations = log_violations
         self.lister = lister
         self.config = config or AuditConfig()
         self.evaluator = evaluator
@@ -316,8 +325,11 @@ class AuditManager:
         run.flatten_workers = int(
             getattr(self.evaluator, "flatten_workers", 0) or 0)
         constraints = self._audit_constraints()
+        if self.export_system is not None:
+            self.export_system.publish_audit_started(run.timestamp)
         if not constraints:
             run.duration_s = time.time() - t0
+            self._finish(run)
             return run
 
         gen_stage = self._gen_stage()
@@ -396,6 +408,7 @@ class AuditManager:
         run.duration_s = time.time() - t0
         self._write_statuses(run, constraints)
         self._publish_metrics(run)
+        self._finish(run)
         return run
 
     def _render_driver(self):
@@ -1010,8 +1023,11 @@ class AuditManager:
         run.flatten_workers = int(
             getattr(self.evaluator, "flatten_workers", 0) or 0)
         constraints = self._audit_constraints()
+        if self.export_system is not None:
+            self.export_system.publish_audit_started(run.timestamp)
         if not constraints:
             run.duration_s = time.time() - t0
+            self._finish(run)
             return run
         snap = self.snapshot
         self._snapshot_ready(constraints)
@@ -1044,8 +1060,10 @@ class AuditManager:
                 from gatekeeper_tpu_torch.metrics import registry as M
 
                 self.metrics.set_gauge(M.TICK_H2D_BYTES, float(tick_h2d))
+        snap.publish_metrics()
         self._write_statuses(run, constraints)
         self._publish_metrics(run)
+        self._finish(run)
         return run
 
     def _snapshot_eval(self, rows_by_store, run) -> None:
@@ -1728,6 +1746,22 @@ class AuditManager:
                 ],
             }
             con.raw.setdefault("status", {}).update(status)
+
+    def _finish(self, run: AuditRun):
+        if self.export_system is not None:
+            for violations in run.kept.values():
+                for v in violations:
+                    self.export_system.publish_violation(run.timestamp, v)
+            self.export_system.publish_audit_ended(run.timestamp)
+        if self.log_violations:
+            from gatekeeper_tpu_torch.utils.logging import \
+                log_audit_violation
+
+            for violations in run.kept.values():
+                for v in violations:
+                    log_audit_violation(v, run.timestamp)
+        if self.event_sink is not None:
+            self.event_sink(run)
 
 
 def _now_rfc3339() -> str:

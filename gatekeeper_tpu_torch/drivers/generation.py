@@ -43,9 +43,9 @@ hit-buffer state (``SweepEvaluator.warm_state``) and the driver's
 ``_warm_ref`` (the latest real admission batch).  Its replay restores the
 first and runs :meth:`GenerationCoordinator.warm_serving` over the second.
 
-The ``compile.generation`` chaos fault site is as in the JAX module; its
-``compile.generation`` tracing spans and the generation and cache metrics
-counters (``metrics=`` arguments) are not ported yet.
+The ``compile.generation`` chaos fault site, the ``compile.generation``
+tracing spans and the generation and cache metrics (``metrics=``
+arguments) are as in the JAX module.
 """
 
 from __future__ import annotations
@@ -152,9 +152,10 @@ class CompileCache:
     schema digest) + ``<key>.pkl`` (the pickled ``ir.nodes.Program`` or
     the lowering error, and the vocab string snapshot)."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, metrics=None):
         self.root = root
         os.makedirs(root, exist_ok=True)
+        self.metrics = metrics
         self.hits = 0
         self.misses = 0
         self.miss_reasons: dict = {}
@@ -184,6 +185,14 @@ class CompileCache:
             self.misses += 1
             self.miss_reasons[reason] = \
                 self.miss_reasons.get(reason, 0) + 1
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            if hit:
+                self.metrics.inc_counter(M.GENERATION_CACHE_HIT)
+            else:
+                self.metrics.inc_counter(M.GENERATION_CACHE_MISS,
+                                         {"reason": reason})
 
     def _reject(self, key: str, reason: str) -> None:
         """A corrupt or stale entry is deleted so the rebuild can replace
@@ -325,9 +334,10 @@ class WarmStateCache:
     installed-programs digest and the payload sha256 are checked before
     unpickling; corrupt or drifted state is deleted and not replayed."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, metrics=None):
         self.root = root
         os.makedirs(root, exist_ok=True)
+        self.metrics = metrics
         self.saves = 0
         self.loads = 0
         self.misses = 0
@@ -459,9 +469,11 @@ class GenerationCoordinator:
     After :meth:`start`, mutations stage and notify, and the thread
     coalesces a churn burst into one build."""
 
-    def __init__(self, driver, cache: Optional[CompileCache] = None):
+    def __init__(self, driver, cache: Optional[CompileCache] = None,
+                 metrics=None):
         self.driver = driver
         self.cache = cache
+        self.metrics = metrics
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
         self._desired: dict = {}   # kind -> _Staged (insertion order)
@@ -621,17 +633,25 @@ class GenerationCoordinator:
                     self.last_error = f"{type(e).__name__}: {e}"
 
     def _build_and_swap(self) -> None:
+        from gatekeeper_tpu_torch.observability import tracing
+
         with self._lock:
             desired = dict(self._desired)
             template_dirty = self._dirty
             self._dirty = False
             self._building = True
-            aux_work = list(self._aux.values())
+            aux_work = list(self._aux.items())
         try:
             if template_dirty:
                 t0 = time.perf_counter()
-                gen = self._build(desired)
-                gen.compile_seconds = time.perf_counter() - t0
+                with tracing.span("compile.generation",
+                                  templates=len(desired)) as sp:
+                    gen = self._build(desired)
+                    gen.compile_seconds = time.perf_counter() - t0
+                    sp.set_attribute("gen_id", gen.gen_id)
+                    sp.set_attribute("reused", gen.reused)
+                    sp.set_attribute("lowered", gen.lowered_fresh)
+                    sp.set_attribute("cache_hits", gen.cache_hits)
                 self.compile_seconds.append(gen.compile_seconds)
                 # warm only on the background lane (an inline caller is
                 # already on the serving path), and only the programs this
@@ -646,7 +666,7 @@ class GenerationCoordinator:
                     self.warm_seconds.append(time.perf_counter() - t1)
                     self.warm_runs.append((len(fresh), ran))
                 self._swap(gen, desired)
-            for entry in aux_work:
+            for name, entry in aux_work:
                 key_fn, build_fn, install_fn = entry[0], entry[1], entry[2]
                 try:
                     key = key_fn()
@@ -654,7 +674,9 @@ class GenerationCoordinator:
                     continue
                 if key == entry[3]:
                     continue
-                install_fn(build_fn())
+                with tracing.span("compile.generation", unit=name):
+                    built = build_fn()
+                install_fn(built)
                 with self._lock:
                     entry[3] = key
         finally:
@@ -815,6 +837,13 @@ class GenerationCoordinator:
                 res.invalidate()
             except Exception:
                 pass
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.set_gauge(M.GENERATION_ID, gen.gen_id)
+            self.metrics.set_gauge(M.GENERATION_COMPILE_SECONDS,
+                                   gen.compile_seconds)
+            self.metrics.inc_counter(M.GENERATION_SWAP_COUNT)
 
     # --- introspection ---------------------------------------------------
     def snapshot(self) -> dict:

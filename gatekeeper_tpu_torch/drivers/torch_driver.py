@@ -145,7 +145,8 @@ class TorchDriver:
             from gatekeeper_tpu_torch.drivers.generation import \
                 GenerationCoordinator
 
-            self.gen_coord = GenerationCoordinator(self, cache=compile_cache)
+            self.gen_coord = GenerationCoordinator(self, cache=compile_cache,
+                                                   metrics=metrics)
         self._data_version = 0
         self._data_kind_versions: dict = {}  # inventory kind -> version
         self._inv_cache: dict = {}  # kind -> (versions, cols, exact)

@@ -41,10 +41,11 @@ Activation: :func:`install` for the process (``--extdata-lane`` CLI),
 :func:`activate` for scoped tests; the Rego ``external_data`` builtin and
 the mutation system read :func:`active`.
 
-The JAX package sends its counts to a metrics registry; the port keeps
-them in the lane's plain ``perf`` dict: ``bulk_calls/<provider>`` (one per
-transport send of the batched path) and ``keys/<provider>/<outcome>``
-(``warm``, ``fetched``, ``perkey``, ``malformed``).
+The counts go to a metrics registry (``metrics=``) as in the JAX package,
+and also into the lane's plain ``perf`` dict: ``bulk_calls/<provider>``
+(one per transport send of the batched path) and
+``keys/<provider>/<outcome>`` (``warm``, ``fetched``, ``perkey``,
+``malformed``).  Each bulk fetch runs in an ``extdata.join`` span.
 """
 
 from __future__ import annotations
@@ -106,6 +107,7 @@ class ExtDataLane:
     def __init__(self, cache, mode: str = "batched",
                  column_ttl_s: Optional[float] = None,
                  max_keys_per_call: int = 256,
+                 metrics=None,
                  clock: Callable[[], float] = time.monotonic,
                  fanout: int = 4):
         if mode not in MODES:
@@ -116,6 +118,7 @@ class ExtDataLane:
         self.column_ttl_s = (cache.response_ttl_s if column_ttl_s is None
                              else column_ttl_s)
         self.max_keys_per_call = max(1, int(max_keys_per_call))
+        self.metrics = metrics
         self._clock = clock
         # per-provider bulk-fetch concurrency (ensure_many): a chunk
         # referencing N providers lands their miss lists across a small
@@ -202,6 +205,12 @@ class ExtDataLane:
 
     def _count_keys(self, provider: str, outcome: str, n: int) -> None:
         self._count(f"keys/{provider}/{outcome}", n)
+        if n and self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(
+                M.EXTDATA_KEYS, {"provider": provider, "outcome": outcome},
+                value=float(n))
 
     def ensure(self, provider: str, keys) -> int:
         """Land every requested key into the provider's column (bulk
@@ -210,25 +219,39 @@ class ExtDataLane:
         warm-column steady state.  Transport-level failures never raise:
         ProviderCache.fetch degrades per key (stale / error), and an
         unknown provider lands a per-key error for every key."""
+        from gatekeeper_tpu_torch.observability import tracing
+
         col = self.column(provider)
         missing = col.missing(keys)
         n_req = len({k for k in keys})
         self._count_keys(provider, "warm", n_req - len(missing))
         if not missing:
             return 0
-        landed: dict = {}
-        for i in range(0, len(missing), self.max_keys_per_call):
-            chunk = missing[i:i + self.max_keys_per_call]
-            try:
-                res = self.cache.fetch(provider, chunk)
-            except Exception as e:  # unknown provider etc.
-                res = {k: (None, str(e)) for k in chunk}
-            landed.update(res)
-            self._count(f"bulk_calls/{provider}", 1)
-        landed, n_bad = validate_landed(landed)
-        self._count_keys(provider, "malformed", n_bad)
-        col.land(landed)
+        with tracing.span("extdata.join", provider=provider,
+                          n_keys=n_req, n_miss=len(missing)):
+            landed: dict = {}
+            for i in range(0, len(missing), self.max_keys_per_call):
+                chunk = missing[i:i + self.max_keys_per_call]
+                try:
+                    res = self.cache.fetch(provider, chunk)
+                except Exception as e:  # unknown provider etc.
+                    res = {k: (None, str(e)) for k in chunk}
+                landed.update(res)
+                self._count(f"bulk_calls/{provider}", 1)
+                if self.metrics is not None:
+                    from gatekeeper_tpu_torch.metrics import registry as M
+
+                    self.metrics.inc_counter(
+                        M.EXTDATA_BULK_CALLS, {"provider": provider})
+            landed, n_bad = validate_landed(landed)
+            self._count_keys(provider, "malformed", n_bad)
+            col.land(landed)
         self._count_keys(provider, "fetched", len(missing))
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.set_gauge(M.EXTDATA_COLUMN_KEYS, len(col),
+                                   {"provider": provider})
         return len(missing)
 
     def ensure_many(self, requests: dict) -> int:

@@ -31,9 +31,9 @@ callers consult :func:`effective_cpu_count` and keep the serial schedule
 when the host cannot actually run stages in parallel.
 
 Copy of ``gatekeeper_tpu/pipeline/executor.py`` with its chaos fault
-points (``pipeline.stage.<name>`` before each stage call) and without its
-tracing spans (not ported yet); a stage restart is logged through
-``utils/logging.log_event``.
+points (``pipeline.stage.<name>`` before each stage call) and its
+``pipeline.stage.<name>`` spans (one per chunk and stage); a stage restart
+is logged through ``utils/logging.log_event``.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional, Sequence
 
+from gatekeeper_tpu_torch.observability import tracing
 from gatekeeper_tpu_torch.resilience.faults import fault_point
 from gatekeeper_tpu_torch.utils.logging import log_event
 
@@ -299,6 +300,11 @@ class StagedPipeline:
         remaining = [s.workers for s in self.stages]
         rem_lock = threading.Lock()
 
+        # stage workers run on threads of their own, so the caller's
+        # ambient span (the audit sweep's root) is captured here and passed
+        # explicitly; each stage span carries its chunk index
+        trace_parent = tracing.current_span()
+
         def worker(si: int, stage: Stage) -> None:
             st = stats[si]
             in_ch, out_ch = chans[si], chans[si + 1]
@@ -312,22 +318,26 @@ class StagedPipeline:
                         break
                     t0 = time.perf_counter()
                     attempt = 0
-                    while True:
-                        try:
-                            fault_point(f"pipeline.stage.{stage.name}")
-                            out = stage.fn(item)
-                            break
-                        except _Aborted:
-                            raise
-                        except BaseException as e:  # noqa: BLE001
-                            if attempt >= stage.max_retries or \
-                                    abort.is_set():
-                                fail(stage.name, e)
-                                return
-                            attempt += 1
-                            with st_locks[si]:
-                                st.retries += 1
-                            _log_stage_restart(stage.name, attempt, e)
+                    with tracing.span(f"pipeline.stage.{stage.name}",
+                                      parent=trace_parent, chunk=idx) as sp:
+                        while True:
+                            try:
+                                fault_point(f"pipeline.stage.{stage.name}")
+                                out = stage.fn(item)
+                                break
+                            except _Aborted:
+                                raise
+                            except BaseException as e:  # noqa: BLE001
+                                if attempt >= stage.max_retries or \
+                                        abort.is_set():
+                                    fail(stage.name, e)
+                                    return
+                                attempt += 1
+                                with st_locks[si]:
+                                    st.retries += 1
+                                sp.add_event("stage_retry",
+                                             attempt=attempt, error=str(e))
+                                _log_stage_restart(stage.name, attempt, e)
                     busy = time.perf_counter() - t0
                     stall = emits[si].emit(
                         idx, _SKIP if out is None else out)

@@ -86,7 +86,7 @@ class ResidentGroup:
     __slots__ = ("store", "kinds", "by_kind", "uids", "cols_layout",
                  "cap", "c_total", "cols_dev", "mask_dev", "mask_host",
                  "mutation_mark", "layout_version", "idx_cache",
-                 "resident_bytes", "needs", "device")
+                 "needs", "device")
 
     def __init__(self, store, kinds, by_kind, uids, needs, device):
         self.store = store
@@ -107,7 +107,14 @@ class ResidentGroup:
         # a warm full pass's chunk boundaries are deterministic, so the
         # second pass hits every entry and uploads nothing
         self.idx_cache: dict = {}
-        self.resident_bytes = 0
+
+    def resident_bytes(self) -> int:
+        """Bytes of the tensors this mirror holds on the device: the
+        packed column buffers and the mask."""
+        tensors = list(self.cols_dev.values())
+        if self.mask_dev is not None:
+            tensors.append(self.mask_dev)
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def chunk_idx(self, positions, pad_n: int) -> tuple:
         """(idx_dev [pad_n] int32, uploaded_bytes), cached per position
@@ -136,12 +143,13 @@ class DeviceResidency:
     ``off``, ``auto`` on a CPU evaluator, external-data joins) — the
     caller then takes the host-column path."""
 
-    def __init__(self, evaluator, mode: str = "auto"):
+    def __init__(self, evaluator, mode: str = "auto", metrics=None):
         if mode not in RESIDENCY_MODES:
             raise ValueError(f"unknown residency mode {mode!r} "
                              f"(want one of {RESIDENCY_MODES})")
         self.evaluator = evaluator
         self.mode = mode
+        self.metrics = metrics
         self._lock = threading.RLock()
         self._groups: dict = {}  # id(store) -> ResidentGroup
         self._logged_reasons: set = set()
@@ -200,6 +208,13 @@ class DeviceResidency:
                       + (f": {reason}" if reason else ""),
                       event_type="residency_evicted", groups=n,
                       reason=reason)
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as M
+
+                self.metrics.inc_counter(M.RESIDENCY_EVICTIONS,
+                                         value=float(n))
+                self.metrics.set_gauge(M.SNAPSHOT_RESIDENT_BYTES,
+                                       float(self.resident_bytes()))
         return n
 
     def invalidate(self) -> None:
@@ -210,7 +225,7 @@ class DeviceResidency:
 
     def resident_bytes(self) -> int:
         with self._lock:
-            return sum(rg.resident_bytes for rg in self._groups.values())
+            return sum(rg.resident_bytes() for rg in self._groups.values())
 
     def is_resident(self, store) -> bool:
         """True when ``store`` has a device mirror."""
@@ -279,7 +294,6 @@ class DeviceResidency:
         rg.mask_host = mask
         rg.mask_dev = torch.from_numpy(mask).to(rg.device)
         nbytes = sum(b.nbytes for b in bufs.values()) + mask.nbytes
-        rg.resident_bytes = nbytes
         rg.idx_cache.clear()
         rg.mutation_mark = store.mutations
         rg.layout_version = store.layout_version
@@ -369,6 +383,11 @@ class DeviceResidency:
                 self._upload(store, rg)
             elif store.patched or rg.mutation_mark != store.mutations:
                 self._patch(store, rg)
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as M
+
+                self.metrics.set_gauge(M.SNAPSHOT_RESIDENT_BYTES,
+                                       float(self.resident_bytes()))
             return rg
 
     def stats(self) -> dict:

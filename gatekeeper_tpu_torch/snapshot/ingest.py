@@ -1,8 +1,7 @@
 """Watch ingestion: the snapshot's event feed off the ObjectSource seam.
 
-Port of ``gatekeeper_tpu/snapshot/ingest.py`` (a copy).  The port's
-watch source is ``sync/source.FakeCluster``; the live-apiserver source
-(``KubeCluster``) is not ported yet.
+Port of ``gatekeeper_tpu/snapshot/ingest.py`` (a copy).  Its watch
+source is ``sync/source.FakeCluster`` or ``sync/kube.KubeCluster``.
 
 The reference's watch manager registers dynamic informers per GVK and
 funnels their events into the cachemanager (pkg/watch/manager.go); here
@@ -39,7 +38,8 @@ class WatchIngester:
     snapshot's no-op-patch detection absorbs.
 
     ``rvs`` tracks the newest resourceVersion seen per GVK (event
-    objects advance it) — the value the next spill records."""
+    objects advance it); :meth:`resume_rvs` is what the next spill
+    records."""
 
     def __init__(self, snapshot, source, gvks: Sequence[tuple],
                  on_error: Optional[Callable[[Exception], None]] = None,
@@ -59,6 +59,20 @@ class WatchIngester:
         self._cancels: list = []
         self._lock = threading.Lock()
         self.events_seen = 0
+
+    def resume_rvs(self) -> dict:
+        """Per GVK the version to resume from: the source's own mark
+        where it keeps one (``KubeCluster.resume_rv``: a list's version or
+        a bookmark's, which no consumed event is past), else the newest
+        event object's version, as the JAX ingester records it."""
+        mark = getattr(self.source, "resume_rv", None)
+        out = dict(self.rvs)
+        if mark is not None:
+            for gvk in self.gvks:
+                rv = mark(gvk)
+                if rv:
+                    out[gvk] = rv
+        return out
 
     def _on_event(self, ev) -> None:
         self.events_seen += 1

@@ -36,8 +36,8 @@ to a clean relist.  Writes are atomic (tmp + rename, header last).
 worker: the audit thread only pays the under-lock array capture.  Spills
 happen after each clean resync and at drain.
 
-Dropped from the JAX module: the ``snapshot.spill``/``snapshot.load``
-tracing spans and the spill metrics (``metrics=`` arguments).
+The ``snapshot.spill`` and ``snapshot.load`` spans and the spill metrics
+(``metrics=``) are the JAX module's.
 """
 
 from __future__ import annotations
@@ -124,7 +124,7 @@ class SnapshotSpill:
     belongs to its owner.
     """
 
-    def __init__(self, root: str, compress: str = "none",
+    def __init__(self, root: str, metrics=None, compress: str = "none",
                  cluster_id: str = "", delta: bool = False,
                  full_every: int = 8):
         if compress not in SPILL_CODECS:
@@ -133,6 +133,7 @@ class SnapshotSpill:
                 f"{SPILL_CODECS})")
         self.root = root
         os.makedirs(root, exist_ok=True)
+        self.metrics = metrics
         self.compress = compress
         self.cluster_id = cluster_id
         # incremental spills (--snapshot-spill-delta): groups split into
@@ -175,6 +176,14 @@ class SnapshotSpill:
             self.load_misses += 1
             self.miss_reasons[reason] = \
                 self.miss_reasons.get(reason, 0) + 1
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            if hit:
+                self.metrics.inc_counter(M.SNAPSHOT_SPILL_LOAD_HITS)
+            else:
+                self.metrics.inc_counter(M.SNAPSHOT_SPILL_LOAD_MISS,
+                                         {"reason": reason})
 
     def _reject(self, reason: str) -> None:
         """A corrupt/drifted spill is deleted so the next clean spill
@@ -258,6 +267,13 @@ class SnapshotSpill:
         come back in the stats (a failed spill never takes the audit plane
         down: the previous spill, if any, stays intact because every
         replace is atomic and the header goes last)."""
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("snapshot.spill",
+                          rows=captured["state"].get("rows", 0)):
+            return self._write(captured)
+
+    def _write(self, captured: dict) -> dict:
         t0 = time.perf_counter()
         state = captured["state"]
         try:
@@ -335,6 +351,11 @@ class SnapshotSpill:
         self.spill_count += 1
         self.last_spill_s = dt
         self.last_spill_bytes = nbytes
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.set_gauge(M.SNAPSHOT_SPILL_SECONDS, dt)
+            self.metrics.set_gauge(M.SNAPSHOT_SPILL_BYTES, nbytes)
         return {"ok": True, "seconds": dt, "bytes": nbytes,
                 "rows": state.get("rows", 0),
                 "sections_written": len(payloads)}
@@ -427,11 +448,18 @@ class SnapshotSpill:
         adopting allocate containers for every object row, and each
         collection those allocations trigger would rescan all the
         containers made so far; nothing made here is garbage."""
+        from gatekeeper_tpu_torch.observability import tracing
+
         enabled = gc.isenabled()
         gc.disable()
         try:
-            return self._load_impl(snapshot, constraints, extdata_lane,
-                                   templates)
+            with tracing.span("snapshot.load") as sp:
+                out = self._load_impl(snapshot, constraints, extdata_lane,
+                                      templates)
+                sp.set_attribute("hit", out is not None)
+                if out is not None:
+                    sp.set_attribute("rows", out["rows"])
+                return out
         finally:
             if enabled:
                 gc.enable()

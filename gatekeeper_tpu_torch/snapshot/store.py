@@ -1,7 +1,7 @@
 """Resident columnar cluster snapshot: sweep cost O(churn), not O(cluster).
 
 Port of ``gatekeeper_tpu/snapshot/store.py`` (host numpy, a copy with
-the tracing spans and metrics hooks dropped).  The spill surface
+the same spans and metrics).  The spill surface
 (``GroupStore.export_rows``/``import_rows``, ``VerdictStore.export_state``/
 ``restore``, ``ClusterSnapshot.export_state``/``adopt_spill``) is what
 ``snapshot/persist.py`` writes and loads.
@@ -723,9 +723,11 @@ class ClusterSnapshot:
     audit thread under ``self.lock``.  Reads used by the webhook warm
     cache (:meth:`get`) take the same lock briefly."""
 
-    def __init__(self, evaluator, config: Optional[SnapshotConfig] = None):
+    def __init__(self, evaluator, config: Optional[SnapshotConfig] = None,
+                 metrics=None):
         self.evaluator = evaluator
         self.config = config or SnapshotConfig()
+        self.metrics = metrics
         self.lock = threading.RLock()
         self.ids = RowIdMap()
         self.verdicts = VerdictStore()
@@ -816,21 +818,30 @@ class ClusterSnapshot:
                 if obj is None:
                     return False
                 objs.append((store.gids[pos], obj))
-        # gid order: deterministic write order regardless of the old
-        # grouping (ids are monotone arrival order)
-        objs.sort(key=lambda t: t[0])
-        self._groups = {}
-        self._pos = {}
-        self._dirty = set()
-        self.verdicts.clear()
-        if self.intern_cache is not None:
-            self.intern_cache.clear()
-        mb = max(1, self.config.micro_batch)
-        pending = [(obj_key(o), o) for _gid, o in objs]
-        for i in range(0, len(pending), mb):
-            self._apply_upserts(pending[i: i + mb])
-        self.rechunk_count += 1
-        self.generation += 1
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("snapshot.rechunk", rows=len(objs)):
+            # gid order: deterministic write order regardless of the old
+            # grouping (ids are monotone arrival order)
+            objs.sort(key=lambda t: t[0])
+            self._groups = {}
+            self._pos = {}
+            self._dirty = set()
+            self.verdicts.clear()
+            if self.intern_cache is not None:
+                self.intern_cache.clear()
+            mb = max(1, self.config.micro_batch)
+            pending = [(obj_key(o), o) for _gid, o in objs]
+            for i in range(0, len(pending), mb):
+                self._apply_upserts(pending[i: i + mb])
+            self.rechunk_count += 1
+            self.generation += 1
+            if self.metrics is not None:
+                from gatekeeper_tpu_torch.metrics import registry as M
+
+                self.metrics.inc_counter(M.SNAPSHOT_PATCHES,
+                                         {"type": "rechunk"},
+                                         value=float(len(pending)))
         return True
 
     def invalidate(self) -> None:
@@ -876,20 +887,23 @@ class ClusterSnapshot:
             drained.append(self._pending.popleft())
         if not drained:
             return 0
-        final: dict = {}  # key -> (etype, obj), insertion-ordered
-        for etype, obj in drained:
-            key = obj_key(obj)
-            final.pop(key, None)
-            final[key] = (etype, obj)
-        with self.lock:
-            upserts: list = []
-            for key, (etype, obj) in final.items():
-                if etype == DELETED:
-                    self._delete(key)
-                else:
-                    upserts.append((key, obj))
-            self._apply_upserts(upserts)
-            self._maybe_compact()
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("snapshot.pump", events=len(drained)):
+            final: dict = {}  # key -> (etype, obj), insertion-ordered
+            for etype, obj in drained:
+                key = obj_key(obj)
+                final.pop(key, None)
+                final[key] = (etype, obj)
+            with self.lock:
+                upserts: list = []
+                for key, (etype, obj) in final.items():
+                    if etype == DELETED:
+                        self._delete(key)
+                    else:
+                        upserts.append((key, obj))
+                self._apply_upserts(upserts)
+                self._maybe_compact()
         return len(drained)
 
     def _delete(self, key) -> None:
@@ -904,6 +918,10 @@ class ClusterSnapshot:
         self.verdicts.clear_gid(gid)
         self._dirty.discard(gid)
         self.patch_count += 1
+        if self.metrics is not None:
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            self.metrics.inc_counter(M.SNAPSHOT_PATCHES, {"type": "delete"})
 
     def _apply_upserts(self, upserts: Sequence[tuple]) -> None:
         """Route + columnize + write a list of (key, obj) upserts, in
@@ -939,17 +957,31 @@ class ClusterSnapshot:
             by_store.setdefault(id(store), (store, []))[1].append(
                 (pos, gid, obj, created))
         mb = max(1, self.config.micro_batch)
+        n_add = n_mod = 0
         for store, entries in by_store.values():
             for i in range(0, len(entries), mb):
                 batch = entries[i: i + mb]
                 positions = store.write(
                     [(pos, gid, obj) for pos, gid, obj, _c in batch])
-                for (_pos0, gid, _obj, _created), pos in zip(batch,
-                                                             positions):
+                for (_pos0, gid, _obj, created), pos in zip(batch,
+                                                            positions):
                     self._pos[gid] = (store, pos)
                     if store.cons:
                         self._dirty.add(gid)
                     self.patch_count += 1
+                    if created:
+                        n_add += 1
+                    else:
+                        n_mod += 1
+        if self.metrics is not None and (n_add or n_mod):
+            from gatekeeper_tpu_torch.metrics import registry as M
+
+            if n_add:
+                self.metrics.inc_counter(M.SNAPSHOT_PATCHES,
+                                         {"type": "add"}, value=n_add)
+            if n_mod:
+                self.metrics.inc_counter(M.SNAPSHOT_PATCHES,
+                                         {"type": "modify"}, value=n_mod)
 
     def _maybe_compact(self) -> None:
         for store in self._groups.values():
@@ -964,7 +996,9 @@ class ClusterSnapshot:
         path after a resync divergence).  Row ids of surviving keys are
         stable across rebuilds (RowIdMap persistence).  Returns the row
         count."""
-        with self.lock:
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("snapshot.rebuild"), self.lock:
             self._reset_rows()
             seen: set = set()
             batch: list = []
@@ -1158,7 +1192,9 @@ class ClusterSnapshot:
         key, not the gid, so membership-in-slice is stable for rows the
         snapshot has never seen (a missed add diverges within K
         intervals)."""
-        with self.lock:
+        from gatekeeper_tpu_torch.observability import tracing
+
+        with tracing.span("snapshot.resync"), self.lock:
             flatteners: dict = {}
             bufs: dict = {}
             seen: set = set()
@@ -1248,3 +1284,19 @@ class ClusterSnapshot:
                 "generation": self.generation,
                 "pending_events": len(self._pending),
             }
+
+    def publish_metrics(self) -> None:
+        if self.metrics is None:
+            return
+        from gatekeeper_tpu_torch.metrics import registry as M
+
+        st = self.stats()
+        self.metrics.set_gauge(M.SNAPSHOT_ROWS, st["rows"])
+        self.metrics.set_gauge(M.SNAPSHOT_DIRTY, st["dirty_rows"])
+        self.metrics.set_gauge(M.SNAPSHOT_TOMBSTONE_FRACTION,
+                               st["tombstone_fraction"])
+        if self.intern_cache is not None:
+            self.metrics.set_gauge(M.SNAPSHOT_INTERN_HITS,
+                                   self.intern_cache.hits)
+            self.metrics.set_gauge(M.SNAPSHOT_INTERN_PROBES,
+                                   self.intern_cache.probes)

@@ -9,9 +9,8 @@ GVK.  Implementations:
   resident snapshot when the CLI runs over ``--manifests``).
 - ``FileSource``: one-shot source reading YAML manifests from a directory
   or files (offline/demo runs).
-
-The live-apiserver source (``sync/kube.py`` ``KubeCluster``) is not part
-of the port yet.
+- ``KubeCluster`` (``sync/kube.py``): the same surface over a live
+  apiserver.
 """
 
 from __future__ import annotations
@@ -144,3 +143,7 @@ class FileSource:
     def list(self, gvk: Optional[tuple] = None) -> list:
         return [o for o in self.objects
                 if gvk is None or gvk_of(o) == gvk]
+
+    def populate(self, cluster: FakeCluster) -> None:
+        for obj in self.objects:
+            cluster.apply(obj)

@@ -18,8 +18,12 @@ the overload/QoS gate with its failurePolicy shed answers, the deadline
 guard, the flight recorder, per-tenant cost records, request metrics, the
 ``webhook.review`` span and fault site, the batcher's spans and its
 deadline check while a request is queued, and the ``ns_cache_stale``
-degradation of namespace lookups.  Not ported yet: the shadow lane, the
-snapshot namespace lookup, the fleet cluster label and validation traces.
+degradation of namespace lookups.  The handler also takes the JAX
+package's seams: the resident snapshot's warm namespace lookup
+(``snapshot=``), ``fail_open=``, per-request stats (``log_stats=``), an
+admission event sink (``event_sink=``) and the Config's validation traces
+(``trace_config=``).  Not ported yet: the shadow lane and the fleet
+cluster label.
 """
 
 from __future__ import annotations
@@ -90,11 +94,16 @@ class ValidationHandler:
         namespace_lookup=None,  # name -> Namespace object
         batcher: Optional["Batcher"] = None,
         log_denies: bool = False,
-        failure_policy: str = "fail",  # "ignore" | "fail"
+        failure_policy: Optional[str] = None,  # "ignore" | "fail"
         expansion_system=None,  # expansion.ExpansionSystem
         metrics=None,  # metrics.registry.MetricsRegistry
         deadline_budget_s: float = 0.0,  # hard per-request wall budget
         overload=None,  # resilience.overload.OverloadController
+        event_sink=None,  # (req, results) -> None, per reviewed request
+        fail_open: bool = False,
+        trace_config=None,  # callable -> list of Config trace entries
+        log_stats: bool = False,  # --log-stats-admission
+        snapshot=None,  # snapshot.ClusterSnapshot (warm lookup cache)
     ):
         self.client = client
         # generator objects' resultants are reviewed with the request
@@ -104,9 +113,17 @@ class ValidationHandler:
         self.namespace_lookup = namespace_lookup or (lambda name: None)
         self.batcher = batcher
         self.log_denies = log_denies
+        self.event_sink = event_sink
         self.metrics = metrics
+        # warm referential cache: with the resident snapshot active,
+        # namespace lookups serve from its watch-synced rows before the
+        # source (the reference's cached client, policy.go:694-702)
+        self.snapshot = snapshot
         # failurePolicy (reference ValidatingWebhookConfiguration
-        # failurePolicy): Ignore fails open, Fail fails closed
+        # failurePolicy): Ignore fails open, Fail fails closed; the
+        # fail_open flag maps onto it
+        if failure_policy is None:
+            failure_policy = "ignore" if fail_open else "fail"
         if failure_policy not in ("ignore", "fail"):
             raise ValueError(f"failure_policy must be ignore|fail, "
                              f"got {failure_policy!r}")
@@ -115,6 +132,8 @@ class ValidationHandler:
         # deadline budget: 0 disables the guard (the review runs inline on
         # the server's handler thread)
         self.deadline_budget_s = float(deadline_budget_s or 0.0)
+        self.trace_config = trace_config
+        self.log_stats = log_stats
         # overload protection (resilience/overload.py): the admission gate
         # in front of the review, plus the caches its brownout ladder
         # degrades onto — a bounded stale namespace-lookup cache and a
@@ -454,11 +473,18 @@ class ValidationHandler:
                 if "deny" in actions:
                     log_deny(result, req)
         if denies:
-            return ValidationResponse(
+            resp = ValidationResponse(
                 allowed=False, message="\n".join(denies), code=403,
                 warnings=warns, uid=req.uid,
             )
-        return ValidationResponse(allowed=True, warnings=warns, uid=req.uid)
+        else:
+            resp = ValidationResponse(allowed=True, warnings=warns,
+                                      uid=req.uid)
+        if self.event_sink is not None:
+            results = responses.results()
+            if results:  # the reference emits per result, dryrun included
+                self.event_sink(req, results)
+        return resp
 
     def _lookup_namespace(self, name: str):
         """Namespace lookup with brownout degradation: at brownout level
@@ -479,7 +505,13 @@ class ValidationHandler:
                     m.RESILIENCE_STALE_SERVED,
                     {"dependency": "webhook/namespace_lookup"})
             return self._ns_stale[name]
-        ns_obj = self.namespace_lookup(name)
+        ns_obj = None
+        if self.snapshot is not None:
+            # the watch-synced resident snapshot answers without leaving
+            # the process (None when stale or unknown: ask the source)
+            ns_obj = self.snapshot.namespace(name)
+        if ns_obj is None:
+            ns_obj = self.namespace_lookup(name)
         if self.overload is not None or \
                 _ovl.active_degradations() is not None:
             if len(self._ns_stale) >= 4096 and name not in self._ns_stale:
@@ -497,10 +529,56 @@ class ValidationHandler:
 
             fault_point("webhook.review", uid=req.uid,
                         kind=(req.kind or {}).get("kind", ""))
-            if self.batcher is not None:
-                return self.batcher.review(augmented)
-            return self.client.review(augmented,
-                                      enforcement_point=WEBHOOK_EP)
+            trace = self._trace_for(req)
+            if trace is None and self.batcher is not None:
+                # hot path: stats ride the coalesced batch; only a traced
+                # request bypasses it (policy.go:632-675)
+                responses = self.batcher.review(augmented)
+                if self.log_stats:
+                    self._log_stats(responses)
+                return responses
+            responses = self.client.review(
+                augmented, enforcement_point=WEBHOOK_EP,
+                tracing=trace is not None, stats=self.log_stats)
+            if trace is not None:
+                log_event("info", "admission trace",
+                          event_type="admission_trace",
+                          request_user=(req.user_info or {}).get(
+                              "username", ""),
+                          resource_kind=(req.kind or {}).get("kind", ""),
+                          trace_dump=responses.trace_dump())
+                if str(trace.get("dump", "")).lower() == "all":
+                    log_event("info", "cache dump",
+                              event_type="admission_trace_dump",
+                              dump=str(self.client.dump()))
+            if self.log_stats:
+                self._log_stats(responses)
+            return responses
+
+    def _log_stats(self, responses) -> None:
+        for entry in getattr(responses, "stats_entries", []) or []:
+            log_event("info", "admission stats",
+                      event_type="admission_stats",
+                      scope=entry.scope,
+                      stats_for=entry.stats_for,
+                      stats=[(s.name, s.value) for s in entry.stats])
+
+    def _trace_for(self, req) -> Optional[dict]:
+        """Config spec.validation.traces[] lookup (config_types.go:42-54:
+        both user and kind must match)."""
+        if self.trace_config is None:
+            return None
+        username = (req.user_info or {}).get("username", "")
+        kind = req.kind or {}
+        for t in self.trace_config() or []:
+            if t.get("user", "") != username:
+                continue
+            want = t.get("kind") or {}
+            if (want.get("group", "") == kind.get("group", "")
+                    and want.get("version", "") == kind.get("version", "")
+                    and want.get("kind", "") == kind.get("kind", "")):
+                return t
+        return None
 
     # --- deny/warn partition (reference: getValidationMessages,
     # policy.go:205-355) --------------------------------------------------

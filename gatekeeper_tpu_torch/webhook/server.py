@@ -5,8 +5,11 @@ server speaking the AdmissionReview v1 protocol on ``/v1/admit`` (the
 validating handler, webhook/policy.py), ``/v1/mutate`` (the mutating
 handler, webhook/mutation.py or the batched mutlane/webhook.py; its answer
 carries a base64 JSONPatch) and ``/v1/admitlabel`` (the namespace-label
-guard, webhook/namespacelabel.py), with ``/healthz`` for readiness.  TLS
-is optional (``certfile``/``keyfile``).  ``reuse_port`` binds with
+guard, webhook/namespacelabel.py), with ``/healthz`` for readiness (and
+the readiness tracker's stats, ``readiness_stats``).  TLS is optional
+(``certfile``/``keyfile``, reloaded by :meth:`WebhookServer.reload_certs`
+when the rotation loop renews them); ``client_ca_file`` requires and
+verifies client certificates (mTLS).  ``reuse_port`` binds with
 ``SO_REUSEPORT``, so the replicas of ``--webhook-workers`` share one port
 and the kernel spreads connections over them.
 
@@ -19,8 +22,7 @@ OpenMetrics with exemplars when the scraper asks), ``/debug/profile``
 with the ``webhook.request`` fault site inside it.  A shed answer under
 failurePolicy=Fail carries ``Retry-After``.
 
-Not ported yet: ``/debug/shadow`` (the shadow lane), mTLS and cert
-rotation.
+Not ported yet: ``/debug/shadow`` (the shadow lane).
 """
 
 from __future__ import annotations
@@ -86,6 +88,8 @@ class WebhookServer:
         mutation_batcher=None,  # MutationBatcher, drained the same way
         reuse_port: bool = False,  # SO_REUSEPORT multi-process serving
         readiness_check=None,  # callable -> bool
+        readiness_stats=None,  # callable -> dict (per-kind tracker stats)
+        client_ca_file: Optional[str] = None,  # mTLS: require client certs
         metrics=None,  # MetricsRegistry for /metrics exposition
         enable_profile: bool = False,  # pprof-equivalent /debug/profile
         backlog: int = 128,  # --webhook-backlog: kernel accept queue
@@ -99,6 +103,7 @@ class WebhookServer:
         self.batcher = batcher
         self.mutation_batcher = mutation_batcher
         self.readiness_check = readiness_check
+        self.readiness_stats = readiness_stats
         self.metrics = metrics
         self.enable_profile = enable_profile
         # the debug surface next to /metrics: explicit instances win; None
@@ -154,7 +159,11 @@ class WebhookServer:
                         return
                     ready = (outer.readiness_check is None
                              or outer.readiness_check())
-                    self._reply(200 if ready else 503, {"ready": bool(ready)})
+                    body = {"ready": bool(ready)}
+                    if outer.readiness_stats is not None:
+                        # per-kind expectation stats (ready_tracker.go:133)
+                        body["readiness"] = outer.readiness_stats()
+                    self._reply(200 if ready else 503, body)
                 elif self.path.startswith(PROFILE_PATH) and \
                         outer.enable_profile:
                     self._profile()
@@ -407,6 +416,8 @@ class WebhookServer:
                 super().server_bind()
 
         self._server = _Server((host, port), Handler)
+        self._certfile, self._keyfile = certfile, keyfile
+        self._ssl_ctx = None
         if certfile:
             ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
             ctx.load_cert_chain(certfile, keyfile)
@@ -414,9 +425,21 @@ class WebhookServer:
                 "1.2": ssl.TLSVersion.TLSv1_2,
                 "1.3": ssl.TLSVersion.TLSv1_3,
             }.get(tls_min_version, ssl.TLSVersion.TLSv1_3)
+            if client_ca_file:
+                # reference --client-ca-name: verify the apiserver's client
+                # certificate against this CA
+                ctx.load_verify_locations(client_ca_file)
+                ctx.verify_mode = ssl.CERT_REQUIRED
+            self._ssl_ctx = ctx
             self._server.socket = ctx.wrap_socket(self._server.socket,
                                                   server_side=True)
         self._thread: Optional[threading.Thread] = None
+
+    def reload_certs(self):
+        """Hot-reload the certificate chain (rotation loop); new
+        connections pick up the refreshed chain."""
+        if self._ssl_ctx is not None and self._certfile:
+            self._ssl_ctx.load_cert_chain(self._certfile, self._keyfile)
 
     @property
     def port(self) -> int:

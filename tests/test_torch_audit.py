@@ -176,9 +176,9 @@ def test_cli_once_matches_jax_cli(tmp_path, names):
         set(CEL_KINDS)
     assert cel_kinds == (set(CEL_KINDS) if "noprivileged" in names
                          else set())
-    # the JAX CLI also audits the ConstraintTemplatePodStatus object its
-    # controller writes per template; the port has no controller plane
-    assert jax_n == n + len(names)
+    # both CLIs boot through their controller Manager, so both audit the
+    # ConstraintTemplatePodStatus object it writes per template
+    assert jax_n == n
 
 
 def test_cli_serves_admission(tmp_path):
@@ -211,7 +211,11 @@ def test_cli_serves_admission(tmp_path):
         assert port, "the server never printed its port"
         base = f"http://127.0.0.1:{port}"
         with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
-            assert json.loads(r.read()) == {"ready": True}
+            health = json.loads(r.read())
+        # the readiness tracker's stats ride the answer, as in the JAX CLI
+        assert health["ready"] is True
+        tmpl = health["readiness"]["templates"]
+        assert tmpl["satisfied"] and tmpl["expected"] == 0
         ns = {"apiVersion": "v1", "kind": "Namespace",
               "metadata": {"name": "no-owner"}}
         body = {"apiVersion": "admission.k8s.io/v1",

@@ -395,13 +395,9 @@ def test_shed_answers_429_with_retry_after_under_fail():
 
 
 # Families the JAX server shows after the scenario below that the port does
-# not emit yet: the resident snapshot's own gauges and counters
-# (snapshot/store.py's instrumentation, the next slice's first item).
-LEFT_OUT = {"gatekeeper_snapshot_dirty_rows",
-            "gatekeeper_snapshot_intern_cache_hits",
-            "gatekeeper_snapshot_intern_global_probes",
-            "gatekeeper_snapshot_patch_count", "gatekeeper_snapshot_rows",
-            "gatekeeper_snapshot_tombstone_fraction"}
+# not emit: none since the snapshot store's own gauges and counters were
+# ported.
+LEFT_OUT: set = set()
 
 
 def _families(text: str) -> set:
@@ -422,8 +418,7 @@ def _snapshot_pass(pkg, client, driver, objects, reg) -> None:
     for obj in objects:
         cluster.apply(copy.deepcopy(obj))
     ev = _evaluator(pkg, driver, metrics=reg)
-    snap = (ClusterSnapshot(ev, metrics=reg) if pkg is JAX
-            else ClusterSnapshot(ev))
+    snap = ClusterSnapshot(ev, metrics=reg)
     ing = WatchIngester(snap, cluster, gvks_of(cluster.list())).start()
     mod = pkg["manager"]
     kw = {"pipeline": "off"} if pkg is JAX else {}
@@ -484,6 +479,7 @@ def test_metrics_families_match_jax(worlds):
     assert LEFT_OUT <= jax
     assert port == jax - LEFT_OUT
     assert {"gatekeeper_validation_request_count",
+            "gatekeeper_snapshot_rows", "gatekeeper_snapshot_patch_count",
             "gatekeeper_resilience_faults_injected_count",
             "gatekeeper_constraint_eval_seconds",
             "gatekeeper_audit_last_run_end_time"} <= port

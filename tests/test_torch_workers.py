@@ -40,8 +40,10 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 LIB = os.path.join(ROOT, "library", "general")
 TEMPLATES = ("requiredlabels", "allowedrepos", "containerlimits")
 DEADLINE_S = 120.0
+# children serve the webhooks only and leave certificate rotation to the
+# parent, as the JAX CLI's do
 TAIL = ["--reuse-port", "--operation", "webhook", "--operation",
-        "mutation-webhook"]
+        "mutation-webhook", "--cert-rotation-check-s", "0"]
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -105,10 +107,26 @@ def test_start_workers_refusals(monkeypatch, capsys, tmp_path, case):
             _start(monkeypatch, base + ["--port", "0"])
         assert "explicit --port" in capsys.readouterr().err
     elif case == "certs":
-        with pytest.raises(SystemExit):
-            _start(monkeypatch, base + ["--port", "9",
-                                        "--certs-dir", str(tmp_path)])
-        assert "tls.crt and tls.key" in capsys.readouterr().err
+        # a missing pair is generated before any child starts (the JAX
+        # CLI's order), and an existing one is kept
+        import gatekeeper_tpu_torch.webhook.certs as certs
+
+        order = []
+        monkeypatch.setattr(certs, "generate_certs",
+                            lambda d: order.append(("generate", d)))
+        monkeypatch.setattr(subprocess, "Popen",
+                            lambda a: order.append(("start",)) or
+                            _FakeProc(a))
+        monkeypatch.setattr(signal, "signal", lambda *a: None)
+        parser = cli.build_parser()
+        argv = base + ["--port", "9", "--certs-dir", str(tmp_path)]
+        procs = cli.start_workers(parser, parser.parse_args(argv), argv)
+        assert order == [("generate", str(tmp_path)), ("start",)]
+        assert len(procs) == 1
+        (tmp_path / "tls.crt").write_text("x")
+        order.clear()
+        cli.start_workers(parser, parser.parse_args(argv), argv)
+        assert order == [("start",)]
     elif case == "once":
         procs, ns, started = _start(monkeypatch, base + ["--once"])
         assert procs == [] and started == [] and not ns.reuse_port
@@ -366,3 +384,21 @@ def test_cli_signals_while_draining_are_ignored(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_abandoned_audit_is_seen_by_the_thread_name():
+    """After a drain abandons an audit pass, ``python -m
+    gatekeeper_tpu_torch`` leaves with ``os._exit`` (the pass's daemon
+    thread may be inside torch, whose teardown would abort): the check
+    reads the ``audit-loop`` thread that ``start_audit_loop`` names."""
+    release = threading.Event()
+    assert not cli.abandoned_audit()
+    t = threading.Thread(target=release.wait, name="audit-loop",
+                         daemon=True)
+    t.start()
+    try:
+        assert cli.abandoned_audit()
+    finally:
+        release.set()
+        t.join(10)
+    assert not t.is_alive() and not cli.abandoned_audit()
