@@ -185,19 +185,22 @@ Phases (any failure raises and exits non-zero):
    ladder at level 1 or more on ``/debug/overload``, and the audit's
    device-lane yield above 0 s (its counter in the metrics).  No hook may
    be left installed after a part;
-11. kube: the served process over an apiserver, at the path phase's
-   width.  The port's ``MockApiServer`` runs in a spawned child process
-   that builds the same objects from the seed, the library's templates
+11. kube: the served process over an apiserver, over the first 65,536 of
+   the path phase's objects (``KUBE_OBJECTS``, cut from its width for the
+   time limit).  The port's ``MockApiServer`` runs in a spawned child
+   process that builds the same objects from the seed, the library's
+   templates
    and sample constraints and a Config syncing Ingresses, with a resource
    for every constraint kind and per-pod status kind.  (a) a
    ``KubeCluster`` with raw pages and the CLI's discovery-driven lister
    (``__main__.kube_lister``) through ``AuditManager.audit()`` on both
-   collect lanes: canonically equal to the path phase's runs, every chunk
-   on the raw lane, each lane's fold kernel launched; prints the wall,
+   collect lanes: canonically equal to an in-memory dict relist of the
+   same objects (run on the card just before the phase), every chunk on
+   the raw lane, each lane's fold kernel launched; prints the wall,
    objects/s, LIST requests, page bytes and ``flatten`` /
-   ``c_columnize`` / ``upload`` beside the path phase's relist.  (b) a
+   ``c_columnize`` / ``upload`` beside that dict relist's.  (b) a
    ``WatchIngester`` over a ``KubeCluster`` (residency ``auto``): step 1
-   and a resident pass (both equal to the path phase's run, every lowered
+   and a resident pass (both equal to the dict relist, every lowered
    group resident), a 1% churn written over HTTP (PUT, POST, DELETE) and
    its tick, equal to a fresh relist of the churned state.  (c) a spill,
    then a fresh ``KubeCluster`` and ingester resuming from the spill's
@@ -213,7 +216,7 @@ Phases (any failure raises and exits non-zero):
    --emit-admission-events --export-dir D`` (the JAX defaults otherwise),
    started right after phase 2 over a second such child (its boot and
    its first audit pass, at the JAX defaults' exact totals ~200-330 s at
-   this width, run beside phases 3-10; the first child sees none of its
+   131,072 objects, run beside phases 3-10; the first child sees none of its
    writes): ``/healthz`` 503 until the readiness tracker is satisfied,
    then 200, both with its stats, and latched; the first audit pass
    exported; 1,024 admission bodies from 64 clients, every answer equal
@@ -227,13 +230,43 @@ Phases (any failure raises and exits non-zero):
    template's ``ConstraintTemplatePodStatus``, audit and admission Events
    on the apiserver; the export directory holds the audit's violations;
    SIGTERM drains and exits 0;
-12. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
-   hooks and kube phases): as phase 5, at the (C, N, k) the pipeline,
-   snapshot, expand, extdata, lifecycle, hooks and kube paths launched
-   too;
-13. profile: the reduced-lane audit once more under ``torch.profiler``,
+12. gator: the offline enforcement point through its entry point,
+   ``gatekeeper_tpu_torch.gator.cli.main`` in this process (stdout
+   captured, fold launches counted over the card's runs), with the
+   library's 46 templates and sample constraints: ``verify library`` as a
+   child process (``python -m gatekeeper_tpu_torch.gator``; 46 suites
+   ok, exit 0), ``test -f library -o json`` twice (equal, exit 1);
+   ``bench --engine sweep -n 1`` over the first 4,096 of the path
+   phase's objects (``GATOR_OBJECTS``, cut from 8,192 for the time limit)
+   at the audit's defaults (chunks of 500, exact totals) on the masks
+   lane, which must launch ``epilogue``, and on the reduced lane (a
+   child process): both equal to an ``AuditManager`` with exact totals
+   on the card (a child process), whose run over the first 4,096 objects
+   must equal a ``--device cpu`` sweep engine's (a child process);
+   ``bench --engine tpu`` and ``--engine mutate`` (the expand phase's
+   mutators) ``-n 3`` over 4,096 objects (``GATOR_REVIEW_OBJECTS``) on
+   the card, equal to ``--device cpu`` runs (all four child processes;
+   the host's exact-totals render bounds each run, so they overlap);
+   ``expand --lane differential`` over the sweep objects' Deployments;
+   1,024 admission bodies
+   (``GATOR_BODIES``) answered by a ``ValidationHandler`` on the card
+   (a ``Batcher`` on the grid lane, 64 threads) with a capture-mode
+   flight recorder, then ``replay --differential --compile-cache``
+   (bit-identical, no divergence, no lowering missed the cache), a
+   candidate without one deny-firing constraint (every divergence
+   ``newly_allowed`` and attributed to it), ``decisions`` and ``triage
+   -f`` over the sink (exit 0), and ``replay --from-spill
+   --differential`` (a child process) over a spill of the sweep objects'
+   snapshot (bit-identical).  Prints each step's wall, the sweep engine's
+   reviews/s and p50/p99, the tpu and mutate engines' rates and replay's
+   decisions/s;
+13. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
+   hooks, kube and gator phases): as phase 5, at the (C, N, k) the
+   pipeline, snapshot, expand, extdata, lifecycle, hooks, kube and gator
+   paths launched too;
+14. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-14. admission: the library (all 46 templates and their sample
+15. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -259,7 +292,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-15. served: the served process's two threads on one driver and vocab, as
+16. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -270,7 +303,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-16. mutate: the admission bodies posted to ``/v1/mutate`` of a
+17. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -284,7 +317,7 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-17. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+18. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
@@ -296,7 +329,8 @@ Phases (any failure raises and exits non-zero):
    ``hooks_launches`` those of the hooks phase (its relists, chaos relists
    and brownout audit loop; the CLI processes of (a) are not counted),
    ``kube_launches`` those of the kube phase's (a)-(c) (the CLI process
-   of (d) is not counted).
+   of (d) is not counted), ``gator_launches`` those of the gator phase's
+   runs on the card (not its references).
    The served and lifecycle (e) phases pass ``HOOKS_OFF`` to the CLI: the
    configuration they measured before the CLI had the hooks.
 
@@ -597,8 +631,7 @@ def shape_phase(rows, err, shapes) -> None:
                                   "launches": launches, "ms": ms,
                                   "bound_ms": bound_ms})
             log(f"{name} at C={c} N={n} k={k}: {ms:.5f} ms (device), "
-                f"{launches} launches on the relist, snapshot and expand "
-                f"paths, plan "
+                f"{launches} launches on the main paths, plan "
                 f"{fold.fold_plan(n, True)}")
     for row in rows:
         row["max_abs_err"] = err[row["name"]]
@@ -4349,6 +4382,7 @@ def hooks_phase(objects, card: str, device: str = "cuda",
 # --- kube: the served process over an apiserver ------------------------------
 
 KUBE_DIR = os.path.join(ROOT_DIR, "_kube")
+KUBE_OBJECTS = 65536  # the apiservers' objects (cut from the path's 131,072)
 KUBE_BODIES = 1024  # (d): admission bodies
 KUBE_WAIT_S = 300.0
 KUBE_VANISH = 64  # (b): objects removed behind the watches before the 410
@@ -4484,7 +4518,7 @@ def kube_relist(client, driver, url, ask, path_verdicts, path_timings,
                 card: str, device: str = "cuda") -> dict:
     """(a): ``AuditManager.audit()`` over the CLI's discovery-driven lister
     (``__main__.kube_lister``) of a ``KubeCluster`` with raw pages, on both
-    collect lanes: canonically equal to the path phase's runs, every chunk
+    collect lanes: canonically equal to the dict relist's runs, every chunk
     on the raw flatten lane, the lane's fold kernel launched."""
     from gatekeeper_tpu_torch.__main__ import kube_lister
     from gatekeeper_tpu_torch.audit.manager import (AuditConfig,
@@ -4551,14 +4585,14 @@ def kube_relist(client, driver, url, ask, path_verdicts, path_timings,
             f"{rec['list_requests']} LIST requests, {page_bytes[0]} page "
             f"bytes, flatten {rec['flatten']:.3f}s, c_columnize "
             f"{rec['fl_c_columnize']:.3f}s, upload {rec['upload']:.3f}s, "
-            f"lanes {lanes}, {launched} {kernel} launches; the path "
-            f"phase's relist (in-memory dict lister) {path_wall:.3f}s, "
+            f"lanes {lanes}, {launched} {kernel} launches; the same "
+            f"objects' relist (in-memory dict lister) {path_wall:.3f}s, "
             f"flatten {rec['path_flatten']:.3f}s, c_columnize "
             f"{rec['path_fl_c_columnize']:.3f}s, upload "
             f"{rec['path_upload']:.3f}s ({card})")
         if diff is not None or run.incomplete:
             raise AssertionError(f"kube relist[{collect}] differs from the "
-                                 f"path phase's run: {diff}")
+                                 f"dict relist: {diff}")
         if set(lanes) != {"raw"}:
             raise AssertionError(f"kube relist[{collect}]: chunks left the "
                                  f"raw lane: {lanes}")
@@ -4638,7 +4672,7 @@ def kube_watched(client, driver, objects, url, ask, out: dict,
                  path_verdicts, card: str, device: str = "cuda") -> tuple:
     """(b), up to the spill: a ``WatchIngester`` over a ``KubeCluster``
     (residency ``auto``): step 1 and a resident pass, both equal to the
-    path phase's run; a 1% churn written over HTTP and its tick, equal to
+    dict relist's run; a 1% churn written over HTTP and its tick, equal to
     a fresh relist of the churned state; then the snapshot spilled with
     the ingester's resume marks.  Returns (spill, the churn tick's run)."""
     from gatekeeper_tpu_torch.__main__ import kube_lister
@@ -5251,6 +5285,435 @@ def kube_phase(objects, path_verdicts, path_timings, life_record,
     return launches, shapes, record
 
 
+# --- gator: the offline enforcement point's commands -------------------------
+GATOR_DIR = os.path.join(ROOT_DIR, "_gator")
+# the sweep engine's objects and the spill's rows: halved from 8,192 after
+# the phase took 222.1 s at that width on the card (the budget is ~120 s)
+GATOR_OBJECTS = 4096
+GATOR_REVIEW_OBJECTS = 4096  # the tpu and mutate engines' objects
+GATOR_BODIES = 1024  # admissions captured for replay
+GATOR_CLIENTS = 64  # threads posting them to the handler
+
+
+def _gator(argv, launches=None, shapes=None) -> tuple:
+    """``python -m gatekeeper_tpu_torch.gator ARGV`` in this process:
+    (exit code, stdout), stderr logged.  With ``launches``/``shapes`` the
+    fold kernels' launches inside the call add up there
+    (``_fold_counted``)."""
+    import contextlib
+    import io
+
+    from gatekeeper_tpu_torch.gator.cli import main
+
+    fn = main if launches is None else _fold_counted(main, launches, shapes)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(list(argv))
+    for line in err.getvalue().splitlines()[:8]:
+        log(f"gator {argv[2] if argv[0] == '--device' else argv[0]}: {line}")
+    return rc, out.getvalue()
+
+
+def _gator_json(label: str, argv, **counted):
+    """The JSON that an in-process ``_gator`` run printed, once it exited
+    0."""
+    rc, out = _gator(argv, **counted)
+    if rc != 0:
+        raise AssertionError(f"gator {label}: exit {rc}: {out[-2000:]}")
+    return json.loads(out)
+
+
+def _write_json(name: str, docs) -> str:
+    path = os.path.join(GATOR_DIR, name)
+    with open(path, "w") as f:
+        json.dump(docs, f)
+    return path
+
+
+def _gator_step(record: dict, name: str, t0: float) -> float:
+    record["walls"][name] = time.perf_counter() - t0
+    log(f"gator: {name} in {record['walls'][name]:.3f}s")
+    return time.perf_counter()
+
+
+def _policy_client(policy, device: str, compile_cache=None) -> tuple:
+    """(client, driver) of ``__main__.new_client`` on ``device`` with the
+    templates of ``policy``, then its constraints, installed."""
+    from gatekeeper_tpu_torch.__main__ import new_client
+
+    client, driver = new_client(device=device, compile_cache=compile_cache)
+    for doc in sorted(policy, key=lambda d: d["kind"] != "ConstraintTemplate"):
+        if doc["kind"] == "ConstraintTemplate":
+            client.add_template(copy.deepcopy(doc))
+        else:
+            client.add_constraint(copy.deepcopy(doc))
+    return client, driver
+
+
+def gator_capture(policy, bodies, sink: str, cache_dir: str,
+                  device: str) -> dict:
+    """The corpus ``gator replay`` reads: ``bodies`` answered by the port's
+    ``ValidationHandler`` over the library on ``device`` (a ``Batcher``
+    whose batches all take the grid lane, as replay's ``review_batch``
+    does; the compile cache replay reads warm), from ``GATOR_CLIENTS``
+    threads, with a capture-mode flight recorder writing ``sink``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gatekeeper_tpu_torch.drivers.generation import CompileCache
+    from gatekeeper_tpu_torch.observability import flightrec
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+
+    client, _driver = _policy_client(policy, device,
+                                     compile_cache=CompileCache(cache_dir))
+    batcher = Batcher(client, small_batch=0).start()
+    rec = flightrec.FlightRecorder(capacity=64, sink_path=sink, capture=True)
+    handler = ValidationHandler(client, batcher=batcher)
+    t0 = time.perf_counter()
+    try:
+        with flightrec.activate(rec), \
+                ThreadPoolExecutor(GATOR_CLIENTS) as pool:
+            answers = list(pool.map(handler.handle, bodies))
+        _sync(device)
+    finally:
+        batcher.stop()
+        rec.close()
+    wall = time.perf_counter() - t0
+    denies = sum(not a.allowed for a in answers)
+    codes = collections.Counter(a.code for a in answers if not a.allowed)
+    if codes.get(500) or not denies:
+        raise AssertionError(f"gator capture: {denies} denies, codes "
+                             f"{dict(codes)}")
+    return {"bodies": len(bodies), "denies": denies,
+            "rate_per_s": len(bodies) / wall, "wall_s": wall}
+
+
+def gator_spill(policy, objects, root: str, device: str) -> int:
+    """A ``--snapshot-spill`` of ``objects`` as the CLI's snapshot audit
+    writes it (reduced lane on ``device``); returns its rows."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+    from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
+                                               SnapshotConfig, SnapshotSpill,
+                                               templates_digest)
+    from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+    client, driver = _policy_client(policy, device)
+    cluster = FakeCluster()
+    for o in objects:
+        cluster.apply(copy.deepcopy(o))
+    ev = SweepEvaluator(driver, device=device, violations_limit=20)
+    snap = ClusterSnapshot(ev, SnapshotConfig())
+    mgr = AuditManager(client, lister=lambda: iter(cluster.list()),
+                       config=AuditConfig(audit_source="snapshot",
+                                          chunk_size=32768,
+                                          exact_totals=False),
+                       evaluator=ev, snapshot=snap)
+    run = mgr.audit()
+    if run.incomplete:
+        raise AssertionError("gator spill: the snapshot audit was "
+                             "incomplete")
+    wrote = SnapshotSpill(root).save(snap, templates=templates_digest(client))
+    if not wrote or not wrote.get("ok"):
+        raise AssertionError(f"gator spill: not written: {wrote}")
+    return wrote["rows"]
+
+
+def gator_reference(policy, objects, device: str) -> int:
+    """The sweep engine's violations by another road: an ``AuditManager``
+    at the audit's defaults (chunks of 500, exact totals) over the same
+    templates, constraints and objects."""
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+    client, driver = _policy_client(policy, device)
+    for o in objects:
+        client.add_data(copy.deepcopy(o))
+    mgr = AuditManager(client, lister=lambda: iter(objects),
+                       evaluator=SweepEvaluator(driver, device=device))
+    run = mgr.audit()
+    if run.incomplete:
+        raise AssertionError("gator: the reference audit was incomplete")
+    return sum(run.total_violations.values())
+
+
+# the reference AuditManager of the gator phase in a child process:
+# argv[1:] = policy file, objects file, device; prints the violations
+_GATOR_REFERENCE = r"""
+import json, sys
+import chip_smoke
+policy, objects = (json.load(open(p)) for p in sys.argv[1:3])
+print(chip_smoke.gator_reference(policy, objects, sys.argv[3]))
+"""
+
+
+def _gator_proc(argv, name: str, module: bool = True):
+    """``python -m gatekeeper_tpu_torch.gator ARGV`` (or, with ``module``
+    False, ``python ARGV``) as a child process (cwd the checkout), its
+    stdout to ``GATOR_DIR/NAME``: (Popen, path)."""
+    path = os.path.join(GATOR_DIR, name)
+    head = ["-m", "gatekeeper_tpu_torch.gator"] if module else []
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, *head, *argv], cwd=ROOT_DIR, stdout=out,
+            stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def _gator_proc_out(label: str, started) -> str:
+    """The stdout of a ``_gator_proc`` child once it exited 0."""
+    proc, path = started
+    try:
+        _out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"gator {label}: the child process hung")
+    with open(path) as f:
+        out = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"gator {label}: exit {proc.returncode}: "
+                             f"{err[-2000:]}")
+    return out
+
+
+def gator_phase(objects, card: str, device: str = "cuda") -> tuple:
+    """``gatekeeper_tpu_torch.gator`` through its CLI entry point: (launches,
+    shapes, record).  The masks lane's sweep engine and the replay runs run
+    in this process (fold launches counted over them); ``verify``, the
+    ``--device cpu`` references, the reduced lane, the grid and mutation
+    engines, the reference audit and the spill's replay run as child
+    processes beside them (the host's render bounds each)."""
+    import shutil
+
+    launches = {"fused_fold": 0, "epilogue": 0}
+    shapes = {"fused_fold": collections.Counter(),
+              "epilogue": collections.Counter()}
+    counted = {"launches": launches, "shapes": shapes}
+    dev = ["--device", device]
+    record: dict = {"walls": {}, "launches_after": {}}
+    shutil.rmtree(GATOR_DIR, ignore_errors=True)
+    os.makedirs(GATOR_DIR)
+    children: dict = {}
+
+    def step(name: str, t: float) -> float:
+        record["launches_after"][name] = dict(launches)
+        return _gator_step(record, name, t)
+
+    t_phase = t0 = time.perf_counter()
+    try:
+        policy = library_policy_docs()
+        sweep_objs = objects[:GATOR_OBJECTS]
+        rev_objs = objects[:GATOR_REVIEW_OBJECTS]
+        f_policy = _write_json("policy.json", policy)
+        f_objs = _write_json("objects.json", sweep_objs)
+        f_prefix = _write_json("prefix.json", sweep_objs[:CPU_PREFIX])
+        f_rev = _write_json("review.json", rev_objs)
+        f_mut = _write_json("mutate.json", mutators() + rev_objs)
+        sweep = ["bench", "-f", f_policy, "-f", f_objs, "--engine",
+                 "sweep", "-n", "1", "-o", "json"]
+        review = {"tpu": ["bench", "-f", f_policy, "-f", f_rev, "--engine",
+                          "tpu", "-o", "json"],
+                  "mutate": ["bench", "-f", f_mut, "--engine", "mutate",
+                             "-o", "json"]}
+        # the entry point out of process (a host without JAX), the --device
+        # cpu references (one pass each) and the grid and mutation engines
+        # on the card (they launch no fold kernel), beside the runs below
+        children["verify"] = _gator_proc(["verify", "library"],
+                                         "verify.txt")
+        children["cpu sweep"] = _gator_proc(
+            ["--device", "cpu", "bench", "-f", f_policy, "-f", f_prefix,
+             "--engine", "sweep", "-n", "1", "-o", "json", "--collect",
+             "masks"], "cpu-sweep.json")
+        for e in ("tpu", "mutate"):
+            children[f"cpu {e}"] = _gator_proc(
+                ["--device", "cpu", *review[e], "-n", "1"], f"cpu-{e}.json")
+        for e in ("tpu", "mutate"):
+            children[e] = _gator_proc(dev + review[e] + ["-n", "3"],
+                                      f"card-{e}.json")
+        children["reduced"] = _gator_proc(
+            dev + sweep + ["--collect", "reduced"], "card-reduced.json")
+        children["reference"] = _gator_proc(
+            ["-c", _GATOR_REFERENCE, f_policy, f_objs, device],
+            "reference.txt", module=False)
+        # (1) gator test over the library, twice
+        runs = [_gator(["test", "-f", os.path.join(ROOT_DIR, "library"),
+                        "-o", "json"]) for _ in range(2)]
+        if runs[0] != runs[1] or runs[0][0] != 1:
+            raise AssertionError(f"gator test: exit codes "
+                                 f"{[r[0] for r in runs]}, equal "
+                                 f"{runs[0] == runs[1]}")
+        record["test_results"] = len(json.loads(runs[0][1]))
+        t0 = step(f"test ({record['test_results']} results, exit 1, twice)",
+                  t0)
+        # (2) the spill, replayed by a child process
+        spill = os.path.join(GATOR_DIR, "spill")
+        rows = gator_spill(policy, sweep_objs, spill, device)
+        children["from spill"] = _gator_proc(
+            dev + ["replay", "--from-spill", spill, "--candidate", f_policy,
+                   "--differential", "-o", "json"], "from-spill.json")
+        t0 = step(f"spill ({rows} rows)", t0)
+        # (3) the sweep engine at the audit's defaults, masks lane (the
+        # reduced lane runs in a child)
+        masks = _gator_json("bench sweep masks",
+                            dev + sweep + ["--collect", "masks"],
+                            **counted)[0]
+        if device == "cuda" and launches["epilogue"] <= 0:
+            raise AssertionError(f"gator bench sweep masks: epilogue never "
+                                 f"launched: {launches}")
+        t0 = step("bench sweep masks", t0)
+        card_prefix = None if len(sweep_objs) <= CPU_PREFIX else \
+            gator_reference(policy, sweep_objs[:CPU_PREFIX], device)
+        # (4) expand, differential lane
+        deployments = [o for o in sweep_objs if o["kind"] == "Deployment"]
+        f_exp = _write_json("expand.json", [EXPAND_DEPLOYMENTS] + mutators()
+                            + deployments)
+        rc, out = _gator(dev + ["expand", "-f", f_exp, "--lane",
+                                "differential"], **counted)
+        if rc != 0 or out.count("kind: Pod") != len(deployments):
+            raise AssertionError(f"gator expand: exit {rc}, "
+                                 f"{out.count('kind: Pod')} Pods for "
+                                 f"{len(deployments)} Deployments")
+        t0 = step(f"expand differential ({len(deployments)} Deployments)",
+                  t0)
+        # (5) replay: capture, the warm differential, a lacking candidate
+        bodies, _objs = admission_traffic(GATOR_BODIES)
+        sink = os.path.join(GATOR_DIR, "decisions.jsonl")
+        cache = os.path.join(GATOR_DIR, "compile-cache")
+        record["capture"] = gator_capture(policy, bodies, sink, cache,
+                                          device)
+        t0 = step("replay capture", t0)
+        replay = ["replay", "-f", sink, "--compile-cache", cache, "-o",
+                  "json"]
+        same = _gator_json("replay --differential", dev + replay + [
+            "--candidate", f_policy, "--differential"], **counted)
+        if same["records"] != len(bodies) or same["divergences_total"] or \
+                not same["differential"]["bit_identical"] or \
+                same["compile_cache"].get("misses", 0) != 0:
+            raise AssertionError(
+                f"gator replay --differential: {same['records']} records, "
+                f"{same['divergences_total']} divergences, "
+                f"{same['differential']['mismatches_total']} mismatches, "
+                f"compile cache {same['compile_cache']}: "
+                f"{json.dumps(same['differential']['mismatches'][:3])}")
+        t0 = step("replay --differential", t0)
+        from gatekeeper_tpu_torch.replay.core import (read_corpus,
+                                                      recorded_constraints)
+
+        denied = sorted(set().union(*[
+            recorded_constraints(r.get("message", ""))
+            for r in read_corpus(sink)[0] if r["decision"] == "deny"]))
+        drop = denied[0]
+        f_lacking = _write_json("lacking.json", [
+            d for d in policy if d["metadata"]["name"] != drop
+            or d["kind"] == "ConstraintTemplate"])
+        lacking = _gator_json("replay (lacking candidate)", dev + replay + [
+            "--candidate", f_lacking, "--max-divergences", "100000"],
+            **counted)
+        removed_ok = all(d["kind"] == "newly_allowed"
+                         and drop in d["constraints_removed"]
+                         for d in lacking["divergences"])
+        per = lacking["by_constraint"].get(drop, {})
+        if lacking["newly_allowed"] <= 0 or lacking["newly_denied"] or \
+                per.get("newly_allowed", 0) <= 0 or not removed_ok:
+            raise AssertionError(
+                f"gator replay without {drop}: newly_allowed "
+                f"{lacking['newly_allowed']}, newly_denied "
+                f"{lacking['newly_denied']}, by_constraint "
+                f"{lacking['by_constraint']}")
+        record["replay"] = {
+            "decisions_per_s": same["decisions_per_s"],
+            "wall_s": same["wall_s"], "recorded": same["recorded"],
+            "dropped": drop, "newly_allowed": lacking["newly_allowed"],
+            "lacking_decisions_per_s": lacking["decisions_per_s"]}
+        log(f"gator replay: {same['records']} decisions bit-identical at "
+            f"{same['decisions_per_s']}/s, compile cache "
+            f"{same['compile_cache']}; without {drop}: "
+            f"{lacking['newly_allowed']} newly allowed, all attributed to "
+            f"it ({card})")
+        t0 = step("replay (lacking candidate)", t0)
+        for argv in (["decisions", "-f", sink, "--limit", "5"],
+                     ["triage", "-f", sink]):
+            rc, out = _gator(argv)
+            if rc != 0 or not out:
+                raise AssertionError(f"gator {argv[0]}: exit {rc}")
+        t0 = step("decisions and triage", t0)
+        # (6) the child processes' results
+        out = _gator_proc_out("verify", children["verify"])
+        passed = len(re.findall(r"^ok\t", out, re.M))
+        if passed != 46:
+            raise AssertionError(f"gator verify: {passed} suites ok")
+        got = {name: json.loads(_gator_proc_out(name, children[name]))
+               for name in ("cpu sweep", "cpu tpu", "cpu mutate", "tpu",
+                            "mutate", "reduced", "reference", "from spill")}
+        t0 = step("the child processes' ends", t0)
+        reduced, ref = got["reduced"][0], got["reference"]
+        if card_prefix is None:
+            card_prefix = ref
+        for lane, r in (("masks", masks), ("reduced", reduced)):
+            record[f"sweep_{lane}"] = {
+                k: r[k] for k in ("objects", "violations", "reviews_per_sec",
+                                  "p50_ms", "p99_ms", "total_eval_s")}
+            record[f"sweep_{lane}"]["schedule"] = r["pipeline"]["schedule"]
+        cpu_sweep = got["cpu sweep"][0]
+        log(f"gator bench sweep: masks {masks['violations']} violations, "
+            f"{masks['reviews_per_sec']} reviews/s, p50 {masks['p50_ms']} "
+            f"ms, p99 {masks['p99_ms']} ms; reduced "
+            f"{reduced['violations']}, {reduced['reviews_per_sec']} "
+            f"reviews/s; AuditManager {ref}; cpu prefix "
+            f"{cpu_sweep['violations']} == card prefix {card_prefix} "
+            f"({card})")
+        if not (masks["violations"] == reduced["violations"] == ref > 0) \
+                or masks["objects"] != len(sweep_objs) \
+                or cpu_sweep["violations"] != card_prefix \
+                or masks["lowering"]["fallback"] != 0:
+            raise AssertionError(
+                f"gator bench sweep: masks {masks['violations']}, reduced "
+                f"{reduced['violations']}, reference {ref}, cpu prefix "
+                f"{cpu_sweep['violations']} against {card_prefix}, "
+                f"lowering {masks['lowering']}")
+        for engine in ("tpu", "mutate"):
+            r = got[engine][0]
+            record[f"bench_{engine}"] = r = {
+                k: r[k] for k in ("objects", "violations", "reviews_per_sec",
+                                  "p50_ms", "p99_ms")}
+            cpu_v = got[f"cpu {engine}"][0]["violations"]
+            log(f"gator bench {engine}: {r['objects']} objects, "
+                f"{r['violations']} "
+                f"{'patch ops' if engine == 'mutate' else 'violations'}, "
+                f"{r['reviews_per_sec']}/s, p50 {r['p50_ms']} ms, p99 "
+                f"{r['p99_ms']} ms; cpu {cpu_v} ({card})")
+            if r["violations"] != cpu_v or r["violations"] <= 0:
+                raise AssertionError(f"gator bench {engine}: card "
+                                     f"{r['violations']}, cpu {cpu_v}")
+        from_spill = got["from spill"]
+        if from_spill["rows"] != len(sweep_objs) or \
+                not from_spill["differential"]["bit_identical"] or \
+                from_spill["errors"]:
+            raise AssertionError(
+                f"gator replay --from-spill: {from_spill['rows']} rows, "
+                f"errors {from_spill['errors']}, mismatches "
+                f"{from_spill['differential']['mismatches_total']}: "
+                f"{json.dumps(from_spill['differential']['mismatches'][:3])}")
+        record["from_spill"] = {k: from_spill[k] for k in
+                                ("rows", "decisions_per_s", "wall_s")}
+        log(f"gator replay --from-spill: {from_spill['rows']} rows "
+            f"bit-identical at {from_spill['decisions_per_s']}/s ({card})")
+    finally:
+        for proc, _path in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(GATOR_DIR, ignore_errors=True)
+    record["wall_s"] = time.perf_counter() - t_phase
+    record["launches"] = dict(launches)
+    log(f"gator: {record['wall_s']:.1f}s; fold launches {launches} at "
+        f"(C, N, k) { {k: sorted(v) for k, v in shapes.items()} } ({card})")
+    if device == "cuda" and launches["epilogue"] <= 0:
+        raise AssertionError(f"gator: epilogue never launched: {launches}")
+    return launches, {k: dict(v) for k, v in shapes.items()}, record
+
+
 def _stop_resource_tracker() -> None:
     """End the resource tracker that spawning the kube phase's children
     started (it would outlive the script by a moment otherwise); call it
@@ -5284,7 +5747,7 @@ def main() -> int:
     phase("kernels")
     rows, err = kernel_phase()
     # the kube phase's CLI boots and audits beside the phases between
-    cli_run = KubeCliRun(args.objects)
+    cli_run = KubeCliRun(min(args.objects, KUBE_OBJECTS))
     try:
         return run_phases(args, card, rows, err, cli_run, t_start, phase)
     finally:
@@ -5294,12 +5757,10 @@ def main() -> int:
 
 def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
                t_start: float, phase) -> int:
-    """Phases 3-17 (see the module docstring)."""
+    """Phases 3-18 (see the module docstring)."""
     phase("path")
-    launches, shapes, objects, relist_runs, prefix_summary, path_timings = \
+    launches, shapes, objects, relist_runs, prefix_summary, _timings = \
         path_phase(args.objects)
-    path_verdicts = {c: (run.kept, dict(run.total_violations))
-                     for c, run in relist_runs.items()}
     plain_totals = {c: dict(run.total_violations)
                     for c, run in relist_runs.items()}
     phase("pipeline")
@@ -5328,9 +5789,21 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
         objects, card, n_bodies=min(HOOKS_BODIES, args.admissions))
     gc.collect()
     phase("kube")
+    # (a)'s references: the in-memory dict relist of the apiserver's objects
+    kube_objects = objects[:KUBE_OBJECTS]
+    kube_relists = {c: audit(kube_objects, "cuda", c)
+                    for c in ("reduced", "masks")}
     kube_launches, kube_shapes, kube_record = kube_phase(
-        objects, path_verdicts, path_timings, life_record, cli_run, card,
+        kube_objects,
+        {c: (run.kept, dict(run.total_violations))
+         for c, (run, _p, _dt) in kube_relists.items()},
+        {c: (dt, phases) for c, (_run, phases, dt) in kube_relists.items()},
+        life_record, cli_run, card,
         n_bodies=min(KUBE_BODIES, args.admissions))
+    del kube_relists
+    gc.collect()
+    phase("gator")
+    gator_launches, gator_shapes, gator_record = gator_phase(objects, card)
     gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
@@ -5341,7 +5814,8 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
                    + collections.Counter(ext_shapes.get(name, {}))
                    + collections.Counter(life_shapes[name])
                    + collections.Counter(hook_shapes[name])
-                   + collections.Counter(kube_shapes[name]))
+                   + collections.Counter(kube_shapes[name])
+                   + collections.Counter(gator_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -5361,6 +5835,7 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
     log(f"lifecycle: {json.dumps(life_record, default=str)}")
     log(f"hooks: {json.dumps(hook_record, default=str)}")
     log(f"kube: {json.dumps(kube_record, default=str)}")
+    log(f"gator: {json.dumps(gator_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -5372,6 +5847,7 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
         row["lifecycle_launches"] = life_launches[row["name"]]
         row["hooks_launches"] = hook_launches[row["name"]]
         row["kube_launches"] = kube_launches[row["name"]]
+        row["gator_launches"] = gator_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,8 @@ external data (``externaldata/``, ``extdata/``: the provider cache and the
 batched join lane, whose ``ext:`` tables the grid reads), the cluster
 sources (``sync/``: the apiserver's ``KubeCluster`` and a mock apiserver)
 and the controller plane (``controller/``, ``readiness/``, ``export/``),
+the offline enforcement point (``gator/``, ``python -m
+gatekeeper_tpu_torch.gator``, with the replay core ``replay/core.py``),
 and ``python -m gatekeeper_tpu_torch --manifests DIR | --kubeconfig FILE
 [--once]``.
 """

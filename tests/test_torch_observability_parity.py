@@ -7,7 +7,8 @@ lints only the JAX package):
   for name and value for value;
 - every registry constant the port emits is one the JAX package emits,
   and the port emits every one the JAX package emits outside the modules
-  it has not ported (``fleet/``, ``fuzz/``, ``replay/``);
+  it has not ported (``fleet/``, ``fuzz/``, ``rpc/`` and
+  ``replay/shadow.py``, the webhook's shadow lane);
 - the same holds for the names of tracing spans."""
 
 import ast
@@ -17,22 +18,24 @@ import re
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 NOT_PORTED_SITES: set = set()
-# JAX package directories with no port yet: their sites, metrics and spans
-# are not expected of the port
-NOT_PORTED_DIRS = ("fleet", "fuzz", "replay", "gator", "rpc")
+# JAX package directories and files with no port yet: their sites, metrics
+# and spans are not expected of the port
+NOT_PORTED_DIRS = ("fleet", "fuzz", "rpc")
+NOT_PORTED_FILES = (os.path.join("replay", "shadow.py"),)
 
 _SITE = re.compile(r"""fault_point\(\s*f?["']([^"']+)["']""")
 # a registry constant read through the module alias: M.NAME / m.NAME
 _EMIT = re.compile(r"\b[Mm]\.([A-Z][A-Z0-9_]+)\b")
 
 
-def _sources(package: str, skip_dirs=()) -> dict:
+def _sources(package: str, skip_dirs=(), skip_files=()) -> dict:
     paths = sorted(glob.glob(os.path.join(ROOT, package, "**", "*.py"),
                              recursive=True))
     out = {}
     for path in paths:
         rel = os.path.relpath(path, ROOT)
-        if rel.split(os.sep)[1] in skip_dirs:
+        if rel.split(os.sep)[1] in skip_dirs or \
+                os.path.relpath(rel, package) in skip_files:
             continue
         with open(path) as f:
             out[rel] = f.read()
@@ -78,10 +81,10 @@ def test_registry_constants_equal_the_jax_ones():
     assert port == jax
 
 
-def _emitted(package: str, skip_dirs=()) -> set:
+def _emitted(package: str, skip_dirs=(), skip_files=()) -> set:
     consts = _registry_constants(package)
     names = set()
-    for text in _sources(package, skip_dirs).values():
+    for text in _sources(package, skip_dirs, skip_files).values():
         names.update(n for n in _EMIT.findall(text) if n in consts)
     return names
 
@@ -95,27 +98,30 @@ def test_every_emitted_metric_is_one_the_jax_package_emits():
 
 def test_the_port_emits_every_metric_of_its_ported_modules():
     port = _emitted("gatekeeper_tpu_torch")
-    jax = _emitted("gatekeeper_tpu", NOT_PORTED_DIRS)
+    jax = _emitted("gatekeeper_tpu", NOT_PORTED_DIRS, NOT_PORTED_FILES)
     assert jax <= port, sorted(jax - port)
     assert {"SNAPSHOT_ROWS", "SNAPSHOT_SPILL_BYTES", "GENERATION_SWAP_COUNT",
             "EXTDATA_BULK_CALLS", "RESIDENCY_EVICTIONS",
-            "SNAPSHOT_RESIDENT_BYTES"} <= port
+            "SNAPSHOT_RESIDENT_BYTES", "REPLAY_RECORDS",
+            "REPLAY_DIVERGENCE", "REPLAY_SECONDS"} <= port
+    assert not {n for n in port if n.startswith("SHADOW_")}
 
 
 _SPAN = re.compile(r"""\bspan\(\s*f?["']([^"']+)["']""")
 
 
-def _spans(package: str, skip_dirs=()) -> set:
+def _spans(package: str, skip_dirs=(), skip_files=()) -> set:
     names = set()
-    for text in _sources(package, skip_dirs).values():
+    for text in _sources(package, skip_dirs, skip_files).values():
         names.update(_SPAN.findall(text))
     return names
 
 
 def test_the_port_opens_every_span_of_its_ported_modules():
     port = _spans("gatekeeper_tpu_torch")
-    jax = _spans("gatekeeper_tpu", NOT_PORTED_DIRS)
+    jax = _spans("gatekeeper_tpu", NOT_PORTED_DIRS, NOT_PORTED_FILES)
     assert port == jax, (sorted(jax - port), sorted(port - jax))
     assert {"kube.request", "snapshot.pump", "snapshot.spill",
             "compile.generation", "extdata.join",
-            "pipeline.stage.{stage.name}"} <= port
+            "pipeline.stage.{stage.name}", "replay.run", "replay.chunk",
+            "gator.bench.pass"} <= port
