@@ -124,7 +124,8 @@ Phases (any failure raises and exits non-zero):
    constraints), with the first 512 admission bodies (64 clients; cut
    from 2,048 and then 1,024 for the time limit) and the path phase's
    objects (the
-   first 65,536 of them for (b) and (d), cut from 131,072).  (a) generations under load: the CLI's
+   first 32,768 of them for (b) and (d), cut from 131,072 and then
+   65,536).  (a) generations under load: the CLI's
    serving stack on the card with ``generation_swap`` on, off, off, on
    (ABBA); while
    the bodies are posted a thread removes and re-adds five Rego templates
@@ -181,15 +182,17 @@ Phases (any failure raises and exits non-zero):
    ``webhook.review`` hang under a 0.3 s deadline with failurePolicy
    Ignore (every answer allowed with the deadline warning within 1.3 s).
    (d) bursts against an 8-slot limiter and a 32-deep queue beside the
-   audit loop: sheds with ``Retry-After``, no code 500, the brownout
+   audit loop over the first 32,768 objects (``HOOKS_BURST_OBJECTS``, cut
+   from the path's width: the phase waits for the loop's pass in flight
+   at its end): sheds with ``Retry-After``, no code 500, the brownout
    ladder at level 1 or more on ``/debug/overload``, and the audit's
    device-lane yield above 0 s (its counter in the metrics).  No hook may
    be left installed after a part;
-11. kube: the served process over an apiserver, over the first 65,536 of
-   the path phase's objects (``KUBE_OBJECTS``, cut from its width for the
-   time limit).  The port's ``MockApiServer`` runs in a spawned child
-   process that builds the same objects from the seed, the library's
-   templates
+11. kube: the served process over an apiserver, over the first 32,768 of
+   the path phase's objects (``KUBE_OBJECTS``, cut from its width and then
+   from 65,536 for the time limit).  The port's ``MockApiServer`` runs in
+   a spawned child process that builds the same objects from the seed,
+   the library's templates
    and sample constraints and a Config syncing Ingresses, with a resource
    for every constraint kind and per-pod status kind.  (a) a
    ``KubeCluster`` with raw pages and the CLI's discovery-driven lister
@@ -214,10 +217,11 @@ Phases (any failure raises and exits non-zero):
    finds no difference.  (d) ``python -m gatekeeper_tpu_torch
    --kubeconfig K --audit-source snapshot --port 0 --emit-audit-events
    --emit-admission-events --export-dir D`` (the JAX defaults otherwise),
-   started right after phase 2 over a second such child (its boot and
-   its first audit pass, at the JAX defaults' exact totals ~200-330 s at
-   131,072 objects, run beside phases 3-10; the first child sees none of its
-   writes): ``/healthz`` 503 until the readiness tracker is satisfied,
+   started right after the hooks phase's (a) over a second such child
+   (its boot and its first audit pass, at the JAX defaults' exact totals,
+   run beside the rest of the hooks phase and the kube phase's (a)-(c),
+   and no ABBA pair of an earlier phase runs beside them; the first child
+   sees none of its writes): ``/healthz`` 503 until the readiness tracker is satisfied,
    then 200, both with its stats, and latched; the first audit pass
    exported; 1,024 admission bodies from 64 clients, every answer equal
    to the CPU handler's (computed as ``_held_against_cpu`` does, over the
@@ -260,13 +264,47 @@ Phases (any failure raises and exits non-zero):
    snapshot (bit-identical).  Prints each step's wall, the sweep engine's
    reviews/s and p50/p99, the tpu and mutate engines' rates and replay's
    decisions/s;
-13. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
-   hooks, kube and gator phases): as phase 5, at the (C, N, k) the
-   pipeline, snapshot, expand, extdata, lifecycle, hooks, kube and gator
-   paths launched too;
-14. profile: the reduced-lane audit once more under ``torch.profiler``,
+13. canary: fleet mode, the shadow canary and the chaos soak.  (a) the
+   first 8,192 of the path phase's objects split by a seeded draw into 32
+   clusters of 64-512 objects, 24 on the library and 8 on the library
+   less 4 templates, behind ``fleet.FleetEvaluator`` at its defaults
+   (chunks of 500, exact totals, ``pack_chunks=0``) on the card, the two
+   runtimes built by the ``--fleet-config`` CLI's factory over one disk
+   compile cache: every cluster's totals and kept lists must equal an
+   ``AuditManager`` sweep of that cluster alone on the card (a child
+   process), which must dispatch at least 2x as often as the packed pass;
+   every cluster after a library's first must boot with 0 fresh
+   lowerings; a spill of every cluster, a stop and a warm restart must
+   evaluate no row and give the same verdicts; the first 4 clusters must
+   equal a ``--device cpu`` fleet (a child process), and ``python -m
+   gatekeeper_tpu_torch --fleet-config ROSTER --once`` over them (a child
+   process on the card) must exit 0 with the same per-cluster totals.
+   (b) 1,024 admission bodies posted by 64 keep-alive clients to
+   ``WebhookServer`` on the card (the grid lane, a capture-mode flight
+   recorder) with a ``replay/shadow.ShadowLane`` over a candidate that
+   carries the constraint denying most bodies alone at ``enforcementAction:
+   dryrun``: every answer must equal the CPU handler's; after the drain
+   ``evaluated`` must equal the answers served, ``lane_errors``,
+   ``dropped`` and ``skipped`` be 0, ``/debug/shadow`` answer the JAX
+   package's keys, the divergences be ``would_allow`` (and ``message``
+   where another constraint denies too) and equal ``gator replay`` of the
+   capture against the same candidate, which attributes every removal to
+   that constraint; ``POST /debug/shadow`` promote must apply the
+   candidate, after which the bodies it allowed are allowed.  (c)
+   ``fuzz.soak.run_soak`` on the card (chaos on, the resident lane, once
+   serially and once concurrently; the mutation and extdata seeded bugs
+   on their families): the clean runs ``ok`` with no divergence, crash or
+   lost verdict and ``resident_uploads`` above 0, each seeded bug caught
+   by its lane, and in every run ``collect_differential_ok`` equal to the
+   chunks dispatched through both fold kernels.  Both kernels must launch
+   in the phase (counted in process);
+14. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
+   hooks, kube, gator and canary phases): as phase 5, at the (C, N, k)
+   the pipeline, snapshot, expand, extdata, lifecycle, hooks, kube, gator
+   and canary paths launched too;
+15. profile: the reduced-lane audit once more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-15. admission: the library (all 46 templates and their sample
+16. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -292,7 +330,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-16. served: the served process's two threads on one driver and vocab, as
+17. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -303,7 +341,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-17. mutate: the admission bodies posted to ``/v1/mutate`` of a
+18. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -317,7 +355,7 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-18. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+19. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
@@ -330,7 +368,9 @@ Phases (any failure raises and exits non-zero):
    and brownout audit loop; the CLI processes of (a) are not counted),
    ``kube_launches`` those of the kube phase's (a)-(c) (the CLI process
    of (d) is not counted), ``gator_launches`` those of the gator phase's
-   runs on the card (not its references).
+   runs on the card (not its references), ``canary_launches`` those of the
+   canary phase's in-process fleet passes, replay and soak runs (not its
+   child processes).
    The served and lifecycle (e) phases pass ``HOOKS_OFF`` to the CLI: the
    configuration they measured before the CLI had the hooks.
 
@@ -1647,13 +1687,14 @@ def _cpu_answers(objects, namespaces, bodies, expansion_system=None,
 
 def _held_against_cpu(label: str, objects, namespaces, bodies,
                       replies, expansion_system=None,
-                      extdata: bool = False) -> tuple:
-    """Hold every served answer against ``_cpu_answers``, the deny message
-    as its set of lines.  Raises on a difference; returns (denied, code
-    500)."""
+                      extdata: bool = False, refs=None) -> tuple:
+    """Hold every served answer against ``_cpu_answers`` (``refs`` when the
+    caller has them), the deny message as its set of lines.  Raises on a
+    difference; returns (denied, code 500)."""
     t0 = time.perf_counter()
-    refs = _cpu_answers(objects, namespaces, bodies, expansion_system,
-                        extdata)
+    if refs is None:
+        refs = _cpu_answers(objects, namespaces, bodies, expansion_system,
+                            extdata)
     diffs, denied, code500, reordered = [], 0, 0, 0
     for i, want in enumerate(refs):
         got = _answer(replies[i])
@@ -2872,8 +2913,9 @@ def extdata_phase(objects, n_traffic: int, card: str,
 # templates one at a time and edits the message of a sixth
 LIFE_BODIES, LIFE_FINAL = 512, 256  # bodies cut from 2,048 (time limit)
 # (b)/(d): the snapshot spill and warm restart run on this many of the
-# path phase's objects (cut from 131,072 for the time limit)
-LIFE_SNAPSHOT_OBJECTS = 65536
+# path phase's objects (cut from 131,072, then from 65,536, for the time
+# limit)
+LIFE_SNAPSHOT_OBJECTS = 32768
 LIFE_CHURN_KINDS = ("K8sAllowedRepos", "K8sDisallowedTags",
                     "K8sBlockNodePort", "K8sHttpsOnly", "K8sRequiredProbes")
 LIFE_EDIT_KIND = "K8sContainerLimits"
@@ -3672,6 +3714,10 @@ HOOKS_BURST_REPEAT = 4
 # (d): bursts at most, until the audit has yielded (on a slower H100 host
 # the first yield came in the fifth burst, or not within six)
 HOOKS_BURST_ROUNDS = 10
+# (d): the audit loop's objects, the path's first: cut from 131,072, since
+# the phase ends by waiting for the loop's pass in flight (~40 s at the
+# full width on the H100's host)
+HOOKS_BURST_OBJECTS = 32768
 HOOKS_DIR = os.path.join(ROOT_DIR, "_hooks")
 SHED_PREFIX = "gatekeeper shed this request under overload ("
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
@@ -4305,11 +4351,12 @@ def hooks_brownout(objects, bodies, refs, manifests, card: str,
 
 
 def hooks_phase(objects, card: str, device: str = "cuda",
-                n_bodies: int = HOOKS_BODIES) -> tuple:
+                n_bodies: int = HOOKS_BODIES, after_served=None) -> tuple:
     """The served process's hooks, (a)-(d): (launches, shapes, record).
     Fold launches count from here to the end of the phase ((b)'s and
     (c)'s relists and (d)'s audit loop launch them; (a)'s CLI processes
-    are not counted)."""
+    are not counted).  ``after_served`` is called once (a)'s ABBA runs
+    have held their gate."""
     import shutil
 
     from gatekeeper_tpu_torch.__main__ import build_client
@@ -4356,6 +4403,8 @@ def hooks_phase(objects, card: str, device: str = "cuda",
                                  f"{sums['defaults']:.3f} ms exceeds "
                                  f"{HOOKS_WALL_NOISE}x hooks off's "
                                  f"{sums['off']:.3f} ms")
+        if after_served is not None:
+            after_served()
         # (b) traced relists, (c) chaos, (d) brownout
         record["traced"], bare_run, world = hooks_traced(objects, card,
                                                          device)
@@ -4364,8 +4413,9 @@ def hooks_phase(objects, card: str, device: str = "cuda",
                                       refs, card, device)
         del world
         gc.collect()
-        record["brownout"] = hooks_brownout(objects, bodies, refs, manifests,
-                                            card, device)
+        record["brownout"] = hooks_brownout(objects[:HOOKS_BURST_OBJECTS],
+                                            bodies, refs, manifests, card,
+                                            device)
     finally:
         shutil.rmtree(HOOKS_DIR, ignore_errors=True)
     _nothing_installed("end")
@@ -4382,7 +4432,10 @@ def hooks_phase(objects, card: str, device: str = "cuda",
 # --- kube: the served process over an apiserver ------------------------------
 
 KUBE_DIR = os.path.join(ROOT_DIR, "_kube")
-KUBE_OBJECTS = 65536  # the apiservers' objects (cut from the path's 131,072)
+# the apiservers' objects: cut from the path's 131,072, then from 65,536,
+# for the time limit (the CLI of (d) audits them beside the phases before
+# the kube phase, whose end waits for that first exact-totals pass)
+KUBE_OBJECTS = 32768
 KUBE_BODIES = 1024  # (d): admission bodies
 KUBE_WAIT_S = 300.0
 KUBE_VANISH = 64  # (b): objects removed behind the watches before the 410
@@ -4909,10 +4962,12 @@ class KubeCli:
 
 
 class KubeCliRun:
-    """(d)'s apiserver and CLI, started right after the kernels phase so
-    that the CLI's boot and its first audit pass (at the JAX defaults'
-    exact totals, 200-330 s at 131,072 objects) run beside the earlier
-    phases: a second mock apiserver child built from the same seed (the
+    """(d)'s apiserver and CLI, started right after the hooks phase's (a)
+    so that the CLI's boot and its first audit pass (at the JAX defaults'
+    exact totals) run beside the rest of the hooks phase and the kube
+    phase's (a)-(c), and beside no ABBA pair of an earlier phase (a pass
+    ending or a resync starting in the middle of a pair loads one side
+    only): a second mock apiserver child built from the same seed (the
     first, the kube phase's own, sees no write of the CLI), the CLI over
     it once that child has seeded, and ``/healthz`` polled from the
     serving line until it answers 200 (every answer kept), all on a
@@ -5168,9 +5223,9 @@ def kube_phase(objects, path_verdicts, path_timings, life_record,
     record).  (a)-(c) and the 410 step run against the port's mock in a
     spawned child process holding the library and ``objects`` (rebuilt
     there from the same seed); fold launches count over them, in this
-    process.  (d) reads ``cli_run``, the CLI started after the kernels
-    phase over a second such child; its CPU reference answers come from a
-    third child process, beside the 410 step and the resync."""
+    process.  (d) reads ``cli_run``, the CLI started after the hooks
+    phase's (a) over a second such child; its CPU reference answers come
+    from a third child process, beside the 410 step and the resync."""
     import multiprocessing
 
     from gatekeeper_tpu_torch.ops import fold
@@ -5714,6 +5769,651 @@ def gator_phase(objects, card: str, device: str = "cuda") -> tuple:
     return launches, {k: dict(v) for k, v in shapes.items()}, record
 
 
+CANARY_DIR = os.path.join(ROOT_DIR, "_canary")
+CANARY_OBJECTS = 8192  # (a): the roster's objects, the path's first
+CANARY_CLUSTERS = 32
+CANARY_SIZES = (64, 512)  # (a): objects of one cluster, at least, at most
+CANARY_SMALL = 8  # (a): clusters on the library less CANARY_LESS templates
+CANARY_LESS = 4
+CANARY_PREFIX = 4  # (a): clusters of the --device cpu run and of the CLI's
+CANARY_BODIES = 1024  # (b): admissions served with the shadow lane on
+CANARY_SEED = 13
+# the keys of the JAX package's ShadowLane.snapshot(), /debug/shadow's body
+SHADOW_KEYS = ("state", "submitted", "evaluated", "dropped", "skipped",
+               "lane_errors", "queue_depth", "decisions", "divergences",
+               "divergence_rate", "recent_divergences",
+               "candidate_lowering")
+
+
+def canary_roster(objects) -> list:
+    """[(cluster id, "full" | "small", objects)]: the first CANARY_OBJECTS
+    objects split by a seeded draw into CANARY_CLUSTERS clusters of
+    CANARY_SIZES objects each; CANARY_SMALL clusters, drawn too, run the
+    library less CANARY_LESS templates."""
+    rng = np.random.default_rng(CANARY_SEED)
+    lo, hi = CANARY_SIZES
+    n = min(CANARY_OBJECTS, len(objects))
+    if not lo * CANARY_CLUSTERS <= n <= hi * CANARY_CLUSTERS:
+        raise AssertionError(f"canary: {n} objects do not split into "
+                             f"{CANARY_CLUSTERS} clusters of {CANARY_SIZES}")
+    sizes = [lo] * CANARY_CLUSTERS
+    left = n - lo * CANARY_CLUSTERS
+    while left > 0:
+        i = int(rng.integers(CANARY_CLUSTERS))
+        add = min(left, int(rng.integers(1, 65)), hi - sizes[i])
+        sizes[i] += add
+        left -= add
+    order = rng.permutation(n)
+    small = {int(i) for i in rng.choice(CANARY_CLUSTERS, CANARY_SMALL,
+                                        replace=False)}
+    roster, off = [], 0
+    for i, size in enumerate(sizes):
+        roster.append((f"c{i:02d}", "small" if i in small else "full",
+                       [objects[int(j)] for j in order[off:off + size]]))
+        off += size
+    return roster
+
+
+def canary_libraries() -> dict:
+    """{"full": the library's templates and sample constraints, "small":
+    the same less CANARY_LESS templates (spread over the sorted kinds) and
+    their constraints}."""
+    full = library_policy_docs()
+    kinds = sorted(_template_kind(d) for d in full
+                   if d["kind"] == "ConstraintTemplate")
+    less = set(kinds[::len(kinds) // CANARY_LESS][:CANARY_LESS])
+    small = [d for d in full
+             if (_template_kind(d) if d["kind"] == "ConstraintTemplate"
+                 else d["kind"]) not in less]
+    return {"full": full, "small": small}
+
+
+def _fleet_args(device: str):
+    """The CLI's flags that ``fleet.run._build_runtime_factory`` reads, at
+    their defaults."""
+    return argparse.Namespace(device=device, constraint_violations_limit=20,
+                              flatten_lane="auto", collect="reduced",
+                              flatten_workers=0)
+
+
+def _canary_summary(run) -> dict:
+    """A run as JSON: objects, totals and kept lists keyed kind/name."""
+    return {"objects": run.total_objects,
+            "incomplete": run.incomplete,
+            "totals": {f"{k}/{n}": v
+                       for (k, n), v in sorted(run.total_violations.items())},
+            "kept": {f"{k}/{n}": [[v.kind, f"{v.namespace}/{v.name}",
+                                   v.message] for v in vs]
+                     for (k, n), vs in sorted(run.kept.items())}}
+
+
+def _fake_cluster(objects):
+    from gatekeeper_tpu_torch.sync.source import FakeCluster
+
+    src = FakeCluster()
+    for o in objects:
+        src.apply(copy.deepcopy(o))
+    return src
+
+
+def canary_reference(spec_path: str, device: str, mode: str) -> dict:
+    """The fleet's references, as a child process runs them over the
+    roster file ``spec_path`` ({"libraries": {name: file}, "clusters":
+    [[id, library, objects file], ...]}): ``independent`` sweeps every
+    cluster alone through an ``AuditManager`` (snapshot source, chunks of
+    500, exact totals) on a runtime of its library; ``fleet`` runs a
+    ``FleetEvaluator`` over the roster.  Returns {"summaries": {id:
+    ``_canary_summary``}, "dispatches": device dispatches, "wall_s"}."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.fleet import FleetEvaluator
+    from gatekeeper_tpu_torch.fleet.config import library_key
+    from gatekeeper_tpu_torch.fleet.run import _build_runtime_factory
+    from gatekeeper_tpu_torch.snapshot import ClusterSnapshot, SnapshotConfig
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    libs = {}
+    for name, path in spec["libraries"].items():
+        with open(path) as f:
+            libs[name] = json.load(f)
+    t0 = time.perf_counter()
+    out: dict = {}
+    if mode == "fleet":
+        fleet = FleetEvaluator()
+        try:
+            for cid, lib, path in spec["clusters"]:
+                with open(path) as f:
+                    fleet.add_cluster(cid, _fake_cluster(json.load(f)),
+                                      library_key(libs[lib]),
+                                      _build_runtime_factory(
+                                          libs[lib], None, None,
+                                          _fleet_args(device)))
+            runs = fleet.sweep(full=True)
+            _sync(device)
+        finally:
+            fleet.stop()
+        out["dispatches"] = fleet.packed_dispatches + \
+            fleet.unpacked_dispatches
+    else:
+        runtimes = {name: _build_runtime_factory(
+            docs, None, None, _fleet_args(device))() for name, docs in
+            libs.items()}
+        runs = {}
+        for cid, lib, path in spec["clusters"]:
+            client, _driver, ev = runtimes[lib]
+            with open(path) as f:
+                src = _fake_cluster(json.load(f))
+            snap = ClusterSnapshot(ev, SnapshotConfig())
+            runs[cid] = AuditManager(
+                client, lister=lambda s=src: iter(s.list()),
+                config=AuditConfig(audit_source="snapshot", chunk_size=500,
+                                   exact_totals=True),
+                evaluator=ev, snapshot=snap).audit()
+        _sync(device)
+        out["dispatches"] = sum(ev.dispatch_count
+                                for _c, _d, ev in runtimes.values())
+        for _c, driver, _ev in runtimes.values():
+            if driver.gen_coord is not None:
+                driver.gen_coord.stop()
+    out["wall_s"] = time.perf_counter() - t0
+    out["summaries"] = {cid: _canary_summary(r) for cid, r in runs.items()}
+    return out
+
+
+# a canary reference in a child process: argv[1:] = roster spec, device,
+# mode, output file
+_CANARY_REFERENCE = r"""
+import json, sys
+import chip_smoke
+out = chip_smoke.canary_reference(*sys.argv[1:4])
+with open(sys.argv[4], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _canary_proc(argv, name: str) -> tuple:
+    """``python ARGV`` as a child process (cwd the checkout), its stderr
+    to ``CANARY_DIR/NAME.err``: (Popen, stderr path)."""
+    err = os.path.join(CANARY_DIR, name + ".err")
+    with open(err, "w") as fh:
+        proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT_DIR,
+                                stdout=subprocess.DEVNULL, stderr=fh)
+    return proc, err
+
+
+def _canary_wait(label: str, started) -> str:
+    """A ``_canary_proc`` child's stderr once it exited 0."""
+    proc, err = started
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"canary {label}: the child process hung")
+    with open(err) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"canary {label}: exit {proc.returncode}: "
+                             f"{text[-2000:]}")
+    return text
+
+
+def _same_summaries(label: str, got: dict, want: dict) -> None:
+    """Per cluster: objects, totals and kept lists equal (exact)."""
+    bad = [cid for cid in want if got.get(cid) != want[cid]]
+    if set(got) != set(want) or bad:
+        cid = (bad or sorted(set(got) ^ set(want)))[0]
+        a, b = got.get(cid) or {}, want.get(cid) or {}
+        keys = [k for k in set(a.get("totals", {})) | set(
+            b.get("totals", {})) if a.get("totals", {}).get(k) !=
+            b.get("totals", {}).get(k)]
+        raise AssertionError(
+            f"canary {label}: cluster {cid} differs (objects "
+            f"{a.get('objects')} vs {b.get('objects')}, totals differ at "
+            f"{sorted(keys)[:3]}, kept equal "
+            f"{a.get('kept') == b.get('kept')}); {len(bad)} clusters "
+            f"differ")
+
+
+def canary_fleet(roster, libraries, device: str, card: str, launches,
+                 shapes) -> dict:
+    """(a) in process: the roster behind ``FleetEvaluator`` at its
+    defaults (chunks of 500, exact totals, ``pack_chunks=0``) on
+    ``device``, the runtimes built by the CLI's factory over one disk
+    compile cache; one packed pass (fold launches counted), a spill of
+    every cluster, a stop and a warm restart from the spills.  Returns the
+    record with the pass's per-cluster summaries."""
+    from gatekeeper_tpu_torch.drivers import torch_driver
+    from gatekeeper_tpu_torch.drivers.generation import CompileCache
+    from gatekeeper_tpu_torch.fleet import FleetEvaluator
+    from gatekeeper_tpu_torch.fleet.config import library_key
+    from gatekeeper_tpu_torch.fleet.run import _build_runtime_factory
+
+    cache = CompileCache(os.path.join(CANARY_DIR, "compile-cache"))
+    spill_root = os.path.join(CANARY_DIR, "spill")
+    keys = {name: library_key(docs) for name, docs in libraries.items()}
+
+    def builder(lib):
+        return _build_runtime_factory(libraries[lib], cache, None,
+                                      _fleet_args(device))
+
+    sources = {cid: _fake_cluster(objs) for cid, _lib, objs in roster}
+    lowers = [0]
+    lower = torch_driver.lower_template
+
+    def counting(*a, **k):
+        lowers[0] += 1
+        return lower(*a, **k)
+
+    boots = []
+    t0 = time.perf_counter()
+    torch_driver.lower_template = counting
+    fleet = FleetEvaluator(spill_root=spill_root)
+    try:
+        for cid, lib, _objs in roster:
+            before = lowers[0]
+            fc = fleet.add_cluster(cid, sources[cid], keys[lib],
+                                   builder(lib))
+            boots.append((lib, len(fc.runtime.clusters),
+                          lowers[0] - before))
+    finally:
+        torch_driver.lower_template = lower
+    t_boot = time.perf_counter() - t0
+    shared = [b for b in boots if b[1] > 1]
+    first = {lib: n for lib, k, n in boots if k == 1}
+    if len(fleet.runtimes()) != 2 or any(n for _l, _k, n in shared) or \
+            fleet.shared_boots != len(roster) - 2:
+        raise AssertionError(
+            f"canary fleet: {len(fleet.runtimes())} runtimes, "
+            f"{fleet.shared_boots} shared boots, fresh lowerings of the "
+            f"shared boots {[n for _l, _k, n in shared if n]}")
+    d0 = sum(rt.evaluator.dispatch_count for rt in fleet.runtimes())
+    t0 = time.perf_counter()
+    try:
+        runs = _fold_counted(fleet.sweep, launches, shapes)(full=True)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        dispatches = sum(rt.evaluator.dispatch_count
+                         for rt in fleet.runtimes()) - d0
+        packed, unpacked = fleet.packed_dispatches, \
+            fleet.unpacked_dispatches
+        summaries = {cid: _canary_summary(r) for cid, r in runs.items()}
+        bad = [cid for cid, r in runs.items() if r.incomplete]
+        if bad or sorted(runs) != sorted(sources):
+            raise AssertionError(f"canary fleet: incomplete {bad}")
+        t0 = time.perf_counter()
+        fleet.spill_all()
+    finally:
+        fleet.stop()
+    t_spill = time.perf_counter() - t0
+    # the warm restart: every cluster boots from its spill, the first pass
+    # evaluates no row and must give the same verdicts
+    fleet2 = FleetEvaluator(spill_root=spill_root)
+    t0 = time.perf_counter()
+    try:
+        for cid, lib, _objs in roster:
+            fleet2.add_cluster(cid, sources[cid], keys[lib], builder(lib))
+        cold = [cid for cid, fc in fleet2.clusters.items()
+                if not fc.warm_booted]
+        runs2 = _fold_counted(fleet2.sweep, launches, shapes)(full=None)
+        _sync(device)
+        evaluated = sum(fc.manager.perf.get("snapshot_rows_evaluated", 0)
+                        for fc in fleet2.clusters.values())
+    finally:
+        fleet2.stop()
+    t_warm = time.perf_counter() - t0
+    if cold or evaluated:
+        raise AssertionError(f"canary fleet restart: cold {cold}, "
+                             f"{evaluated} rows evaluated")
+    _same_summaries("fleet warm restart", {
+        cid: _canary_summary(r) for cid, r in runs2.items()}, summaries)
+    violations = sum(sum(s["totals"].values()) for s in summaries.values())
+    n_objects = sum(len(o) for _c, _l, o in roster)
+    log(f"canary fleet: {len(roster)} clusters, {n_objects} objects over "
+        f"{len(fleet.runtimes())} runtimes ({fleet.shared_boots} shared "
+        f"boots, fresh lowerings at each library's first boot {first}, "
+        f"0 at the others) booted in {t_boot:.3f}s; the packed pass "
+        f"{wall:.3f}s ({n_objects / wall:.1f} objects/s, {violations} "
+        f"violations): {packed} packed + {unpacked} unpacked dispatches, "
+        f"{dispatches} device dispatches; spill {t_spill:.3f}s; warm "
+        f"restart and pass {t_warm:.3f}s, 0 rows evaluated, verdicts "
+        f"equal ({card})")
+    return {"clusters": len(roster), "objects": n_objects,
+            "violations": violations, "boot_s": t_boot, "pass_s": wall,
+            "objects_per_s": n_objects / wall, "packed": packed,
+            "unpacked": unpacked, "dispatches": dispatches,
+            "first_boot_lowerings": first, "spill_s": t_spill,
+            "warm_restart_s": t_warm, "summaries": summaries}
+
+
+def _post_json(port: int, path: str, body: dict) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def canary_shadow(device: str, card: str, launches, shapes) -> dict:
+    """(b) the shadow canary: CANARY_BODIES admissions posted by 64
+    keep-alive clients to ``WebhookServer`` on ``device`` (every batch on
+    the grid lane, as the lane's candidate decides them) with a
+    capture-mode flight recorder and a ``ShadowLane`` over a candidate
+    that carries the constraint denying most of the first 128 bodies at
+    ``enforcementAction: dryrun`` (it lacks that deny); then
+    ``/debug/shadow``, the port's ``gator replay`` of the capture against
+    the same candidate, ``POST /debug/shadow`` promote and the candidate's
+    allowed bodies served again.  The constraint is the one that, in the
+    CPU handler's answers, most often denies a body alone."""
+    from gatekeeper_tpu_torch.observability import flightrec
+    from gatekeeper_tpu_torch.replay import core, shadow
+    from gatekeeper_tpu_torch.webhook.policy import (Batcher,
+                                                     ValidationHandler)
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    bodies, objs = admission_traffic(CANARY_BODIES)
+    namespaces = {o["metadata"]["name"]: o for o in objs
+                  if o.get("kind") == "Namespace"}
+    t0 = time.perf_counter()
+    refs = _cpu_answers(objs, namespaces, bodies)
+    cpu_s = time.perf_counter() - t0
+    alone: collections.Counter = collections.Counter()
+    for allowed, _code, message, _w in refs:
+        labels = core.recorded_constraints(message)
+        if not allowed and len(labels) == 1:
+            alone.update(labels)
+    if not alone:
+        raise AssertionError("canary shadow: no body is denied by one "
+                             "constraint alone")
+    drop = alone.most_common(1)[0][0]
+    client, _driver, _nt, _nc = _client(objs, device=device)
+    cand = library_policy_docs()
+    for d in cand:
+        if d["kind"] != "ConstraintTemplate" and \
+                d["metadata"]["name"] == drop:
+            d.setdefault("spec", {})["enforcementAction"] = "dryrun"
+    cand += [copy.deepcopy(o) for o in objs
+             if o.get("kind") in ("Ingress", "Namespace")]
+    f_cand = os.path.join(CANARY_DIR, "candidate.json")
+    with open(f_cand, "w") as f:
+        json.dump(cand, f)
+    cache = os.path.join(CANARY_DIR, "shadow-cache")
+    runtime = core.load_candidate(cand, compile_cache_dir=cache,
+                                  device=device)
+    sink = os.path.join(CANARY_DIR, "served.jsonl")
+    rec = flightrec.FlightRecorder(capacity=64, sink_path=sink, capture=True)
+    lane_rec = flightrec.FlightRecorder(capacity=2 * len(bodies))
+    lane = shadow.ShadowLane(runtime, serving_client=client,
+                             candidate_docs=cand, recorder=lane_rec,
+                             max_queue=len(bodies)).start()
+    batcher = Batcher(client, small_batch=0).start()
+    server = WebhookServer(
+        validation_handler=ValidationHandler(
+            client, namespace_lookup=namespaces.get, batcher=batcher,
+            failure_policy="fail"),
+        host="127.0.0.1", port=0, batcher=batcher).start()
+    try:
+        with shadow.activate(lane):
+            with flightrec.activate(rec):
+                replies, lat, wall = post_concurrently(server.port, bodies)
+            rec.close()  # the capture holds the shadowed admissions only
+            t0 = time.perf_counter()
+            lane.drain(timeout=300)
+            drain_s = time.perf_counter() - t0
+            status, text = _get(server.port, "/debug/shadow")
+            snap = json.loads(text)
+            allowed_uids = {e["uid"] for e in lane_rec.snapshot(
+                limit=10 * len(bodies))["decisions"]
+                if e.get("divergence") == "would_allow"}
+            p_status, promoted = _post_json(server.port, "/debug/shadow",
+                                            {"action": "promote"})
+            again = [b for b in bodies
+                     if b["request"]["uid"] in allowed_uids]
+            replies2, _lat2, _wall2 = post_concurrently(
+                server.port, again, procs=2, conns=8)
+    finally:
+        drained = server.stop()
+        lane.stop()
+        rec.close()
+        gc_ = getattr(runtime.driver, "gen_coord", None)
+        if gc_ is not None:
+            gc_.stop()
+    lat_ms = sorted(x * 1e3 for x in lat)
+    out = {"admissions": len(bodies), "wall_s": wall,
+           "admissions_per_s": len(bodies) / wall,
+           "p50_ms": lat_ms[len(lat_ms) // 2],
+           "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+           "drain_s": drain_s, "dropped_constraint": drop,
+           "denied_by_it_alone": alone[drop], "cpu_reference_s": cpu_s,
+           "lane": {k: snap[k] for k in (
+               "evaluated", "lane_errors", "dropped", "skipped",
+               "decisions", "divergences", "candidate_lowering")}}
+    log(f"canary shadow: {len(bodies)} admissions in {wall:.3f}s, "
+        f"{out['admissions_per_s']:.1f}/s, p50 {out['p50_ms']:.3f} ms, p99 "
+        f"{out['p99_ms']:.3f} ms ({LOAD_PROCS * LOAD_CONNS} keep-alive "
+        f"clients), the lane drained {drain_s:.3f}s after; candidate "
+        f"without {drop}'s deny: {json.dumps(out['lane'])} ({card})")
+    _held_against_cpu("canary shadow", objs, namespaces, bodies, replies,
+                      refs=refs)
+    div = snap["divergences"]
+    if status != 200 or tuple(snap) != SHADOW_KEYS or \
+            snap["evaluated"] != len(bodies) or snap["lane_errors"] or \
+            snap["dropped"] or snap["skipped"] or \
+            not div.get("would_allow") or \
+            set(div) - {"would_allow", "message"} or not drained:
+        raise AssertionError(f"canary shadow: /debug/shadow {status} "
+                             f"{text[:2000]}, drained {drained}")
+    # the same bodies through gator replay against the same candidate
+    replay = _gator_json("canary replay", [
+        "--device", device, "replay", "-f", sink, "--candidate", f_cand,
+        "-o", "json", "--max-divergences", "100000"],
+        launches=launches, shapes=shapes)
+    want = {"would_allow": replay["newly_allowed"],
+            "would_deny": replay["newly_denied"],
+            "message": replay["message_changed"],
+            "would_error": replay["errors"]}
+    # the constraints that left a recorded deny set: only the one the
+    # candidate took out (labels past the recorder's 512-character cut
+    # show as joined, in both packages, and are not counted here)
+    left = sorted(name for name, e in replay["by_constraint"].items()
+                  if e["newly_allowed"])
+    if replay["records"] != len(bodies) or \
+            {k: v for k, v in want.items() if v} != div or left != [drop]:
+        raise AssertionError(
+            f"canary shadow: the lane's divergences {div} against gator "
+            f"replay's {want} over {replay['records']} records; "
+            f"constraints that left a deny set {left}")
+    flipped = [r for r in replies2.values() if not r["allowed"]]
+    if p_status != 200 or promoted.get("state") != "promoted" or \
+            not again or flipped:
+        raise AssertionError(
+            f"canary shadow promote: {p_status} {promoted}; "
+            f"{len(flipped)} of {len(again)} re-served bodies denied")
+    log(f"canary shadow: divergences equal gator replay's ({want}, all "
+        f"attributed to {drop}); promote {promoted['applied']}: the "
+        f"{len(again)} bodies the candidate allowed are now allowed "
+        f"({card})")
+    out["replay_decisions_per_s"] = replay["decisions_per_s"]
+    out["promoted"] = promoted["applied"]
+    out["reserved"] = len(again)
+    return out
+
+
+def canary_soak(device: str, card: str, launches, shapes) -> dict:
+    """(c) the chaos soak (``fuzz/soak.run_soak``) on ``device``: the
+    all-family chaos run with the resident lane, the same concurrent, and
+    both seeded bugs on their families.  The collect lane is
+    differential: every audit chunk ran both fold kernels."""
+    from gatekeeper_tpu_torch.fuzz.soak import run_soak
+
+    cache = os.path.join(CANARY_DIR, "soak-cache")
+    runs = {
+        "chaos": dict(chaos=True, residency="on"),
+        "concurrent": dict(chaos=True, residency="on", concurrent=True),
+        "mutate_program": dict(families=["alias_mutators"], chaos=False,
+                               inject_bug="mutate_program"),
+        "extdata_column": dict(families=["extdata_hostile"], chaos=False,
+                               inject_bug="extdata_column"),
+    }
+    lanes = {"mutate_program": "mutate", "extdata_column": "extdata"}
+    out = {}
+    for name, kw in runs.items():
+        rep = _fold_counted(run_soak, launches, shapes)(
+            seed=0, size=1, rounds=1, cache_dir=cache, device=device, **kw)
+        cd = rep["collect_differential"]
+        out[name] = r = {k: rep[k] for k in (
+            "ok", "requests", "answered", "lost_verdicts", "crashes",
+            "faults_fired", "resident_uploads", "collect_differential",
+            "wall_s")}
+        r["divergences"] = [(d["lane"], d["family"])
+                            for d in rep["divergences"]]
+        log(f"canary soak[{name}]: {json.dumps(r)} ({card})")
+        if not cd["chunks"] or cd["ok"] != cd["chunks"]:
+            raise AssertionError(f"canary soak[{name}]: collect "
+                                 f"differential {cd}")
+        if name in lanes:
+            family = kw["families"][0]
+            if rep["ok"] or (lanes[name], family) not in r["divergences"]:
+                raise AssertionError(f"canary soak[{name}]: the seeded bug "
+                                     f"was missed: {r['divergences']}")
+        elif not rep["ok"] or rep["divergences"] or rep["crashes"] or \
+                rep["lost_verdicts"] or not rep["resident_uploads"]:
+            raise AssertionError(f"canary soak[{name}]: {json.dumps(r)}")
+    return out
+
+
+def canary_phase(objects, card: str, device: str = "cuda") -> tuple:
+    """Fleet mode, the shadow canary and the chaos soak: (launches,
+    shapes, record).  (a)'s references run as child processes beside the
+    in-process steps: every cluster swept alone by an ``AuditManager`` on
+    ``device``, the first CANARY_PREFIX clusters' fleet on the CPU, and
+    ``python -m gatekeeper_tpu_torch --fleet-config ROSTER --once`` over
+    those clusters on ``device``."""
+    import shutil
+
+    from gatekeeper_tpu_torch.replay import shadow
+
+    launches = {"fused_fold": 0, "epilogue": 0}
+    shapes = {"fused_fold": collections.Counter(),
+              "epilogue": collections.Counter()}
+    record: dict = {"walls": {}}
+    shutil.rmtree(CANARY_DIR, ignore_errors=True)
+    os.makedirs(CANARY_DIR)
+    children: dict = {}
+    t_phase = t0 = time.perf_counter()
+
+    def step(name: str, t: float) -> float:
+        record["walls"][name] = time.perf_counter() - t
+        log(f"canary: {name} in {record['walls'][name]:.3f}s")
+        return time.perf_counter()
+
+    try:
+        roster = canary_roster(objects)
+        libraries = canary_libraries()
+        files = {}
+        for name, docs in libraries.items():
+            files[name] = os.path.join(CANARY_DIR, f"library-{name}.json")
+            with open(files[name], "w") as f:
+                json.dump(docs, f)
+        clusters = []
+        for cid, lib, objs in roster:
+            path = os.path.join(CANARY_DIR, f"objects-{cid}.json")
+            with open(path, "w") as f:
+                json.dump(objs, f)
+            clusters.append([cid, lib, path])
+        specs = {"all": clusters, "prefix": clusters[:CANARY_PREFIX]}
+        for name, cl in specs.items():
+            with open(os.path.join(CANARY_DIR, f"spec-{name}.json"),
+                      "w") as f:
+                json.dump({"libraries": files, "clusters": cl}, f)
+        f_roster = os.path.join(CANARY_DIR, "roster.json")
+        with open(f_roster, "w") as f:
+            json.dump({"clusters": [{"id": cid, "manifests": [files[lib],
+                                                              path]}
+                                    for cid, lib, path in
+                                    clusters[:CANARY_PREFIX]]}, f)
+        for name, spec, dev, mode in (
+                ("independent", "all", device, "independent"),
+                ("cpu", "prefix", "cpu", "fleet")):
+            children[name] = _canary_proc(
+                ["-c", _CANARY_REFERENCE,
+                 os.path.join(CANARY_DIR, f"spec-{spec}.json"), dev, mode,
+                 os.path.join(CANARY_DIR, f"{name}.json")], name)
+        children["cli"] = _canary_proc(
+            ["-m", "gatekeeper_tpu_torch", "--fleet-config", f_roster,
+             "--once", "--device", device], "cli")
+        t0 = step("roster and child processes started", t0)
+        # (a) the fleet
+        record["fleet"] = canary_fleet(roster, libraries, device, card,
+                                       launches, shapes)
+        summaries = record["fleet"].pop("summaries")
+        record["fleet"]["launches_after"] = dict(launches)
+        t0 = step("(a) fleet", t0)
+        # (b) the shadow canary
+        record["shadow"] = canary_shadow(device, card, launches, shapes)
+        t0 = step("(b) shadow canary", t0)
+        # (c) the chaos soak
+        record["soak"] = canary_soak(device, card, launches, shapes)
+        t0 = step("(c) chaos soak", t0)
+        # (a)'s references
+        got = {}
+        for name in ("independent", "cpu"):
+            _canary_wait(name, children[name])
+            with open(os.path.join(CANARY_DIR, f"{name}.json")) as f:
+                got[name] = json.load(f)
+        cli_err = _canary_wait("cli", children["cli"])
+        t0 = step("the child processes' ends", t0)
+        _same_summaries("fleet against independent sweeps", summaries,
+                        got["independent"]["summaries"])
+        prefix = {cid: summaries[cid]
+                  for cid, _l, _p in clusters[:CANARY_PREFIX]}
+        _same_summaries("fleet against the cpu", got["cpu"]["summaries"],
+                        prefix)
+        fleet = record["fleet"]
+        alone = got["independent"]["dispatches"]
+        if alone < 2 * fleet["dispatches"]:
+            raise AssertionError(
+                f"canary fleet: {fleet['dispatches']} dispatches packed "
+                f"against {alone} independent (want 2x fewer)")
+        lines = dict(re.findall(
+            r"^fleet audit \[(\S+)\]: (\d+ objects, \d+ violations)",
+            cli_err, re.M))
+        want = {cid: f"{s['objects']} objects, "
+                     f"{sum(s['totals'].values())} violations"
+                for cid, s in prefix.items()}
+        if lines != want:
+            raise AssertionError(f"canary fleet CLI: {lines} against "
+                                 f"{want}: {cli_err[-2000:]}")
+        fleet["independent_dispatches"] = alone
+        fleet["independent_wall_s"] = got["independent"]["wall_s"]
+        fleet["cpu_prefix_wall_s"] = got["cpu"]["wall_s"]
+        log(f"canary fleet: every cluster equals its independent sweep "
+            f"({alone} dispatches alone against {fleet['dispatches']} "
+            f"packed: {alone / max(1, fleet['dispatches']):.1f}x), the "
+            f"first {CANARY_PREFIX} the --device cpu fleet, and the "
+            f"--fleet-config CLI printed {lines} ({card})")
+    finally:
+        for proc, _err in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(CANARY_DIR, ignore_errors=True)
+    _nothing_installed("canary")
+    if shadow.active() is not None:
+        raise AssertionError("canary: a shadow lane is left installed")
+    record["wall_s"] = time.perf_counter() - t_phase
+    record["launches"] = dict(launches)
+    log(f"canary: {record['wall_s']:.1f}s; fold launches {launches} at "
+        f"(C, N, k) { {k: sorted(v) for k, v in shapes.items()} } ({card})")
+    if device == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"canary: a fold kernel never launched: "
+                             f"{launches}")
+    return launches, {k: dict(v) for k, v in shapes.items()}, record
+
+
 def _stop_resource_tracker() -> None:
     """End the resource tracker that spawning the kube phase's children
     started (it would outlive the script by a moment otherwise); call it
@@ -5746,18 +6446,19 @@ def main() -> int:
     card = device_phase()["card"]
     phase("kernels")
     rows, err = kernel_phase()
-    # the kube phase's CLI boots and audits beside the phases between
-    cli_run = KubeCliRun(min(args.objects, KUBE_OBJECTS))
+    # the kube phase's CLI: started by the hooks phase once its (a) is over
+    cli_runs: list = []
     try:
-        return run_phases(args, card, rows, err, cli_run, t_start, phase)
+        return run_phases(args, card, rows, err, cli_runs, t_start, phase)
     finally:
-        cli_run.stop()
+        for cli_run in cli_runs:
+            cli_run.stop()
         _stop_resource_tracker()
 
 
-def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
+def run_phases(args, card: str, rows, err, cli_runs: list,
                t_start: float, phase) -> int:
-    """Phases 3-18 (see the module docstring)."""
+    """Phases 3-19 (see the module docstring)."""
     phase("path")
     launches, shapes, objects, relist_runs, prefix_summary, _timings = \
         path_phase(args.objects)
@@ -5786,7 +6487,9 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
     gc.collect()
     phase("hooks")
     hook_launches, hook_shapes, hook_record = hooks_phase(
-        objects, card, n_bodies=min(HOOKS_BODIES, args.admissions))
+        objects, card, n_bodies=min(HOOKS_BODIES, args.admissions),
+        after_served=lambda: cli_runs.append(
+            KubeCliRun(min(args.objects, KUBE_OBJECTS))))
     gc.collect()
     phase("kube")
     # (a)'s references: the in-memory dict relist of the apiserver's objects
@@ -5798,12 +6501,16 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
         {c: (run.kept, dict(run.total_violations))
          for c, (run, _p, _dt) in kube_relists.items()},
         {c: (dt, phases) for c, (_run, phases, dt) in kube_relists.items()},
-        life_record, cli_run, card,
+        life_record, cli_runs[0], card,
         n_bodies=min(KUBE_BODIES, args.admissions))
     del kube_relists
     gc.collect()
     phase("gator")
     gator_launches, gator_shapes, gator_record = gator_phase(objects, card)
+    gc.collect()
+    phase("canary")
+    canary_launches, canary_shapes, canary_record = canary_phase(objects,
+                                                                 card)
     gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
@@ -5815,7 +6522,8 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
                    + collections.Counter(life_shapes[name])
                    + collections.Counter(hook_shapes[name])
                    + collections.Counter(kube_shapes[name])
-                   + collections.Counter(gator_shapes[name]))
+                   + collections.Counter(gator_shapes[name])
+                   + collections.Counter(canary_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(objects)
@@ -5836,6 +6544,7 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
     log(f"hooks: {json.dumps(hook_record, default=str)}")
     log(f"kube: {json.dumps(kube_record, default=str)}")
     log(f"gator: {json.dumps(gator_record, default=str)}")
+    log(f"canary: {json.dumps(canary_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -5848,6 +6557,7 @@ def run_phases(args, card: str, rows, err, cli_run: "KubeCliRun",
         row["hooks_launches"] = hook_launches[row["name"]]
         row["kube_launches"] = kube_launches[row["name"]]
         row["gator_launches"] = gator_launches[row["name"]]
+        row["canary_launches"] = canary_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

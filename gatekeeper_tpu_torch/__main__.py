@@ -2,7 +2,7 @@
 beside the audit loop, over manifests or a live apiserver.
 
     python -m gatekeeper_tpu_torch --manifests DIR --once \
-        [--collect reduced|masks] [--device cuda|cpu] \
+        [--collect reduced|masks|differential] [--device cuda|cpu] \
         [--constraint-violations-limit N] [--audit-chunk-size N] \
         [--audit-source relist|snapshot] [--snapshot-residency auto|on|off] \
         [--audit-expand]
@@ -168,7 +168,16 @@ process's registry, ``/debug/overload`` the controller's state and
 answer follows ``--webhook-failure-policy``.  A SIGTERM begins the drain
 (``--shutdown-delay`` more seconds of serving with ``/healthz`` at 503,
 then ``--drain-timeout`` for what the server holds); a second signal
-while draining is ignored.
+while draining is ignored.  ``--shadow-candidate DIR`` (served only) loads
+a candidate library on ``--device`` and installs a ``replay/shadow``
+lane that decides a copy of every served admission against it off the
+response path (``/debug/shadow``; ``--shadow-sink F`` records those
+verdicts; its divergence objective joins the default SLO set).
+
+``--fleet-config ROSTER`` is its own process shape (``fleet/run.py``): N
+clusters' audits behind one runtime per template library, one packed
+pass with ``--once`` or one per ``--audit-interval``; the other
+single-cluster flags do not apply.
 
 A ``Config`` named ``config`` is read for ``spec.sync.syncOnly`` (the
 kinds synced into ``data.inventory``), ``spec.match`` (the per-process
@@ -187,6 +196,18 @@ TEMPLATES_GROUP = "templates.gatekeeper.sh"
 CONSTRAINTS_GROUP = "constraints.gatekeeper.sh"
 CONFIG_GROUP = "config.gatekeeper.sh"
 AUDIT_JOIN_S = 120.0  # drain's wait for an audit pass in flight
+# the interpreter's thread switch interval while serving (Python's default
+# is 5 ms): small webhook batches take the per-review Rego interpreter,
+# which holds the interpreter lock in pure Python, so at 5 ms the
+# connection threads waited whole intervals to read a request or write an
+# answer, and under 64 clients the limiter's queue timed out behind them
+SERVING_SWITCH_INTERVAL_S = 0.001
+# the served CLI's interpreter-lane threshold when --webhook-small-batch is
+# not given: a grid batch costs ~0.2 s of host time plus ~3 ms a review on
+# an H100's host against ~8 ms a review on the interpreter lane, so the
+# lane pays off only past ~50 reviews (the JAX CLI's 8 is a TPU's
+# crossover); below that, medium batches stalled every admission behind them
+WEBHOOK_SMALL_BATCH = 32
 
 
 def load_manifests(paths) -> list:
@@ -222,6 +243,14 @@ def process_excluder(objects):
         if is_config(obj):
             entries = (obj.get("spec") or {}).get("match") or []
     return ProcessExcluder.from_config_match(entries)
+
+
+def webhook_small_batch(args) -> int:
+    """The served webhook's interpreter-lane threshold: the flag, else
+    ``WEBHOOK_SMALL_BATCH``."""
+    if args.webhook_small_batch is None:
+        return WEBHOOK_SMALL_BATCH
+    return args.webhook_small_batch
 
 
 def warm_batcher(client, batcher) -> None:
@@ -377,6 +406,12 @@ def build_mutation(objects, provider_cache=None) -> tuple:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
+    if args.fleet_config:
+        # fleet mode is its own process shape (N clusters' audit planes
+        # behind shared runtimes): the single-cluster wiring does not apply
+        from gatekeeper_tpu_torch.fleet.run import run_fleet
+
+        return run_fleet(args)
     workers = start_workers(p, args, argv)
     try:
         return run(args, workers)
@@ -452,9 +487,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "label (repeatable)")
     p.add_argument("--once", action="store_true",
                    help="run one audit sweep and exit (no server)")
+    p.add_argument("--fleet-config", default="",
+                   help="fleet mode: JSON roster of clusters "
+                        "({'clusters': [{'id': ..., 'manifests': "
+                        "[...]}], 'packChunks': 0}); one process runs "
+                        "every cluster's audit plane behind shared "
+                        "per-library runtimes (a second same-library "
+                        "cluster boots with zero lowering) and packs small "
+                        "clusters' same-group chunks into one dispatch. "
+                        "Honors --compile-cache, --snapshot-spill "
+                        "(per-cluster subdirs), --audit-interval, "
+                        "--audit-chunk-size, --collect, --device, --once")
     p.add_argument("--collect", default="reduced",
-                   choices=("reduced", "masks"),
-                   help="what a sweep chunk brings back from the device")
+                   choices=("reduced", "masks", "differential"),
+                   help="what a sweep chunk brings back from the device: "
+                        "'reduced' folds on the device (fused_fold), "
+                        "'masks' ships the grid's first-k and folds on the "
+                        "host (epilogue), 'differential' runs both per "
+                        "chunk and raises on any difference")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) runs the hand-written kernels and "
                         "the grid evaluator on the card; cpu runs their "
@@ -471,8 +521,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--webhook-small-batch", type=int, default=None,
                    help="admission batches this size or smaller take the "
                         "per-review interpreter lane instead of the "
-                        "device verdict grid (default 8; the lanes agree "
-                        "bit for bit)")
+                        "device verdict grid (default 32, the crossover on "
+                        "an H100's host; the lanes agree bit for bit)")
     p.add_argument("--webhook-failure-policy", default="fail",
                    choices=["ignore", "fail"],
                    help="what a failed review answers: 'ignore' fails open "
@@ -773,6 +823,17 @@ def add_hook_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--flight-recorder-sink-keep", type=int, default=3,
                    help="rotated sink files retained past the live one "
                         "(oldest dropped on rotation)")
+    p.add_argument("--shadow-candidate", action="append", default=[],
+                   help="shadow canary: candidate library file or dir "
+                        "(repeatable). Copies of served admissions are "
+                        "decided against it off the response path "
+                        "(replay/shadow.py); /debug/shadow, the "
+                        "gatekeeper_shadow_* metrics and the "
+                        "shadow-divergence-rate SLO objective carry the "
+                        "promote/abort signal")
+    p.add_argument("--shadow-sink", default="",
+                   help="append shadow verdicts to this JSONL file (the "
+                        "shadow flight-recorder stream)")
     p.add_argument("--flight-recorder-capture", action="store_true",
                    help="capture mode: sink lines additionally carry "
                         "the raw admission request. The in-memory ring "
@@ -800,6 +861,7 @@ class Hooks:
         self.flight_rec = None
         self.degradations = None
         self.slo_engine = None
+        self.shadow = None  # replay/shadow.ShadowLane (--shadow-candidate)
         self.trace_path = ""
 
     def export_trace(self) -> None:
@@ -817,8 +879,14 @@ class Hooks:
     def close(self) -> None:
         from gatekeeper_tpu_torch.observability import (costattr, flightrec,
                                                         tracing)
+        from gatekeeper_tpu_torch.replay import shadow
         from gatekeeper_tpu_torch.resilience import faults, overload
 
+        if self.shadow is not None:
+            shadow.uninstall()
+            self.shadow.stop()
+            if self.shadow.recorder is not None:
+                self.shadow.recorder.close()  # flush the shadow sink
         if self.slo_engine is not None:
             self.slo_engine.stop()
         if self.flight_rec is not None:
@@ -925,6 +993,14 @@ def _install_hooks(args, hooks: Hooks) -> None:
             slo_kw["objectives"] = cfg["objectives"]
             if cfg["tiers"]:
                 slo_kw["tiers"] = cfg["tiers"]
+        elif args.shadow_candidate:
+            # the shadow canary's divergence-rate objective rides the
+            # default set (an explicit --slo-config replaces the defaults
+            # wholesale, the shadow objective included)
+            from gatekeeper_tpu_torch.replay.shadow import SHADOW_OBJECTIVE
+
+            slo_kw["objectives"] = (list(slo.DEFAULT_OBJECTIVES)
+                                    + [SHADOW_OBJECTIVE])
         hooks.slo_engine = slo.SLOEngine(metrics, brownout=hooks.overload,
                                          **slo_kw)
         if args.slo_brownout and hooks.overload is not None:
@@ -1082,6 +1158,8 @@ def _run(args, hooks: Hooks, workers) -> int:
     client, driver = new_client(
         device=args.device, generation_swap=args.generation_swap == "on",
         compile_cache=compile_cache, metrics=metrics)
+    if args.shadow_candidate and not args.once:
+        start_shadow(args, client, hooks)
     cluster, kube_cluster = build_cluster(args, metrics)
     export = ExportSystem()
     if args.export_dir:
@@ -1130,9 +1208,14 @@ def _run(args, hooks: Hooks, workers) -> int:
             rc = audit_once(audit_mgr)
             hooks.export_trace()
             return rc
-        return serve(args, client, ctl, audit_mgr, hooks, driver=driver,
-                     cluster=cluster, kube_cluster=kube_cluster,
-                     workers=workers, warm_cache=warm_cache)
+        switch_s = sys.getswitchinterval()
+        sys.setswitchinterval(SERVING_SWITCH_INTERVAL_S)
+        try:
+            return serve(args, client, ctl, audit_mgr, hooks, driver=driver,
+                         cluster=cluster, kube_cluster=kube_cluster,
+                         workers=workers, warm_cache=warm_cache)
+        finally:
+            sys.setswitchinterval(switch_s)
     finally:
         if driver.gen_coord is not None:
             driver.gen_coord.stop()
@@ -1145,6 +1228,42 @@ def _run(args, hooks: Hooks, workers) -> int:
                 shutdown_flatten_pools
 
             shutdown_flatten_pools()  # the worker processes exit with us
+
+
+def start_shadow(args, client, hooks: Hooks) -> None:
+    """The continuous shadow canary (``replay/shadow.py``): the candidate
+    library loads on ``--device`` through the serving compile cache (a
+    warmed candidate attaches with zero fresh lowerings), and the
+    webhook's per-decision seam feeds the installed lane.  A candidate
+    that fails to load disables the canary, never the server."""
+    from gatekeeper_tpu_torch.gator import reader
+    from gatekeeper_tpu_torch.observability import flightrec
+    from gatekeeper_tpu_torch.replay import core, shadow
+
+    try:
+        docs = reader.read_sources(args.shadow_candidate)
+        runtime = core.load_candidate(
+            docs, compile_cache_dir=args.compile_cache,
+            metrics=hooks.metrics, device=args.device)
+        recorder = None
+        if args.shadow_sink:
+            recorder = flightrec.FlightRecorder(
+                capacity=1024, sink_path=args.shadow_sink)
+        lane = shadow.ShadowLane(
+            runtime, serving_client=client, candidate_docs=docs,
+            recorder=recorder, metrics=hooks.metrics).start()
+        shadow.install(lane)
+        hooks.shadow = lane
+        if hooks.slo_engine is not None:
+            # a divergence-rate breach aborts the canary (the objective
+            # rides the engine whenever the lane is configured)
+            lane.bind_slo(hooks.slo_engine)
+        print(f"shadow canary active: {len(docs)} candidate docs "
+              f"(/debug/shadow"
+              + (", slo auto-abort armed" if hooks.slo_engine is not None
+                 else "") + ")", file=sys.stderr)
+    except Exception as e:
+        print(f"shadow canary disabled: {e}", file=sys.stderr)
 
 
 def build_cluster(args, metrics=None) -> tuple:
@@ -1492,7 +1611,7 @@ def serve(args, client, ctl, audit_mgr, hooks: Hooks, driver=None,
         try:
             namespace_lookup = namespace_lookup_for(cluster, kube_cluster)
             batcher = Batcher(client, stats=args.log_stats_admission,
-                              small_batch=args.webhook_small_batch,
+                              small_batch=webhook_small_batch(args),
                               metrics=metrics).start()
             validation = mutation = None
             if ctl.is_assigned("webhook"):

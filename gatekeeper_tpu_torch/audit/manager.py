@@ -44,7 +44,16 @@ degradation; and exact per-template render cost records.
 Each finished run goes, as in the JAX package, to the export system
 (``export_system=``: audit started, every kept violation, audit ended),
 to the structured log (``log_violations=``) and to an event sink
-(``event_sink=``, called with the run).  Not ported yet: the fleet seams.
+(``event_sink=``, called with the run).
+
+The fleet seams (``fleet/evaluator.py``): ``cluster=`` scopes the manager
+to one cluster of a fleet (a ``{cluster}`` copy of the last-run and
+``tick_h2d_bytes`` gauges, and the brownout yield and the
+``resync_defer`` degradation read for that cluster), ``status_writer=``
+takes the constraint statuses (the runtime's constraint objects are
+shared by its clusters), and ``fold_snapshot_segment`` /
+``snapshot_collect`` fold one cluster's segment of a packed dispatch and
+derive its totals and kept lists.
 """
 
 from __future__ import annotations
@@ -195,8 +204,17 @@ class AuditManager:
         export_system=None,  # export.system.ExportSystem
         event_sink: Optional[Callable] = None,  # run -> None
         log_violations: bool = False,
+        status_writer: Optional[Callable] = None,  # (con, status) -> None
+        cluster: str = "",  # fleet scope: labels the staleness gauges
     ):
         self.client = client
+        # where constraint statuses go: None writes them into the
+        # constraint's own ``status`` (a fleet cluster keeps its own)
+        self.status_writer = status_writer
+        # fleet mode: a non-empty cluster id adds a {cluster}-labelled copy
+        # of the last-run gauges (the per-cluster audit-staleness SLO
+        # objectives age each cluster's audit off one shared registry)
+        self.cluster = cluster
         self.metrics = metrics
         self.export_system = export_system
         self.event_sink = event_sink
@@ -318,12 +336,17 @@ class AuditManager:
                 sp.set_attribute("incomplete", True)
             return run
 
-    def _audit_impl(self) -> AuditRun:
-        t0 = time.time()
-        run = AuditRun(timestamp=_now_rfc3339())
+    def _annotate_run(self, run: AuditRun) -> None:
+        """Stamp the pass's ingest and dispatch geometry onto the run (one
+        device: the port's sweep runs on one card)."""
         run.n_devices = 1 if self.evaluator is not None else 0
         run.flatten_workers = int(
             getattr(self.evaluator, "flatten_workers", 0) or 0)
+
+    def _audit_impl(self) -> AuditRun:
+        t0 = time.time()
+        run = AuditRun(timestamp=_now_rfc3339())
+        self._annotate_run(run)
         constraints = self._audit_constraints()
         if self.export_system is not None:
             self.export_system.publish_audit_started(run.timestamp)
@@ -1019,9 +1042,7 @@ class AuditManager:
     def _audit_snapshot_impl(self, full: bool) -> AuditRun:
         t0 = time.time()
         run = AuditRun(timestamp=_now_rfc3339())
-        run.n_devices = 1 if self.evaluator is not None else 0
-        run.flatten_workers = int(
-            getattr(self.evaluator, "flatten_workers", 0) or 0)
+        self._annotate_run(run)
         constraints = self._audit_constraints()
         if self.export_system is not None:
             self.export_system.publish_audit_started(run.timestamp)
@@ -1059,7 +1080,10 @@ class AuditManager:
             if self.metrics is not None:
                 from gatekeeper_tpu_torch.metrics import registry as M
 
-                self.metrics.set_gauge(M.TICK_H2D_BYTES, float(tick_h2d))
+                labels = {"cluster": self.cluster} if self.cluster \
+                    else None
+                self.metrics.set_gauge(M.TICK_H2D_BYTES, float(tick_h2d),
+                                       labels)
         snap.publish_metrics()
         self._write_statuses(run, constraints)
         self._publish_metrics(run)
@@ -1214,6 +1238,22 @@ class AuditManager:
                 for ckey, results in per_con.items():
                     snap.verdicts.set(ckey, gids[oi], len(results),
                                       tuple(results))
+
+    # --- fleet seam (fleet/evaluator.py) ----------------------------------
+    def fold_snapshot_segment(self, swept, cons_g, gids, objects) -> None:
+        """Fold ONE cluster's segment of a fleet-packed dispatch into this
+        manager's verdict store and mark its rows clean: the packed twin of
+        the per-chunk collect and fold of :meth:`_snapshot_eval`.
+        ``swept`` carries segment-rebased hit rows
+        (``fleet.evaluator._SegmentHits`` in the bits slot), so the fold is
+        the one an unpacked chunk of the same rows takes."""
+        self._fold_snapshot_chunk(swept, cons_g, gids, objects)
+        self.snapshot.mark_clean(gids)
+
+    def snapshot_collect(self, constraints) -> tuple:
+        """(totals, kept) off the verdict store: the fleet scheduler's
+        per-cluster derivation (the path the snapshot tick takes)."""
+        return self._snapshot_collect(constraints)
 
     def _snapshot_collect(self, constraints) -> tuple:
         """(totals, kept) derived from the verdict store: totals sum every
@@ -1662,7 +1702,7 @@ class AuditManager:
         ``audit_yield_release`` (yield_device_lane checks it)."""
         from gatekeeper_tpu_torch.resilience import overload
 
-        waited = overload.yield_device_lane()
+        waited = overload.yield_device_lane(cluster=self.cluster)
         if waited:
             self.perf["brownout_yield_s"] = (
                 self.perf.get("brownout_yield_s", 0.0) + waited)
@@ -1674,7 +1714,8 @@ class AuditManager:
         deferral is counted."""
         from gatekeeper_tpu_torch.resilience import overload
 
-        if not overload.degradation_active(overload.RESYNC_DEFER):
+        if not overload.degradation_active(overload.RESYNC_DEFER,
+                                           self.cluster):
             return False
         if self.metrics is not None:
             from gatekeeper_tpu_torch.metrics import registry as M
@@ -1704,6 +1745,16 @@ class AuditManager:
         self.metrics.set_gauge(M.AUDIT_LAST_RUN_END, now)
         self.metrics.set_gauge(M.AUDIT_LAST_RUN_INCOMPLETE,
                                1.0 if run.incomplete else 0.0)
+        if self.cluster:
+            # fleet: the per-cluster staleness series the cluster-scoped
+            # objectives sample (the unlabelled gauges keep their process-
+            # wide meaning: the last sweep of ANY cluster)
+            lab = {"cluster": self.cluster}
+            self.metrics.set_gauge(M.AUDIT_LAST_RUN,
+                                   now - run.duration_s, lab)
+            self.metrics.set_gauge(M.AUDIT_LAST_RUN_END, now, lab)
+            self.metrics.set_gauge(M.AUDIT_LAST_RUN_INCOMPLETE,
+                                   1.0 if run.incomplete else 0.0, lab)
         if not self.pipe_stats:
             return
         for name, st in self.pipe_stats.get("stages", {}).items():
@@ -1745,7 +1796,10 @@ class AuditManager:
                     for v in run.kept.get(key, [])
                 ],
             }
-            con.raw.setdefault("status", {}).update(status)
+            if self.status_writer is not None:
+                self.status_writer(con, status)
+            else:
+                con.raw.setdefault("status", {}).update(status)
 
     def _finish(self, run: AuditRun):
         if self.export_system is not None:

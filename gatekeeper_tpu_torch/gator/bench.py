@@ -430,10 +430,12 @@ def run_cli(argv: list[str]) -> int:
                         "the server's --flatten-workers); 0 = "
                         "in-process")
     p.add_argument("--collect", default="reduced",
-                   choices=["reduced", "masks"],
+                   choices=["reduced", "masks", "differential"],
                    help="sweep-engine collect lane: device-side verdict "
                         "reduction (reduced — O(kept) device->host "
-                        "bytes) vs the host-fold bit grid (masks)")
+                        "bytes) vs the host-fold bit grid (masks); "
+                        "differential runs both per chunk and raises on "
+                        "any difference")
     p.add_argument("--trace", default="",
                    help="export a Chrome trace-event JSON of the bench "
                         "run's spans to this path (Perfetto-loadable)")

@@ -19,6 +19,16 @@ Collect lanes (``collect=``):
 - ``masks``: the host-fold reference lane.  ``ops/fold.epilogue`` yields
   per-constraint first-k + totals (``[idx(k) | valid(k) | count]``), and
   exact-totals chunks also ship the bit-packed grid.
+- ``differential``: every chunk goes through BOTH lanes, in one hold of
+  the dispatch lock, so a budgeted chunk runs both fold kernels; the
+  collect raises ``RuntimeError("collect differential: ...")`` on the
+  first difference in totals, in the hit rows of exact-totals chunks, in
+  the kept selection under the chunk's budget, or between the device
+  ``occ`` and the host mask sums.  ``perf`` counts
+  ``differential_chunks`` per chunk dispatched through both lanes,
+  ``collect_differential_ok`` per chunk held and
+  ``collect_differential_fallbacks`` where the reduced side overflowed
+  into its masks-lane re-dispatch (two masks folds are then compared).
 
 Sweep inputs: a chunk of listed objects (``sweep_flatten``), rows of the
 resident snapshot's host columns (``sweep_flatten_from_batch``), or rows
@@ -52,8 +62,8 @@ wall to templates by mask occupancy: the masks lane by the host masks'
 sums, the reduced lane by the ``occ`` half of the fused fold's packed word,
 read from the host copy the collect already fetched (no extra transfer).
 
-Not ported here: multi-device meshes, the stats branch of
-``pack_transfer_cols`` (wire narrowing), the differential collect lane.
+Not ported here: multi-device meshes and the stats branch of
+``pack_transfer_cols`` (wire narrowing).
 """
 
 from __future__ import annotations
@@ -81,7 +91,7 @@ from gatekeeper_tpu_torch.ops.flatten import (Flattener, Schema,
 from gatekeeper_tpu_torch.resilience.faults import fault_point
 
 
-COLLECT_LANES = ("reduced", "masks")
+COLLECT_LANES = ("reduced", "masks", "differential")
 
 # budgeted-lane hit-buffer steps: 0 for drained-budget chunks, three small
 # steps for the steady-state trickle, then the full per-chunk capacity
@@ -267,12 +277,12 @@ def pack_transfer_cols(cols: dict, pad_n: int,
     columns narrow to int32/float32 in the copy, as ``torch_dtype``
     maps them); else each buffer is a new array of the columns' dtype.
     ``stats`` selects the wire-narrowing branch, which is not ported
-    (ROADMAP queue 1 item 6): it raises."""
+    (ROADMAP queue 1 item 14): it raises."""
     if stats is not None:
         raise NotImplementedError(
             "pack_transfer_cols: the stats branch (wire narrowing, constant "
             "elision, dictionary remap) is not ported (ROADMAP queue 1 "
-            "item 6)")
+            "item 14)")
     parts: dict = {}
     widths: dict = {}
     layout: list = []
@@ -360,7 +370,8 @@ class _PendingSweep:
     __slots__ = ("result", "kinds", "offsets", "by_kind", "n",
                  "return_bits", "lane", "pad_n", "hit_cap", "flat",
                  "event", "host", "staging", "dispatch_wall",
-                 "attr_weights", "attr_rows")
+                 "attr_weights", "attr_rows", "ref", "host_occ",
+                 "budget_np")
 
     def __init__(self, result, kinds, offsets, by_kind, n, return_bits,
                  lane="masks", pad_n=0, hit_cap=0, flat=None):
@@ -390,10 +401,18 @@ class _PendingSweep:
         self.dispatch_wall = 0.0
         self.attr_weights = None
         self.attr_rows = None
+        # differential lane: the masks-lane dispatch of the same chunk, the
+        # host's per-constraint mask occupancy (int32 [C], grid order) that
+        # the device ``occ`` is held against, and the kept budget the
+        # reduced selection was clipped to (None = complete)
+        self.ref = None
+        self.host_occ = None
+        self.budget_np = None
 
     def ready(self) -> bool:
         """True when the device result needs no further wait."""
-        return self.event is None or self.event.query()
+        return (self.event is None or self.event.query()) and (
+            self.ref is None or self.ref.ready())
 
 
 class _FlatChunk:
@@ -495,6 +514,9 @@ class SweepEvaluator:
         # uploads none of them
         self._param_dev_cache: dict = {}
         self._bucket = 2
+        # device dispatches made (each lane of a differential chunk and
+        # each overflow re-dispatch counts one), as the JAX evaluator's
+        self.dispatch_count = 0
         # per-phase wall-clock totals (seconds) and byte counts
         self.perf: dict = {}
         self._perf_lock = threading.Lock()
@@ -712,10 +734,14 @@ class SweepEvaluator:
         device gather + the device program.  {} passes through."""
         if not isinstance(flat, (_FlatChunk, _ResidentChunk)):
             return flat if isinstance(flat, dict) else {}
+        lane = self.collect
         t0 = time.perf_counter()
         with tracing.span("device.sweep_dispatch", n=flat.n,
-                          kinds=len(flat.kinds), collect=self.collect):
-            pending = self._sweep_dispatch_impl(flat, lane=self.collect)
+                          kinds=len(flat.kinds), collect=lane):
+            if lane == "differential":
+                pending = self._dispatch_differential(flat)
+            else:
+                pending = self._sweep_dispatch_impl(flat, lane=lane)
         wall = time.perf_counter() - t0
         pending.dispatch_wall = wall
         attr = costattr.active()
@@ -727,6 +753,29 @@ class SweepEvaluator:
             attr.attribute(wall, pending.attr_weights,
                            costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
                            rows=pending.attr_rows)
+        return pending
+
+    def _dispatch_differential(self, flat):
+        """Both lanes of one chunk in ONE hold of the dispatch lock: the
+        reduced lane with the host's mask occupancy, then (unless the
+        reduced plan already pinned the chunk to masks) the masks lane as
+        ``pending.ref``.  The ``device.dispatch`` fault site is taken
+        once per dispatch, as the JAX package takes it, but both times
+        before the lock, so a ``hang`` never holds it."""
+        site = "sweep_resident" if isinstance(flat, _ResidentChunk) \
+            else "sweep"
+        pinned = bool(flat.return_bits) and \
+            self._hit_state_for(flat.kinds, flat.pad_n)["pinned"]
+        for _ in range(1 if pinned else 2):
+            fault_point("device.dispatch", lane=site, n=flat.n)
+        with self._dispatch_lock:
+            pending = self._sweep_dispatch_impl(flat, lane="reduced",
+                                                host_occ=True, fault=False)
+            if pending.lane == "reduced":
+                pending.ref = self._sweep_dispatch_impl(
+                    flat, lane="masks", fault=False)
+                pending.lane = "differential"
+                self._perf_add("differential_chunks", 1.0)
         return pending
 
     def warm_state(self) -> dict:
@@ -851,14 +900,23 @@ class SweepEvaluator:
         mask = unpackbits(dev[head:].view(bits.shape), pad_n)
         return mask, budget
 
-    def _sweep_dispatch_impl(self, flat, lane: str = "masks"):
+    def _sweep_dispatch_impl(self, flat, lane: str = "masks",
+                             host_occ: bool = False, fault: bool = True):
+        """One chunk through one collect lane.  ``host_occ`` stores the
+        host's per-constraint mask occupancy on the pending chunk (the
+        differential lane's reference for the device ``occ``); ``fault``
+        False when the caller already took the fault site."""
         if isinstance(flat, _ResidentChunk):
             # the reduced collect's masks-lane overflow fallback re-enters
             # here too
-            return self._dispatch_resident_impl(flat, lane=lane)
-        # before the lock: a hung dispatch must not hold it
-        fault_point("device.dispatch", lane="sweep", n=flat.n)
+            return self._dispatch_resident_impl(flat, lane=lane,
+                                                host_occ=host_occ,
+                                                fault=fault)
+        if fault:
+            # before the lock: a hung dispatch must not hold it
+            fault_point("device.dispatch", lane="sweep", n=flat.n)
         with self._dispatch_lock:
+            self.dispatch_count += 1
             kinds = flat.kinds
             pad_n = flat.pad_n
             progs = flat.programs if flat.programs is not None \
@@ -895,6 +953,10 @@ class SweepEvaluator:
                              for i, kind in enumerate(kinds)], dim=0)
             pending = self._fold(flat, raw, mask, plan, budget, offsets)
             pending.staging = keep
+            if host_occ:
+                pending.host_occ = np.concatenate(
+                    [m.sum(axis=1, dtype=np.int64) for m in mask_rows]
+                ).astype(np.int32)
             if attr_rows is not None:
                 pending.attr_rows = attr_rows
                 pending.attr_weights = {k: 1.0 + r
@@ -902,7 +964,8 @@ class SweepEvaluator:
             self._perf_add("dispatch", time.perf_counter() - t0)
             return pending
 
-    def _dispatch_resident_impl(self, flat, lane: str = "masks"):
+    def _dispatch_resident_impl(self, flat, lane: str = "masks",
+                                host_occ: bool = False, fault: bool = True):
         """Resident twin of :meth:`_sweep_dispatch_impl`: no host masks
         (they live in the resident mirror), no column pack, no column
         upload.  What may still cross to the device is the parameter
@@ -910,9 +973,13 @@ class SweepEvaluator:
         cache), the gather index vector (cached per position tuple) and,
         on the budgeted reduced lane, the budget; each byte lands in
         ``perf["resident_h2d_bytes"]``, so a warm pass over unchanged rows
-        reads 0."""
-        fault_point("device.dispatch", lane="sweep_resident", n=flat.n)
+        reads 0.  ``host_occ``: the HOST mirror's occupancy over the
+        chunk's rows, which the differential lane holds the device ``occ``
+        against (so a resident mask that drifted from its mirror shows)."""
+        if fault:
+            fault_point("device.dispatch", lane="sweep_resident", n=flat.n)
         with self._dispatch_lock:
+            self.dispatch_count += 1
             rg = flat.rg
             kinds = flat.kinds
             pad_n = flat.pad_n
@@ -940,6 +1007,10 @@ class SweepEvaluator:
             raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
                              for i, kind in enumerate(kinds)], dim=0)
             pending = self._fold(flat, raw, mask, plan, budget, offsets)
+            if host_occ:
+                pos = np.asarray(flat.positions, np.intp)
+                pending.host_occ = rg.mask_host[:, pos].sum(
+                    axis=1, dtype=np.int64).astype(np.int32)
             self._perf_add("dispatch", time.perf_counter() - t0)
             return pending
 
@@ -1032,6 +1103,7 @@ class SweepEvaluator:
                                     return_bits, lane="reduced",
                                     pad_n=pad_n, hit_cap=hit_cap,
                                     flat=flat)
+            pending.budget_np = _budget_np
         else:
             grid = raw & mask
             idx, valid, counts = fold.epilogue(grid, k)
@@ -1123,6 +1195,8 @@ class SweepEvaluator:
         if isinstance(pending, dict):  # empty submit
             return pending
         with tracing.span("device.sweep_collect", n=pending.n):
+            if pending.lane == "differential":
+                return self._collect_differential(pending)
             if pending.lane == "reduced":
                 return self._collect_reduced(pending)
             return self._collect_masks(pending)
@@ -1167,11 +1241,13 @@ class SweepEvaluator:
             valid[ci[ok], j[ok]] = True
         return idx, valid
 
-    def _collect_reduced(self, pending):
+    def _collect_reduced(self, pending, _aux: bool = False):
         """Unpack one device-reduced chunk result; occupancy-weighted cost
         attribution from the fused fold's ``occ``; masks-lane fallback when
         the hit buffer overflowed, adaptive buffer sizing for the chunks
-        after it."""
+        after it.  ``_aux`` (the differential lane) returns ``(out, occ)``
+        with the device occupancy per constraint, or ``(out, None)`` after
+        an overflow fallback."""
         t0 = time.perf_counter()
         arr = self._fetch(pending)[0]
         self._perf_add("d2h_bytes", arr.nbytes)
@@ -1217,7 +1293,8 @@ class SweepEvaluator:
                 attr.attribute(pending.dispatch_wall, fb.attr_weights,
                                costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
                                rows=fb.attr_rows)
-            return self._collect_masks(fb)
+            out = self._collect_masks(fb)
+            return (out, None) if _aux else out
         if complete and not st["pinned"]:
             # de-escalate a buffer the corpus stopped filling (16-chunk
             # hysteresis)
@@ -1253,7 +1330,65 @@ class SweepEvaluator:
                            rows=rows)
         pending.flat = None
         self._perf_add("collect", time.perf_counter() - t0)
-        return out
+        return (out, occ_all) if _aux else out
+
+    def _collect_differential(self, pending):
+        """``collect="differential"``: the reduced result must equal the
+        masks lane's host fold bit for bit — totals, the hit rows of
+        exact-totals chunks, the kept selection (the first min(count,
+        budget, k) hits) and the device occupancy against the host mask
+        sums.  Raises ``RuntimeError`` on the first difference; returns the
+        masks lane's result."""
+        ref = self._collect_masks(pending.ref)
+        out, occ = self._collect_reduced(pending, _aux=True)
+        if occ is None:
+            # the reduced side overflowed and re-dispatched through the
+            # masks lane: two masks folds are compared (still a check of
+            # the dispatch's determinism)
+            self._perf_add("collect_differential_fallbacks", 1.0)
+        elif pending.host_occ is not None and \
+                not np.array_equal(occ, pending.host_occ):
+            raise RuntimeError(
+                "collect differential: device occupancy != host mask "
+                f"occupancy ({occ.tolist()[:8]} vs "
+                f"{pending.host_occ.tolist()[:8]})")
+        n = pending.n
+        for kind, (cons, idx_m, valid_m, counts_m, bits_m) in ref.items():
+            _cons_r, idx_r, valid_r, counts_r, kb_r = out[kind]
+            if not np.array_equal(np.asarray(counts_m),
+                                  np.asarray(counts_r)):
+                raise RuntimeError(
+                    f"collect differential: totals differ for {kind}")
+            for ci in range(len(cons)):
+                if bits_m is not None:
+                    ref_rows = violation_rows(bits_m, ci, n)
+                    if kb_r is not None and not np.array_equal(
+                            ref_rows, violation_rows(kb_r, ci, n)):
+                        raise RuntimeError(
+                            "collect differential: hit rows differ for "
+                            f"{kind}[{ci}]")
+                else:
+                    ref_rows = np.asarray(idx_m[ci])[
+                        np.asarray(valid_m[ci])]
+                # the reduced lane keeps the FIRST min(count, budget, k)
+                # canonical hits; the masks selection clipped alike must
+                # agree exactly
+                want = int(np.asarray(counts_m)[ci])
+                bud = pending.budget_np
+                if bud is not None:
+                    lo = pending.offsets[kind][0]
+                    want = min(want, int(bud[lo + ci]))
+                want = min(want, idx_r.shape[1])
+                kept_ref = np.sort(ref_rows[:want]) if want else \
+                    np.zeros(0, np.int64)
+                kept_red = np.sort(idx_r[ci][valid_r[ci]])
+                if not np.array_equal(kept_ref,
+                                      kept_red.astype(np.int64)):
+                    raise RuntimeError(
+                        "collect differential: kept selection differs "
+                        f"for {kind}[{ci}]")
+        self._perf_add("collect_differential_ok", 1.0)
+        return ref
 
     def _pad(self, n: int) -> int:
         p = 8

@@ -399,6 +399,17 @@ class DegradationRegistry:
             pass
 
 
+class _Waiter:
+    """One request in the FIFO admission queue: ``granted`` once a
+    release has acquired a limiter slot for it, then ``event`` is set."""
+
+    __slots__ = ("event", "granted")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.granted = False
+
+
 class OverloadController:
     """The admission gate: limiter slot or bounded cost-aware queue or
     shed.  ``admit(cost)`` is the single seam the webhook wraps its
@@ -417,8 +428,8 @@ class OverloadController:
         self._cv = threading.Condition()
         self._queue_len = 0
         self._queue_cost = 0.0
-        # the FIFO queue's waiters, oldest first: one Event each, set when
-        # a slot may be free for the head (see _queue_for_slot)
+        # the FIFO queue's waiters, oldest first: a release hands its slot
+        # to the head and sets its Event (see _queue_for_slot)
         from collections import deque as _deque
 
         self._waiters = _deque()
@@ -531,8 +542,8 @@ class OverloadController:
                     self._dispatch_locked()
                     self._pressure_locked()
                     self._cv.notify_all()
-                elif self._waiters:
-                    self._waiters[0].set()  # the head takes the slot
+                else:
+                    self._grant_waiters_locked()
 
     # --- QoS path (resilience/qos.py) ------------------------------------
     def route(self, review_body: dict) -> tuple:
@@ -681,11 +692,13 @@ class OverloadController:
         return c.queue_depth, c.queue_cost
 
     def _queue_for_slot(self, cost: float) -> None:
-        """Wait in the FIFO queue for a limiter slot, or shed.  Only the
-        head acquires; a release (or the head leaving) sets the head's
-        event, so waiters neither poll nor race later arrivals for a
-        freed slot (the JAX package's queue lets an arrival take a freed
-        slot first, starving queued waiters into ``queue_timeout``)."""
+        """Wait in the FIFO queue for a limiter slot, or shed.  A release
+        acquires the freed slot for the head waiter and wakes it, so
+        waiters neither poll nor race later arrivals for a freed slot (the
+        JAX package's queue lets an arrival take a freed slot first,
+        starving queued waiters into ``queue_timeout``), and a burst of
+        releases grants as many waiters at once rather than one wake-up
+        after another."""
         c = self.config
         q_depth, q_cost = self._queue_bounds()
         with self._cv:
@@ -698,28 +711,34 @@ class OverloadController:
             self._queue_len += 1
             self._queue_cost += cost
             self._pressure_locked()
-            waiter = threading.Event()
+            waiter = _Waiter()
             self._waiters.append(waiter)
             end = self._clock() + max(0.0, c.queue_timeout_s)
+            self._grant_waiters_locked()  # a slot freed before we queued
         try:
             while True:
                 with self._cv:
-                    if self._waiters[0] is waiter and \
-                            self.limiter.try_acquire():
+                    if waiter.granted:
                         return
                     remaining = end - self._clock()
                     if remaining <= 0:
+                        self._waiters.remove(waiter)
                         self._shed_locked("queue_timeout")
-                    waiter.clear()
-                waiter.wait(remaining)
+                waiter.event.wait(remaining)
         finally:
             with self._cv:
-                self._waiters.remove(waiter)
                 self._queue_len -= 1
                 self._queue_cost -= cost
                 self._pressure_locked()
-                if self._waiters:
-                    self._waiters[0].set()  # the next head's turn
+
+    def _grant_waiters_locked(self) -> None:
+        """Hand free limiter slots to the FIFO queue's oldest waiters
+        (call under ``_cv``): each granted waiter owns its slot before it
+        wakes."""
+        while self._waiters and self.limiter.try_acquire():
+            waiter = self._waiters.popleft()
+            waiter.granted = True
+            waiter.event.set()
 
     def _shed_locked(self, reason: str, tenant: str = "",
                      priority: str = "") -> None:

@@ -22,8 +22,10 @@ degradation of namespace lookups.  The handler also takes the JAX
 package's seams: the resident snapshot's warm namespace lookup
 (``snapshot=``), ``fail_open=``, per-request stats (``log_stats=``), an
 admission event sink (``event_sink=``) and the Config's validation traces
-(``trace_config=``).  Not ported yet: the shadow lane and the fleet
-cluster label.
+(``trace_config=``), the fleet serving scope (``cluster=``: a
+``{cluster}`` label on the request metrics, the decisions and the tenant
+key) and the shadow canary seam (every served answer, once final, is
+handed to the active ``replay/shadow.ShadowLane``, enqueue only).
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ class ValidationHandler:
         deadline_budget_s: float = 0.0,  # hard per-request wall budget
         overload=None,  # resilience.overload.OverloadController
         event_sink=None,  # (req, results) -> None, per reviewed request
+        cluster: str = "",  # fleet serving scope (labels SLIs/decisions)
         fail_open: bool = False,
         trace_config=None,  # callable -> list of Config trace entries
         log_stats: bool = False,  # --log-stats-admission
@@ -142,6 +145,10 @@ class ValidationHandler:
         self._ns_stale: dict = {}
         self._kind_est: dict = {}
         self._kind_est_total = -1
+        # fleet mode: a non-empty cluster id labels the latency histogram,
+        # the status counters and the decisions with {cluster}; "" keeps
+        # the single-cluster series unlabelled
+        self.cluster = cluster
 
     # --- the handler (reference: validationHandler.Handle, policy.go:139) -
     def handle(self, review_body: dict,
@@ -176,7 +183,23 @@ class ValidationHandler:
         self._record_decision(review_body, resp, cost,
                               tenant=tenant, lane=lane)
         self._attr_tenant(tenant, time.perf_counter() - t0, cost)
+        self._shadow_submit(review_body, resp)
         return resp
+
+    def _shadow_submit(self, review_body: dict, resp) -> None:
+        """Shadow-canary seam (``replay/shadow.py``): hand the admission to
+        the active shadow lane, enqueue only.  The served response is
+        already final — the lane must never delay, alter or answer for
+        it, so any failure here is swallowed."""
+        from gatekeeper_tpu_torch.replay import shadow as _shadow
+
+        lane = _shadow.active()
+        if lane is None:
+            return
+        try:
+            lane.submit(review_body, resp)
+        except Exception:
+            pass
 
     def _route(self, review_body: dict) -> tuple:
         """(tenant, PriorityLevel-or-None) for this request: the QoS
@@ -193,7 +216,8 @@ class ValidationHandler:
 
         if flightrec.active() is None and costattr.active() is None:
             return "", None  # nobody consumes the axis: skip the lookup
-        return tenant_of_request(review_body.get("request") or {}), None
+        return tenant_of_request(review_body.get("request") or {},
+                                 cluster=self.cluster), None
 
     def _attr_tenant(self, tenant: str, seconds: float,
                      cost: float) -> None:
@@ -244,6 +268,7 @@ class ValidationHandler:
             code=resp.code if not resp.allowed else 0,
             overload=self.overload,
             tenant=tenant,
+            cluster=self.cluster,
             priority=getattr(lane, "name", "") or "",
             # capture mode: the raw admission request rides the JSONL
             # sink line (never the ring)
@@ -257,7 +282,8 @@ class ValidationHandler:
 
         status = "error"  # count even when _handle itself raises
         try:
-            with self.metrics.timed(m.REQUEST_DURATION):
+            with self.metrics.timed(m.REQUEST_DURATION,
+                                    self._cluster_labels()):
                 resp = self._guarded(review_body)
             if not resp.allowed and resp.code == 500:
                 status = "error"  # internal error surfaced as Errored deny
@@ -265,8 +291,18 @@ class ValidationHandler:
                 status = "allow" if resp.allowed else "deny"
             return resp
         finally:
-            self.metrics.inc_counter(m.REQUEST_COUNT,
-                                     {"admission_status": status})
+            self.metrics.inc_counter(
+                m.REQUEST_COUNT,
+                self._cluster_labels({"admission_status": status}))
+
+    def _cluster_labels(self, base: Optional[dict] = None):
+        """Metric labels with the fleet cluster axis when configured; the
+        single-cluster shape (no cluster label) is unchanged."""
+        if not self.cluster:
+            return base
+        out = dict(base or {})
+        out["cluster"] = self.cluster
+        return out
 
     # --- overload plumbing ------------------------------------------------
     def _constraint_estimate(self, kind: str) -> int:
@@ -308,8 +344,9 @@ class ValidationHandler:
         if self.metrics is not None:
             from gatekeeper_tpu_torch.metrics import registry as m
 
-            self.metrics.inc_counter(m.REQUEST_COUNT,
-                                     {"admission_status": "shed"})
+            self.metrics.inc_counter(
+                m.REQUEST_COUNT,
+                self._cluster_labels({"admission_status": "shed"}))
         log_event("warning", "admission request shed under overload",
                   event_type="overload_shed_resolved",
                   shed_reason=shed.reason,
@@ -496,7 +533,7 @@ class ValidationHandler:
 
         degraded = (self.overload is not None
                     and self.overload.brownout_level() >= 1) or \
-            _ovl.degradation_active(_ovl.NS_CACHE_STALE)
+            _ovl.degradation_active(_ovl.NS_CACHE_STALE, self.cluster)
         if degraded and name in self._ns_stale:
             if self.metrics is not None:
                 from gatekeeper_tpu_torch.metrics import registry as m

@@ -16,13 +16,13 @@ and the kernel spreads connections over them.
 Beside them the observability surface: ``/metrics`` (Prometheus text, or
 OpenMetrics with exemplars when the scraper asks), ``/debug/profile``
 (with ``enable_profile``), ``/debug/traces``, ``/debug/cost``,
-``/debug/slo``, ``/debug/decisions`` and ``/debug/overload``; each answers
-404 until its piece is enabled.  Every POST runs under a
+``/debug/slo``, ``/debug/decisions``, ``/debug/overload`` and
+``/debug/shadow`` (the shadow canary: GET its counters, POST
+``{"action": "promote"|"abort"}``); each answers 404 until its piece is
+enabled.  Every POST runs under a
 ``webhook.request`` span that takes in and echoes a W3C ``traceparent``,
 with the ``webhook.request`` fault site inside it.  A shed answer under
 failurePolicy=Fail carries ``Retry-After``.
-
-Not ported yet: ``/debug/shadow`` (the shadow lane).
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ COST_PATH = "/debug/cost"
 SLO_PATH = "/debug/slo"
 DECISIONS_PATH = "/debug/decisions"
 OVERLOAD_PATH = "/debug/overload"
+SHADOW_PATH = "/debug/shadow"
 MAX_BODY_BYTES = 64 * 1024 * 1024  # the apiserver's admission payload bound
 
 
@@ -211,6 +212,19 @@ class WebhookServer:
                                                    "on)"})
                     else:
                         self._reply(200, ctl.snapshot())
+                elif self.path == SHADOW_PATH:
+                    # the shadow canary lane: candidate-against-serving
+                    # divergence counters, recent divergent rows, the
+                    # promote/abort state (POST to act)
+                    from gatekeeper_tpu_torch.replay import shadow as _shadow
+
+                    lane = _shadow.active()
+                    if lane is None:
+                        self._reply(404, {"error": "shadow lane not "
+                                                   "enabled (run with "
+                                                   "--shadow-candidate)"})
+                    else:
+                        self._reply(200, lane.snapshot())
                 elif self.path.startswith(DECISIONS_PATH):
                     # the flight recorder: every decision in the ring, or
                     # one uid's history (?uid=)
@@ -336,6 +350,8 @@ class WebhookServer:
                             self._mutate(body, uid, cost_hint=length)
                         elif self.path == ADMIT_LABEL_PATH:
                             self._admit_label(body, uid)
+                        elif self.path == SHADOW_PATH:
+                            self._shadow_action(body)
                         else:
                             self._reply(404, {"error": "not found"})
                 except Exception as e:
@@ -380,6 +396,28 @@ class WebhookServer:
                 r = h.handle(body)
                 self._reply(200, admission_response(
                     r.uid or uid, r.allowed, r.message, r.code))
+
+            def _shadow_action(self, body):
+                # POST /debug/shadow {"action": "promote"|"abort"}: promote
+                # applies the candidate docs to the serving client (the
+                # generation-swap ride); abort stops shadowing
+                from gatekeeper_tpu_torch.replay import shadow as _shadow
+
+                lane = _shadow.active()
+                if lane is None:
+                    self._reply(404, {"error": "shadow lane not enabled "
+                                               "(run with "
+                                               "--shadow-candidate)"})
+                    return
+                action = (body or {}).get("action", "")
+                if action == "promote":
+                    self._reply(200, lane.promote())
+                elif action == "abort":
+                    self._reply(200, lane.abort(
+                        reason=(body or {}).get("reason", "")))
+                else:
+                    self._reply(400, {"error": "action must be "
+                                               "promote|abort"})
 
             def _reply(self, status: int, payload: dict,
                        close: bool = False, headers: Optional[dict] = None):

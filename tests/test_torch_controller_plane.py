@@ -746,9 +746,8 @@ def test_webhook_certs_and_rotation(tmp_path):
 
 
 # the JAX CLI's flags the port leaves to later slices (ROADMAP queue 1)
-QUEUED_FLAGS = {"--coordinator", "--evaluate-sidecar", "--fleet-config",
-                "--num-processes", "--process-id", "--shadow-candidate",
-                "--shadow-sink", "--shard-chunks"}
+QUEUED_FLAGS = {"--coordinator", "--evaluate-sidecar", "--num-processes",
+                "--process-id", "--shard-chunks"}
 SLICE_ARGV = [
     "--kubeconfig", "k.yaml", "--management-manifests", "mgmt",
     "--readiness-retries", "3", "--export-dir", "exp",

@@ -540,3 +540,34 @@ def test_cli_parses_hook_flags_like_jax(monkeypatch, argv):
     jax = _jax_args(monkeypatch, argv)
     for dest in HOOK_DESTS:
         assert getattr(port, dest) == getattr(jax, dest), dest
+
+
+def test_cli_serves_under_a_short_switch_interval(monkeypatch):
+    """While the CLI serves, the interpreter switches threads every
+    ``SERVING_SWITCH_INTERVAL_S``; the caller's interval is back after."""
+    import sys
+
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+
+    seen = []
+    monkeypatch.setattr(
+        cli, "serve",
+        lambda *a, **k: seen.append(sys.getswitchinterval()) or 0)
+    before = sys.getswitchinterval()
+    args = cli.build_parser().parse_args(
+        ["--manifests", library_dir(), "--port", "0", "--device", "cpu"])
+    assert cli.run(args) == 0
+    assert seen == [cli.SERVING_SWITCH_INTERVAL_S]
+    assert sys.getswitchinterval() == before
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], cli.WEBHOOK_SMALL_BATCH), (["--webhook-small-batch", "8"], 8),
+    (["--webhook-small-batch", "0"], 0)])
+def test_cli_interpreter_lane_threshold(argv, want):
+    """The served webhook's interpreter lane takes batches up to the
+    port's crossover unless ``--webhook-small-batch`` says otherwise; the
+    flag parses to the JAX CLI's ``None`` when absent."""
+    args = cli.build_parser().parse_args(argv)
+    assert cli.webhook_small_batch(args) == want
+    assert cli.WEBHOOK_SMALL_BATCH == 32

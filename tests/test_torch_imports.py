@@ -1,5 +1,6 @@
-"""The port stands alone: no module of gatekeeper_tpu_torch/ and not
-chip_smoke.py imports ``jax`` or anything of the JAX package
+"""The port stands alone: no module of gatekeeper_tpu_torch/, not
+chip_smoke.py and no ``tools/torch_*.py`` (the port's own tools, such as
+``tools/torch_soak.py``) imports ``jax`` or anything of the JAX package
 (``gatekeeper_tpu``), at module level or inside a function.  The port's
 entry points run on the card unless the caller asks for the CPU."""
 
@@ -17,6 +18,7 @@ def _port_files():
     files = sorted(glob.glob(os.path.join(ROOT, "gatekeeper_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    files += sorted(glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
     return [os.path.relpath(f, ROOT) for f in files]
 
 

@@ -7,8 +7,8 @@ lints only the JAX package):
   for name and value for value;
 - every registry constant the port emits is one the JAX package emits,
   and the port emits every one the JAX package emits outside the modules
-  it has not ported (``fleet/``, ``fuzz/``, ``rpc/`` and
-  ``replay/shadow.py``, the webhook's shadow lane);
+  it has not ported (``rpc/``) — the fleet's ``FLEET_*``, the shadow
+  lane's ``SHADOW_*`` and the soak's ``FUZZ_*`` included;
 - the same holds for the names of tracing spans."""
 
 import ast
@@ -20,8 +20,8 @@ ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 NOT_PORTED_SITES: set = set()
 # JAX package directories and files with no port yet: their sites, metrics
 # and spans are not expected of the port
-NOT_PORTED_DIRS = ("fleet", "fuzz", "rpc")
-NOT_PORTED_FILES = (os.path.join("replay", "shadow.py"),)
+NOT_PORTED_DIRS = ("rpc",)
+NOT_PORTED_FILES = ()
 
 _SITE = re.compile(r"""fault_point\(\s*f?["']([^"']+)["']""")
 # a registry constant read through the module alias: M.NAME / m.NAME
@@ -104,7 +104,9 @@ def test_the_port_emits_every_metric_of_its_ported_modules():
             "EXTDATA_BULK_CALLS", "RESIDENCY_EVICTIONS",
             "SNAPSHOT_RESIDENT_BYTES", "REPLAY_RECORDS",
             "REPLAY_DIVERGENCE", "REPLAY_SECONDS"} <= port
-    assert not {n for n in port if n.startswith("SHADOW_")}
+    for prefix in ("FLEET_", "SHADOW_", "FUZZ_"):
+        want = {n for n in jax if n.startswith(prefix)}
+        assert want and want <= port, prefix
 
 
 _SPAN = re.compile(r"""\bspan\(\s*f?["']([^"']+)["']""")
@@ -124,4 +126,6 @@ def test_the_port_opens_every_span_of_its_ported_modules():
     assert {"kube.request", "snapshot.pump", "snapshot.spill",
             "compile.generation", "extdata.join",
             "pipeline.stage.{stage.name}", "replay.run", "replay.chunk",
-            "gator.bench.pass"} <= port
+            "gator.bench.pass", "fleet.sweep", "fleet.pack",
+            "replay.shadow_flush", "soak.run", "soak.drive",
+            "soak.audit_tick"} <= port

@@ -355,3 +355,47 @@ def test_freed_slot_goes_to_the_oldest_waiter():
     t.join(10)
     assert order == ["queued first", "arrived later"]
     assert ctl.shed_count == 0 and ctl.snapshot()["queue_depth"] == 0
+
+
+
+def test_a_burst_of_releases_grants_as_many_waiters_at_once():
+    """A release acquires its slot for the queue's head before the waiter
+    wakes: two releases in a row hand both slots to the two oldest
+    waiters, and an arrival after them still queues."""
+    ctl = tovl.OverloadController(tovl.OverloadConfig(
+        min_inflight=2, max_inflight=2, initial_inflight=2, queue_depth=8,
+        queue_timeout_s=10.0))
+    holders = [ctl.admit(1.0) for _ in range(2)]
+    for h in holders:
+        h.__enter__()
+    go = threading.Event()
+    served: list = []
+
+    def waiter(i):
+        with ctl.admit(1.0):
+            served.append(i)
+            go.wait(10)
+
+    threads = [threading.Thread(target=waiter, args=(i,)) for i in range(3)]
+    for n, t in enumerate(threads, 1):
+        t.start()
+        for _ in range(500):
+            if ctl.snapshot()["queue_depth"] == n:
+                break
+            threading.Event().wait(0.01)
+    assert ctl.snapshot()["queue_depth"] == 3
+    with ctl._cv:  # no waiter can run until both releases are done
+        for h in holders:
+            h.__exit__(None, None, None)
+        granted = [w.granted for w in ctl._waiters]
+        assert ctl.limiter.inflight == 2 and granted == [False]
+    for _ in range(500):  # the two granted waiters wake in either order
+        if len(served) == 2:
+            break
+        threading.Event().wait(0.01)
+    assert sorted(served) == [0, 1]
+    go.set()
+    for t in threads:
+        t.join(10)
+    assert served[2] == 2
+    assert ctl.shed_count == 0 and ctl.limiter.inflight == 0

@@ -551,7 +551,7 @@ def test_pack_transfer_cols_layout_and_aliases(walk):
                 aliased += 1
             else:
                 assert got.data_ptr() >= tbufs[wdt].data_ptr()  # a view
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
             pack_transfer_cols(cols, 64, stats={})
     assert aliased > 0
 
