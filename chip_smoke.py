@@ -23,8 +23,11 @@ Phases (any failure raises and exits non-zero):
    rows of both CEL kinds must have ridden at least one of those launches
    and each CEL constraint must have violations, and a CPU run of the port
    (plain versions) must equal the card's run on the first 4,096 objects;
-4. pipeline: the audit's host path, on the path phase's objects, reduced
-   lane: (a0) a dict lister on the default schedule (``auto``, which
+4. pipeline: the audit's host path, on the first 40,960 of the path
+   phase's objects (``DEPTH_OBJECTS``, two chunks, cut from 131,072 and
+   then 65,536 for the time limit; phases 6, 7, 8, 10 (b)-(c) and 16 run on them too, and
+   their relist on both lanes, which must agree, stands for the path
+   phase's run in every comparison of those phases), reduced lane: (a0) a dict lister on the default schedule (``auto``, which
    resolves to serial: the port's stages share the interpreter lock) and
    (a) that lister on the serial schedule, twice each in ABBA order; (b) a lister of
    ``RawJSON`` objects (serialized before the timer starts), serial,
@@ -113,7 +116,8 @@ Phases (any failure raises and exits non-zero):
    the batched lane on the CPU must agree canonically; with the library,
    a resident snapshot's first pass must equal the batched relist, the
    residency logging its decline of the extdata group.  Then the
-   first 1,024 admission bodies to ``/v1/admit`` and to ``/v1/mutate``
+   first 512 admission bodies (``EXT_ADMISSIONS``, cut from 1,024 for the
+   time limit) to ``/v1/admit`` and to ``/v1/mutate``
    (the ``pin-image`` Assign, failurePolicy Ignore), every answer equal
    to the CPU handler under the perkey lane.  Prints walls,
    ``perf["extdata"]`` seconds, sends and keys per provider (cold and
@@ -124,8 +128,8 @@ Phases (any failure raises and exits non-zero):
    constraints), with the first 512 admission bodies (64 clients; cut
    from 2,048 and then 1,024 for the time limit) and the path phase's
    objects (the
-   first 32,768 of them for (b) and (d), cut from 131,072 and then
-   65,536).  (a) generations under load: the CLI's
+   first 16,384 of them for (b) and (d), cut from 131,072 and then
+   65,536 and 32,768).  (a) generations under load: the CLI's
    serving stack on the card with ``generation_swap`` on, off, off, on
    (ABBA); while
    the bodies are posted a thread removes and re-adds five Rego templates
@@ -157,7 +161,8 @@ Phases (any failure raises and exits non-zero):
    (capture on the audit thread, pickle and write on the worker), boot
    times, and the fold launches of (b) and (d);
 10. hooks: the served process's hooks at full width (the CLI's library
-   boot, 1,024 admission bodies, 64 clients, the path phase's objects).
+   boot, 1,024 admission bodies, 64 clients, the pipeline phase's
+   objects).
    (a) ``python -m gatekeeper_tpu_torch --manifests library --port P`` at
    the JAX CLI's defaults (the overload limiter, cost attribution, the SLO
    engine and the flight recorder on) and with them off (``HOOKS_OFF``),
@@ -188,10 +193,10 @@ Phases (any failure raises and exits non-zero):
    ladder at level 1 or more on ``/debug/overload``, and the audit's
    device-lane yield above 0 s (its counter in the metrics).  No hook may
    be left installed after a part;
-11. kube: the served process over an apiserver, over the first 32,768 of
+11. kube: the served process over an apiserver, over the first 4,096 of
    the path phase's objects (``KUBE_OBJECTS``, cut from its width and then
-   from 65,536 for the time limit).  The port's ``MockApiServer`` runs in
-   a spawned child process that builds the same objects from the seed,
+   from 65,536, 32,768, 16,384 and 8,192 for the time limit).  The
+   port's ``MockApiServer`` runs in a spawned child process that builds the same objects from the seed,
    the library's templates
    and sample constraints and a Config syncing Ingresses, with a resource
    for every constraint kind and per-pod status kind.  (a) a
@@ -223,7 +228,8 @@ Phases (any failure raises and exits non-zero):
    and no ABBA pair of an earlier phase runs beside them; the first child
    sees none of its writes): ``/healthz`` 503 until the readiness tracker is satisfied,
    then 200, both with its stats, and latched; the first audit pass
-   exported; 1,024 admission bodies from 64 clients, every answer equal
+   exported; 512 admission bodies (``KUBE_BODIES``, cut from 1,024 for
+   the time limit) from 64 clients, every answer equal
    to the CPU handler's (computed as ``_held_against_cpu`` does, over the
    CLI's apiserver's Namespaces and Ingresses, in a third child process
    beside the 410 step) or of the JAX shed form (the overload limiter is
@@ -252,7 +258,7 @@ Phases (any failure raises and exits non-zero):
    the card, equal to ``--device cpu`` runs (all four child processes;
    the host's exact-totals render bounds each run, so they overlap);
    ``expand --lane differential`` over the sweep objects' Deployments;
-   1,024 admission bodies
+   512 admission bodies (cut from 1,024 for the time limit)
    (``GATOR_BODIES``) answered by a ``ValidationHandler`` on the card
    (a ``Batcher`` on the grid lane, 64 threads) with a capture-mode
    flight recorder, then ``replay --differential --compile-cache``
@@ -279,7 +285,8 @@ Phases (any failure raises and exits non-zero):
    equal a ``--device cpu`` fleet (a child process), and ``python -m
    gatekeeper_tpu_torch --fleet-config ROSTER --once`` over them (a child
    process on the card) must exit 0 with the same per-cluster totals.
-   (b) 1,024 admission bodies posted by 64 keep-alive clients to
+   (b) 512 admission bodies (``CANARY_BODIES``, cut from 1,024 for the
+   time limit) posted by 64 keep-alive clients to
    ``WebhookServer`` on the card (the grid lane, a capture-mode flight
    recorder) with a ``replay/shadow.ShadowLane`` over a candidate that
    carries the constraint denying most bodies alone at ``enforcementAction:
@@ -298,22 +305,48 @@ Phases (any failure raises and exits non-zero):
    by its lane, and in every run ``collect_differential_ok`` equal to the
    chunks dispatched through both fold kernels.  Both kernels must launch
    in the phase (counted in process);
-14. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
-   hooks, kube, gator and canary phases): as phase 5, at the (C, N, k)
-   the pipeline, snapshot, expand, extdata, lifecycle, hooks, kube, gator
-   and canary paths launched too;
-15. profile: the reduced-lane audit once more under ``torch.profiler``,
+14. sidecar: the Evaluate sidecar (``rpc/sidecar.py``) and its control
+   plane client (``drivers/remote.py``) on ``device``, through the
+   loopback transport (``rpc.sidecar.Loopback``: the request and response
+   bytes a gRPC frame would carry, through the hand-written codec, so the
+   phase needs no ``grpc``).  (a) an ``EvaluateServicer`` on the card;
+   the control plane's ``Client`` over a ``RemoteDriver`` (beside a
+   ``CELDriver``, as ``--evaluate-sidecar`` builds them) reconciles the
+   46 templates, their sample constraints and the path phase's Ingresses;
+   Status must say ``gpu``, 1 device, 46 lowered, none on fallback.  (b)
+   the control plane's ``AuditManager`` over ``RemoteEvaluator`` (reduced
+   lane, 20 kept) on the path phase's objects in chunks of 32,768, one
+   Sweep RPC each: totals and kept lists equal to the path phase's
+   reduced-lane run canonically, ``fused_fold`` launched.  (c) the same at
+   exact totals over the first 4,096 objects, equal to a CPU servicer's
+   (``device="cpu"``, plain kernel versions; a child process started with
+   the phase) run, kept lists in order.  (d) 512 admission
+   bodies in batches of 64 through ``RemoteDriver.query_batch``, every
+   answer equal to the servicer's ``TorchDriver`` called in process.  (e)
+   four threads sweep four 8,192-object chunks at once: each result equal
+   to its serial sweep, and some sweep's submit (the servicer's lock held)
+   overlapping another's collect (the lock released).  Prints each Sweep
+   RPC's wall and bytes, the codec's encode and decode seconds, the
+   seam's objects/s beside the path phase's, and whether ``grpc`` and
+   ``google.protobuf`` import on the host;
+15. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
+   hooks, kube, gator, canary and sidecar phases): as phase 5, at the
+   (C, N, k) the pipeline, snapshot, expand, extdata, lifecycle, hooks,
+   kube, gator, canary and sidecar paths launched too;
+16. profile: the reduced-lane audit of the pipeline phase's objects once
+   more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-16. admission: the library (all 46 templates and their sample
+17. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
    ``Batcher`` at its default window, batch size and interpreter cut-off
    (with batch stats on), failurePolicy=Fail and the
    ``ExpansionSystem`` of the expand phase (each Deployment body's implied
-   Pod reviewed with ``Source=Generated``).  ``--admissions`` (1,024 by
-   default, cut from 4,096 and then 2,048 for the time limit)
-   AdmissionReview bodies (the library's ``samples/example_*.yaml``
+   Pod reviewed with ``Source=Generated``).  512 (``ADMISSION_BODIES``,
+   cut from 4,096, 2,048 and then 1,024 for the time limit; fewer when
+   ``--admissions`` says so) AdmissionReview bodies (the library's
+   ``samples/example_*.yaml``
    objects, then ``make_cluster_objects(..., seed=3)``; every tenth an
    UPDATE that carries an ``oldObject``, every twentieth of the others a
    DELETE whose ``object`` is null and whose ``oldObject`` is the object)
@@ -330,7 +363,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-17. served: the served process's two threads on one driver and vocab, as
+18. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -341,7 +374,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-18. mutate: the admission bodies posted to ``/v1/mutate`` of a
+19. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -355,7 +388,7 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-19. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+20. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
@@ -370,7 +403,8 @@ Phases (any failure raises and exits non-zero):
    of (d) is not counted), ``gator_launches`` those of the gator phase's
    runs on the card (not its references), ``canary_launches`` those of the
    canary phase's in-process fleet passes, replay and soak runs (not its
-   child processes).
+   child processes), ``sidecar_launches`` those of the sidecar phase's
+   card servicer, (b)-(e).
    The served and lifecycle (e) phases pass ``HOOKS_OFF`` to the CLI: the
    configuration they measured before the CLI had the hooks.
 
@@ -408,6 +442,7 @@ GRAPH_CALLS = 20    # back-to-back calls captured in one CUDA graph
 GRAPH_REPLAYS = 25  # timed replays of that graph (median taken)
 LOAD_PROCS, LOAD_CONNS = 8, 8  # 64 keep-alive clients in 8 processes
 SERVED_ADMISSIONS, SERVED_OBJECTS = 512, 4096  # the served phase's sizes
+ADMISSION_BODIES = 512  # the admission phase's bodies (cut from 1,024)
 # the CLI's hook flags off: the configuration the served and lifecycle
 # phases measured before the CLI had the hooks
 HOOKS_OFF = ("--overload-limiter", "off", "--cost-attribution", "off",
@@ -846,6 +881,34 @@ def path_phase(n_objects: int) -> tuple:
     log(f"cpu == cuda on the first {CPU_PREFIX} objects "
         f"({sum(on_cpu[1].values())} violations)")
     return launches, shapes, objects, runs, on_card, timings
+
+
+# the pipeline, snapshot, expand, extdata, hooks (b)-(c) and profile phases'
+# objects: the path phase's first, cut from its 131,072 and then 65,536 for
+# the time limit (still two chunks of 32,768, so every multi-chunk gate has
+# chunks to compare)
+DEPTH_OBJECTS = 40960
+
+
+def depth_references(objects, relist_runs) -> tuple:
+    """The first ``DEPTH_OBJECTS`` objects and their relist runs on both
+    collect lanes (the path phase's own where it has no more objects),
+    which must agree."""
+    deep = objects[:DEPTH_OBJECTS]
+    if len(deep) == len(objects):
+        return deep, relist_runs
+    runs = {}
+    for collect in ("reduced", "masks"):
+        run, _phases, dt = audit(deep, "cuda", collect)
+        if run.incomplete or run.total_objects != len(deep):
+            raise AssertionError(f"depth[{collect}] result is not sane")
+        runs[collect] = run
+        log(f"depth[{collect}]: {run.total_objects} objects, "
+            f"{sum(run.total_violations.values())} violations, {dt:.3f}s")
+    if summary(runs["reduced"]) != summary(runs["masks"]):
+        raise AssertionError(f"depth: the lanes disagree on the first "
+                             f"{len(deep)} objects")
+    return deep, runs
 
 
 # --- the audit's host path: schedules, lanes, worker processes --------------
@@ -2464,7 +2527,7 @@ PIN_IMAGE = {
 TRUSTED_PREFIX = "openpolicyagent/"  # the library's allowed repo
 EXT_MAX_KEYS = 256  # --extdata-max-keys
 EXT_SEND_WAIT_S = 0.001  # the stub's fixed wait per transport send
-EXT_ADMISSIONS = 1024  # admission and mutation bodies of the phase
+EXT_ADMISSIONS = 512  # admission and mutation bodies (cut from 1,024)
 
 
 def _ext_template(kind: str, rules: str) -> dict:
@@ -2913,9 +2976,9 @@ def extdata_phase(objects, n_traffic: int, card: str,
 # templates one at a time and edits the message of a sixth
 LIFE_BODIES, LIFE_FINAL = 512, 256  # bodies cut from 2,048 (time limit)
 # (b)/(d): the snapshot spill and warm restart run on this many of the
-# path phase's objects (cut from 131,072, then from 65,536, for the time
-# limit)
-LIFE_SNAPSHOT_OBJECTS = 32768
+# path phase's objects (cut from 131,072, then from 65,536 and 32,768, for
+# the time limit)
+LIFE_SNAPSHOT_OBJECTS = 16384
 LIFE_CHURN_KINDS = ("K8sAllowedRepos", "K8sDisallowedTags",
                     "K8sBlockNodePort", "K8sHttpsOnly", "K8sRequiredProbes")
 LIFE_EDIT_KIND = "K8sContainerLimits"
@@ -4286,7 +4349,10 @@ def hooks_brownout(objects, bodies, refs, manifests, card: str,
 
     def poll():
         while not stop_poll.wait(0.1):
-            st, body = _get(server.port, "/debug/overload")
+            try:
+                st, body = _get(server.port, "/debug/overload")
+            except OSError:  # a poll in flight when the server stops
+                continue
             if st == 200:
                 levels.append(json.loads(body)["brownout"])
 
@@ -4433,10 +4499,11 @@ def hooks_phase(objects, card: str, device: str = "cuda",
 
 KUBE_DIR = os.path.join(ROOT_DIR, "_kube")
 # the apiservers' objects: cut from the path's 131,072, then from 65,536,
-# for the time limit (the CLI of (d) audits them beside the phases before
-# the kube phase, whose end waits for that first exact-totals pass)
-KUBE_OBJECTS = 32768
-KUBE_BODIES = 1024  # (d): admission bodies
+# 32,768, 16,384 and 8,192, for the time limit (the CLI of (d) audits them
+# beside the phases before the kube phase, whose end waits for that first
+# exact-totals pass)
+KUBE_OBJECTS = 4096
+KUBE_BODIES = 512  # (d): admission bodies (cut from 1,024)
 KUBE_WAIT_S = 300.0
 KUBE_VANISH = 64  # (b): objects removed behind the watches before the 410
 KUBE_DATA_KINDS = ("Pod", "Service", "Ingress", "Deployment", "Namespace",
@@ -4489,7 +4556,8 @@ def _kube_apiserver(conn, n_objects: int) -> None:
     builds everything itself, so nothing but commands crosses the pipe,
     and encodes its pages without the audit's interpreter lock.  Commands:
     ``stats`` (requests by verb and kind), ``rv`` (the current
-    resourceVersion), ``vanish`` (drop objects without an event),
+    resourceVersion), ``vanish`` (drop objects without an event; answers
+    how many it held),
     ``compact`` (compact the watch cache, break every watch with a 410 and
     write the Config unchanged; answers the version of that write),
     ``stop``."""
@@ -4517,10 +4585,10 @@ def _kube_apiserver(conn, n_objects: int) -> None:
             conn.send(dict(srv.requests))
         elif cmd == "vanish":
             with srv._lock:
-                for key in arg:
-                    srv._objects.pop(tuple(key), None)
+                dropped = sum(srv._objects.pop(tuple(key), None) is not None
+                              for key in arg)
                 srv._sorted.clear()
-            conn.send(len(srv._objects))
+            conn.send(dropped)
         elif cmd == "rv":
             conn.send(srv._rv)
         elif cmd == "compact":
@@ -4881,20 +4949,24 @@ def kube_gone(world, objects, ask, out: dict, card: str,
             if o["kind"] == "Pod"][::97][:KUBE_VANISH]
     ing.pump()  # what the watches delivered since (c): the CLI's boot
     rows0 = snap.live_count()
-    ask("vanish", gone)
+    # (b)'s churn may have deleted some of them already
+    dropped = ask("vanish", gone)
+    if not dropped:
+        raise AssertionError("kube snapshot: no object dropped behind the "
+                             "watches")
     t0 = time.perf_counter()
     rv = ask("compact")
     _wait("the 410 relists", lambda: _caught_up(kc, ing.gvks, rv))
     out["relist_410_s"] = time.perf_counter() - t0
     _kube_step(out, "tick after the 410", mgr.audit_tick, card, device)
-    if snap.live_count() != rows0 - len(gone):
+    if snap.live_count() != rows0 - dropped:
         raise AssertionError(f"kube snapshot: {snap.live_count()} rows "
-                             f"after the 410, want {rows0 - len(gone)}")
+                             f"after the 410, want {rows0 - dropped}")
     _kube_step(out, "resync", mgr.audit_resync, card, device)
     if mgr.last_resync_diff is not None:
         raise AssertionError(f"kube snapshot: the resync differs: "
                              f"{mgr.last_resync_diff}")
-    log(f"kube snapshot: {len(gone)} objects dropped behind the watches, "
+    log(f"kube snapshot: {dropped} objects dropped behind the watches, "
         f"the 410 relists took {out['relist_410_s']:.3f}s, the snapshot "
         f"holds {snap.live_count()} rows, resync diff None ({card})")
 
@@ -5346,7 +5418,7 @@ GATOR_DIR = os.path.join(ROOT_DIR, "_gator")
 # the phase took 222.1 s at that width on the card (the budget is ~120 s)
 GATOR_OBJECTS = 4096
 GATOR_REVIEW_OBJECTS = 4096  # the tpu and mutate engines' objects
-GATOR_BODIES = 1024  # admissions captured for replay
+GATOR_BODIES = 512  # admissions captured for replay (cut from 1,024)
 GATOR_CLIENTS = 64  # threads posting them to the handler
 
 
@@ -5776,7 +5848,7 @@ CANARY_SIZES = (64, 512)  # (a): objects of one cluster, at least, at most
 CANARY_SMALL = 8  # (a): clusters on the library less CANARY_LESS templates
 CANARY_LESS = 4
 CANARY_PREFIX = 4  # (a): clusters of the --device cpu run and of the CLI's
-CANARY_BODIES = 1024  # (b): admissions served with the shadow lane on
+CANARY_BODIES = 512  # (b): admissions with the shadow lane (cut from 1,024)
 CANARY_SEED = 13
 # the keys of the JAX package's ShadowLane.snapshot(), /debug/shadow's body
 SHADOW_KEYS = ("state", "submitted", "evaluated", "dropped", "skipped",
@@ -6414,6 +6486,458 @@ def canary_phase(objects, card: str, device: str = "cuda") -> tuple:
     return launches, {k: dict(v) for k, v in shapes.items()}, record
 
 
+# --- the Evaluate sidecar: rpc/ and drivers/remote.py over the loopback -----
+SIDECAR_CHUNK = 32768  # (b): objects per Sweep RPC, the path phase's chunk
+SIDECAR_BODIES = 512  # (d): admission bodies through QueryBatch
+SIDECAR_BATCH = 64  # (d): reviews per QueryBatch RPC
+SIDECAR_THREADS = 4  # (e): sweeps at once
+SIDECAR_THREAD_OBJECTS = 8192  # (e): objects of each concurrent sweep
+# (e): each collect waits this long first, widening the window in which
+# another sweep's submit can run (as the JAX package's test does)
+SIDECAR_COLLECT_WAIT_S = 0.05
+SIDECAR_DIR = os.path.join(ROOT_DIR, "_sidecar")
+
+
+class _TimedTransport:
+    """A transport wrapper that records each call: its method, request
+    and response bytes and its wall (submit to done); with ``keep`` the
+    Sweep calls' bytes too, for the codec's timing."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls: list = []
+        self.kept: list = []  # [(request bytes, response future)]
+        self.keep = False
+        self._lock = threading.Lock()
+
+    def __call__(self, method: str, request: bytes, timeout=None):
+        t0 = time.perf_counter()
+        fut = self.inner(method, request, timeout)
+        rec = {"method": method, "request_bytes": len(request)}
+
+        def done(f):
+            rec["wall_s"] = time.perf_counter() - t0
+            if f.exception() is None:
+                rec["response_bytes"] = len(f.result())
+
+        fut.add_done_callback(done)
+        with self._lock:
+            self.calls.append(rec)
+            if self.keep and method == "Sweep":
+                self.kept.append((request, fut))
+        return fut
+
+    def take(self, method: str) -> list:
+        with self._lock:
+            out = [c for c in self.calls if c["method"] == method]
+            self.calls = []
+        return out
+
+
+def sidecar_world(objects, device: str) -> tuple:
+    """(servicer, loopback, transport, driver, client): an
+    ``EvaluateServicer`` on ``device`` behind ``rpc.sidecar.Loopback``, and
+    the control plane's client over it (a ``RemoteDriver`` beside a
+    ``CELDriver``, as ``--evaluate-sidecar`` builds them) with the library
+    reconciled and the Ingresses of ``objects`` synced (the path phase's
+    inventory)."""
+    from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
+    from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
+    from gatekeeper_tpu_torch.drivers.remote import RemoteDriver
+    from gatekeeper_tpu_torch.rpc.sidecar import EvaluateServicer, Loopback
+    from gatekeeper_tpu_torch.target.target import K8sValidationTarget
+    from gatekeeper_tpu_torch.utils.synthetic import load_library
+
+    svc = EvaluateServicer(device=device)
+    lb = Loopback(svc)
+    transport = _TimedTransport(lb)
+    driver = RemoteDriver(transport=transport)
+    client = Client(target=K8sValidationTarget(),
+                    drivers=[driver, CELDriver()],
+                    enforcement_points=[WEBHOOK_EP, AUDIT_EP])
+    load_library(client)
+    for o in objects:
+        if o.get("kind") == "Ingress":
+            client.add_data(o)  # referential inventory (uniqueingresshost)
+    return svc, lb, transport, driver, client
+
+
+def sidecar_audit(client, driver, objects, exact: bool, label: str):
+    """(run, seconds): the control plane's ``AuditManager`` over
+    ``RemoteEvaluator`` (one Sweep RPC per chunk of SIDECAR_CHUNK)."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.drivers.remote import RemoteEvaluator
+
+    mgr = AuditManager(client, lister=lambda: iter(objects),
+                       config=AuditConfig(violations_limit=20,
+                                          chunk_size=SIDECAR_CHUNK,
+                                          exact_totals=exact,
+                                          submit_window=4),
+                       evaluator=RemoteEvaluator(driver, violations_limit=20,
+                                                 exact_totals=exact))
+    t0 = time.perf_counter()
+    run = mgr.audit()
+    dt = time.perf_counter() - t0
+    if run.incomplete or run.total_objects != len(objects) or \
+            run.n_devices != 0 or mgr.perf.get("pipelined") != 0.0:
+        raise AssertionError(
+            f"sidecar {label}: incomplete {run.incomplete}, "
+            f"{run.total_objects} of {len(objects)} objects, n_devices "
+            f"{run.n_devices}, pipelined {mgr.perf.get('pipelined')}")
+    return run, dt
+
+
+def _kept_summary(kept, totals) -> list:
+    """A run's verdicts as JSON: [[kind, name, total, [[object kind,
+    namespace/name, message], ...]], ...], sorted by constraint, kept
+    lists in their order."""
+    return [[kind, name, totals[(kind, name)],
+             [[v.kind, f"{v.namespace}/{v.name}", v.message]
+              for v in kept.get((kind, name), ())]]
+            for kind, name in sorted(totals)]
+
+
+def sidecar_cpu_reference(n_objects: int, prefix: int) -> dict:
+    """(c)'s reference: a CPU servicer (``device="cpu"``, the kernels'
+    plain versions) behind the loopback, with the inventory of
+    ``make_cluster_objects(n_objects, seed=0)`` (the path phase's
+    objects), audited at exact totals over the first ``prefix``."""
+    from gatekeeper_tpu_torch.utils.synthetic import make_cluster_objects
+
+    objects = make_cluster_objects(n_objects, seed=0)
+    t0 = time.perf_counter()
+    _svc, lb, _tr, driver, client = sidecar_world(objects, "cpu")
+    try:
+        run, dt = sidecar_audit(client, driver, objects[:prefix], True,
+                                "(c) cpu")
+    finally:
+        lb.close()
+    return {"verdicts": _kept_summary(run.kept, run.total_violations),
+            "audit_s": dt, "wall_s": time.perf_counter() - t0}
+
+
+# (c)'s CPU servicer in a child process (its exact-totals render runs on
+# another core beside (a) and (b)): argv[1:] = objects, prefix, out file
+_SIDECAR_REFERENCE = r"""
+import json, sys
+import chip_smoke
+ref = chip_smoke.sidecar_cpu_reference(int(sys.argv[1]), int(sys.argv[2]))
+with open(sys.argv[3], "w") as f:
+    json.dump(ref, f)
+"""
+
+
+def _sidecar_codec(transport) -> dict:
+    """Seconds the codec takes on the kept Sweep calls: decode and encode
+    of each request and response (both sides' work per RPC)."""
+    from gatekeeper_tpu_torch.rpc import evaluate_pb2 as pb
+
+    raw = [(req, fut.result()) for req, fut in transport.kept]
+    transport.kept = []
+    out = {}
+    for side, cls, blobs in (
+            ("request", pb.SweepRequest, [r for r, _a in raw]),
+            ("response", pb.SweepResponse, [a for _r, a in raw])):
+        t0 = time.perf_counter()
+        msgs = [cls.FromString(b) for b in blobs]
+        out[f"{side}_decode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = [m.SerializeToString() for m in msgs]
+        out[f"{side}_encode_s"] = time.perf_counter() - t0
+        if again != blobs:
+            raise AssertionError(f"sidecar: the codec's {side} bytes do not "
+                                 f"round-trip")
+    return out
+
+
+def _query_answers(responses) -> list:
+    return [sorted((r.constraint.get("kind", ""),
+                    (r.constraint.get("metadata") or {}).get("name", ""),
+                    r.msg, json.dumps(r.details, sort_keys=True))
+                   for r in qr.results) for qr in responses]
+
+
+def sidecar_admission(svc, client, driver, label: str) -> dict:
+    """(d): SIDECAR_BODIES admission bodies, SIDECAR_BATCH a QueryBatch
+    RPC, each answer held against the servicer's ``TorchDriver`` called in
+    this process on the same reviews."""
+    from gatekeeper_tpu_torch.apis.constraints import WEBHOOK_EP
+    from gatekeeper_tpu_torch.drivers.base import ReviewCfg
+    from gatekeeper_tpu_torch.match.match import SOURCE_ORIGINAL
+    from gatekeeper_tpu_torch.target.review import AugmentedReview
+    from gatekeeper_tpu_torch.webhook.policy import parse_admission_review
+
+    bodies, objs = admission_traffic(SIDECAR_BODIES)
+    namespaces = {o["metadata"]["name"]: o for o in objs
+                  if o.get("kind") == "Namespace"}
+    reviews = []
+    for body in bodies:
+        req = parse_admission_review(body)
+        reviews.append(client.target.handle_review(AugmentedReview(
+            admission_request=req,
+            namespace=namespaces.get(req.namespace) if req.namespace
+            else None, source=SOURCE_ORIGINAL, is_admission=True)))
+    cfg = ReviewCfg(enforcement_point=WEBHOOK_EP)
+    cons = client.constraints()
+    local_cons = list(svc._constraints.values())
+    got, want, walls = [], [], []
+    for i in range(0, len(reviews), SIDECAR_BATCH):
+        part = reviews[i:i + SIDECAR_BATCH]
+        t0 = time.perf_counter()
+        got += _query_answers(driver.query_batch(client.target.name, cons,
+                                                 part, cfg))
+        walls.append(time.perf_counter() - t0)
+        want += _query_answers(svc.driver.query_batch(
+            svc.target.name, local_cons, part, cfg))
+    diffs = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    denied = sum(bool(g) for g in got)
+    if diffs or len(got) != len(bodies) or not denied:
+        raise AssertionError(f"sidecar {label}: {len(diffs)} of {len(got)} "
+                             f"answers differ from the in-process driver "
+                             f"(first {diffs[:3]}), {denied} with results")
+    return {"bodies": len(bodies), "with_results": denied,
+            "rpc_wall_s": walls, "reviews_per_s": len(bodies) / sum(walls)}
+
+
+def sidecar_concurrent(svc, client, driver, objects, label: str) -> dict:
+    """(e): SIDECAR_THREADS threads sweep SIDECAR_THREAD_OBJECTS objects
+    each at once: every result equal to its serial sweep, and some RPC's
+    submit (the servicer's lock held) overlapping another's collect (the
+    lock released)."""
+    from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
+    from gatekeeper_tpu_torch.drivers.remote import RemoteEvaluator
+
+    ev = RemoteEvaluator(driver, violations_limit=20)
+    cons = [c for c in client.constraints() if c.actions_for(AUDIT_EP)]
+    n = SIDECAR_THREAD_OBJECTS
+    chunks = [objects[i * n:(i + 1) * n] for i in range(SIDECAR_THREADS)]
+    t0 = time.perf_counter()
+    serial = [ev.sweep(cons, ch) for ch in chunks]
+    serial_s = time.perf_counter() - t0
+    spans: list = []  # (phase, thread, t0, t1)
+    spans_lock = threading.Lock()
+    submit, collect = svc.evaluator.sweep_submit, svc.evaluator.sweep_collect
+
+    def timed(phase, fn):
+        def wrapper(*a, **k):
+            if phase == "collect":
+                time.sleep(SIDECAR_COLLECT_WAIT_S)
+            t_in = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                with spans_lock:
+                    spans.append((phase, threading.get_ident(), t_in,
+                                  time.perf_counter()))
+        return wrapper
+
+    results: list = [None] * SIDECAR_THREADS
+    errors: list = []
+
+    def run(i):
+        try:
+            results[i] = ev.sweep(cons, chunks[i])
+        except Exception as e:
+            errors.append(repr(e))
+
+    svc.evaluator.sweep_submit = timed("submit", submit)
+    svc.evaluator.sweep_collect = timed("collect", collect)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(SIDECAR_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        concurrent_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"sidecar {label}: a sweep thread hangs")
+    finally:
+        svc.evaluator.sweep_submit = submit
+        svc.evaluator.sweep_collect = collect
+    if errors:
+        raise AssertionError(f"sidecar {label}: {errors}")
+    submits = [s for s in spans if s[0] == "submit"]
+    collects = [(tid, c0 - SIDECAR_COLLECT_WAIT_S, c1)
+                for phase, tid, c0, c1 in spans if phase == "collect"]
+    overlaps = sum(st != ct and s0 < c1 and c0 < s1
+                   for _p, st, s0, s1 in submits for ct, c0, c1 in collects)
+    if not overlaps:
+        raise AssertionError(f"sidecar {label}: no submit overlapped "
+                             f"another sweep's collect: {spans}")
+    bad = [i for i in range(SIDECAR_THREADS) if results[i] != serial[i]]
+    if bad:
+        raise AssertionError(f"sidecar {label}: concurrent sweeps {bad} "
+                             f"differ from their serial sweeps")
+    return {"serial_s": serial_s, "concurrent_s": concurrent_s,
+            "overlaps": overlaps}
+
+
+def _importable(name: str) -> str:
+    """Whether module ``name`` imports here, and its version."""
+    import importlib
+
+    try:
+        mod = importlib.import_module(name)
+    except ImportError:
+        return f"{name} does not import"
+    return f"{name} {getattr(mod, '__version__', '?')} imports"
+
+
+def sidecar_phase(objects, path_ref, path_s: float, card: str,
+                  device: str = "cuda") -> tuple:
+    """The Evaluate sidecar through its loopback transport: (launches,
+    shapes, record).  ``path_ref`` is the path phase's reduced-lane
+    (kept, totals), ``path_s`` its wall."""
+    import shutil
+
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    launches = {"fused_fold": 0, "epilogue": 0}
+    shapes = {"fused_fold": collections.Counter(),
+              "epilogue": collections.Counter()}
+    record: dict = {"walls": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def step(name: str, t: float) -> float:
+        record["walls"][name] = time.perf_counter() - t
+        log(f"sidecar: {name} in {record['walls'][name]:.3f}s")
+        return time.perf_counter()
+
+    log(f"sidecar: on this host {_importable('grpc')}, "
+        f"{_importable('google.protobuf')}; the RPCs ride the loopback "
+        f"transport and the port's codec")
+    os.makedirs(SIDECAR_DIR, exist_ok=True)
+    ref_path = os.path.join(SIDECAR_DIR, "cpu.json")
+    child = subprocess.Popen(
+        [sys.executable, "-c", _SIDECAR_REFERENCE, str(len(objects)),
+         str(CPU_PREFIX), ref_path], cwd=ROOT_DIR, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    # (a) Reconcile and Status
+    svc = lb = None
+    try:
+        svc, lb, transport, driver, client = sidecar_world(objects, device)
+        reconciles = transport.take("Reconcile")
+        status = driver.dump()
+        want_platform = "gpu" if device == "cuda" else "cpu"
+        if (status["sidecar"] != {"devices": 1, "platform": want_platform}
+                or len(status["lowered"]) != 46 or status["fallback"]):
+            raise AssertionError(f"sidecar (a): status {status['sidecar']}, "
+                                 f"{len(status['lowered'])} lowered, "
+                                 f"fallback {status['fallback']}")
+        record["reconcile"] = {
+            "rpcs": len(reconciles),
+            "wall_s": sum(c.get("wall_s", 0.0) for c in reconciles)}
+        transport.take("Status")
+        t0 = step(f"(a) {len(reconciles)} Reconcile RPCs (46 templates, their "
+                  f"constraints, the Ingresses), status {status['sidecar']}, "
+                  f"{len(status['lowered'])} lowered", t0)
+        # (b) the audit through the seam, reduced lane
+        transport.keep = True
+        run, dt = _fold_counted(sidecar_audit, launches, shapes)(
+            client, driver, objects, False, "(b)")
+        transport.keep = False
+        sweeps = transport.take("Sweep")
+        diff = AuditManager._verdicts_differ_canonical(
+            run.kept, run.total_violations, path_ref[0], path_ref[1], 20)
+        if diff:
+            raise AssertionError(f"sidecar (b): differs from the path "
+                                 f"phase's reduced lane: {diff}")
+        # the kept lists hold the same violations in the same order too
+        # (both keep each constraint's first 20 in listing order)
+        if _kept_summary(run.kept, run.total_violations) != \
+                _kept_summary(*path_ref):
+            raise AssertionError("sidecar (b): the kept lists differ in "
+                                 "order from the path phase's")
+        if device == "cuda" and launches["fused_fold"] <= 0:
+            raise AssertionError(f"sidecar (b): fused_fold never launched: "
+                                 f"{launches}")
+        codec = _sidecar_codec(transport)
+        record["audit"] = {
+            "wall_s": dt, "objects_per_s": run.total_objects / dt,
+            "path_objects_per_s": len(objects) / path_s,
+            "sweep_rpcs": sweeps, "codec": codec,
+            "launches": dict(launches)}
+        log(f"sidecar (b): {run.total_objects} objects, "
+            f"{sum(run.total_violations.values())} violations in {dt:.3f}s: "
+            f"{run.total_objects / dt:.1f} objects/s through the seam "
+            f"against {len(objects) / path_s:.1f}/s in process (the path "
+            f"phase's reduced lane), equal canonically; launches "
+            f"{launches} ({card})")
+        for i, c in enumerate(sweeps):
+            log(f"sidecar (b) Sweep RPC {i}: {c.get('wall_s', 0.0):.3f}s, "
+                f"request {c['request_bytes']} bytes, response "
+                f"{c.get('response_bytes')} bytes")
+        log(f"sidecar (b) codec: {json.dumps(codec)}")
+        t0 = step("(b) the audit through the seam", t0)
+        # (c) exact totals on the first CPU_PREFIX objects, card and CPU
+        prefix = objects[:CPU_PREFIX]
+        before = dict(launches)
+        card_run, card_s = _fold_counted(sidecar_audit, launches, shapes)(
+            client, driver, prefix, True, "(c)")
+        exact_launches = {k: launches[k] - before[k] for k in launches}
+        t0 = step("(c) exact totals on the card", t0)
+        try:
+            _out, err = child.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("sidecar (c): the CPU servicer's process "
+                                 "hung")
+        if child.returncode != 0:
+            raise AssertionError(f"sidecar (c): the CPU servicer's process "
+                                 f"exited {child.returncode}: "
+                                 f"{err[-2000:]}")
+        with open(ref_path) as f:
+            ref = json.load(f)
+        got = json.loads(json.dumps(
+            _kept_summary(card_run.kept, card_run.total_violations)))
+        if got != ref["verdicts"]:
+            raise AssertionError("sidecar (c): the card's exact totals "
+                                 "differ from the CPU servicer's")
+        record["exact"] = {"card_s": card_s, "cpu_s": ref["audit_s"],
+                           "cpu_process_s": ref["wall_s"],
+                           "launches": exact_launches}
+        log(f"sidecar (c): exact totals over {CPU_PREFIX} objects "
+            f"({sum(card_run.total_violations.values())} results) equal "
+            f"the CPU servicer's, kept lists in order; card {card_s:.3f}s, "
+            f"cpu {ref['audit_s']:.3f}s (its process {ref['wall_s']:.1f}s), "
+            f"launches {exact_launches}")
+        t0 = step("(c) the CPU servicer's process", t0)
+        # (d) admission through QueryBatch
+        record["admission"] = _fold_counted(
+            sidecar_admission, launches, shapes)(svc, client, driver, "(d)")
+        adm = record["admission"]
+        log(f"sidecar (d): {adm['bodies']} admission bodies in batches of "
+            f"{SIDECAR_BATCH}, every answer equal to the in-process "
+            f"driver's ({adm['with_results']} with results); "
+            f"{adm['reviews_per_s']:.1f} reviews/s through the seam")
+        t0 = step("(d) admission", t0)
+        # (e) concurrent sweeps
+        record["concurrent"] = _fold_counted(
+            sidecar_concurrent, launches, shapes)(svc, client, driver,
+                                                  objects, "(e)")
+        conc = record["concurrent"]
+        log(f"sidecar (e): {SIDECAR_THREADS} sweeps of "
+            f"{SIDECAR_THREAD_OBJECTS} objects equal their serial sweeps; "
+            f"{conc['overlaps']} submit/collect overlaps; serial "
+            f"{conc['serial_s']:.3f}s, concurrent {conc['concurrent_s']:.3f}s")
+        t0 = step("(e) concurrent sweeps", t0)
+    finally:
+        if lb is not None:
+            lb.close()
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        shutil.rmtree(SIDECAR_DIR, ignore_errors=True)
+    del svc
+    record["wall_s"] = time.perf_counter() - t_phase
+    record["launches"] = dict(launches)
+    log(f"sidecar: {record['wall_s']:.1f}s; fold launches {launches} at "
+        f"(C, N, k) { {k: sorted(v) for k, v in shapes.items()} } ({card})")
+    return launches, {k: dict(v) for k, v in shapes.items()}, record
+
+
 def _stop_resource_tracker() -> None:
     """End the resource tracker that spawning the kube phase's children
     started (it would outlive the script by a moment otherwise); call it
@@ -6431,7 +6955,9 @@ def main() -> int:
                    help="synthetic cluster objects (131,072 = 4 chunks; up "
                         "to 1,000,000)")
     p.add_argument("--admissions", type=int, default=1024,
-                   help="AdmissionReviews served in the admission phase")
+                   help="AdmissionReviews a phase serves, at most (the "
+                        "admission phase serves ADMISSION_BODIES of them, "
+                        "the mutate phase all)")
     args = p.parse_args()
     if not 0 < args.objects <= 1_000_000:
         raise SystemExit("--objects must be in 1..1,000,000")
@@ -6458,28 +6984,34 @@ def main() -> int:
 
 def run_phases(args, card: str, rows, err, cli_runs: list,
                t_start: float, phase) -> int:
-    """Phases 3-19 (see the module docstring)."""
+    """Phases 3-20 (see the module docstring)."""
     phase("path")
-    launches, shapes, objects, relist_runs, prefix_summary, _timings = \
+    launches, shapes, objects, relist_runs, prefix_summary, timings = \
         path_phase(args.objects)
+    # the sidecar phase's reference: the reduced lane's verdicts and wall
+    path_reduced = (relist_runs["reduced"].kept,
+                    dict(relist_runs["reduced"].total_violations))
+    path_reduced_s = timings["reduced"][0]
+    deep, deep_runs = depth_references(objects, relist_runs)
+    del relist_runs
     plain_totals = {c: dict(run.total_violations)
-                    for c, run in relist_runs.items()}
+                    for c, run in deep_runs.items()}
     phase("pipeline")
     pipe_launches, pipe_shapes, pipe_records = pipeline_phase(
-        objects, relist_runs, prefix_summary, card)
+        deep, deep_runs, prefix_summary, card)
     gc.collect()
     phase("snapshot")
     snap_launches, snap_shapes, snap_steps = snapshot_phase(
-        objects, relist_runs, card)
-    del relist_runs
+        deep, deep_runs, card)
+    del deep_runs
     gc.collect()  # the snapshot worlds' reference cycles, before timing on
     phase("expand")
-    exp_launches, exp_shapes, exp_steps = expand_phase(objects, plain_totals,
+    exp_launches, exp_shapes, exp_steps = expand_phase(deep, plain_totals,
                                                        card)
     gc.collect()
     phase("extdata")
     ext_launches, ext_shapes, ext_steps = extdata_phase(
-        objects, args.admissions, card)
+        deep, args.admissions, card)
     gc.collect()
     phase("lifecycle")
     life_launches, life_shapes, life_record = lifecycle_phase(
@@ -6487,7 +7019,7 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
     gc.collect()
     phase("hooks")
     hook_launches, hook_shapes, hook_record = hooks_phase(
-        objects, card, n_bodies=min(HOOKS_BODIES, args.admissions),
+        deep, card, n_bodies=min(HOOKS_BODIES, args.admissions),
         after_served=lambda: cli_runs.append(
             KubeCliRun(min(args.objects, KUBE_OBJECTS))))
     gc.collect()
@@ -6512,6 +7044,10 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
     canary_launches, canary_shapes, canary_record = canary_phase(objects,
                                                                  card)
     gc.collect()
+    phase("sidecar")
+    side_launches, side_shapes, side_record = sidecar_phase(
+        objects, path_reduced, path_reduced_s, card)
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
@@ -6523,13 +7059,14 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
                    + collections.Counter(hook_shapes[name])
                    + collections.Counter(kube_shapes[name])
                    + collections.Counter(gator_shapes[name])
-                   + collections.Counter(canary_shapes[name]))
+                   + collections.Counter(canary_shapes[name])
+                   + collections.Counter(side_shapes[name]))
         for name in shapes})
     phase("profile")
-    profile_phase(objects)
-    del objects
+    profile_phase(deep)
+    del objects, deep
     phase("admission")
-    admission_phase(args.admissions, card)
+    admission_phase(min(ADMISSION_BODIES, args.admissions), card)
     phase("served")
     served_phase(min(SERVED_ADMISSIONS, args.admissions), SERVED_OBJECTS,
                  card)
@@ -6545,6 +7082,7 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
     log(f"kube: {json.dumps(kube_record, default=str)}")
     log(f"gator: {json.dumps(gator_record, default=str)}")
     log(f"canary: {json.dumps(canary_record, default=str)}")
+    log(f"sidecar: {json.dumps(side_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -6558,6 +7096,7 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
         row["kube_launches"] = kube_launches[row["name"]]
         row["gator_launches"] = gator_launches[row["name"]]
         row["canary_launches"] = canary_launches[row["name"]]
+        row["sidecar_launches"] = side_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -290,9 +290,35 @@ def new_client(device: str = "cuda", generation_swap: bool = False,
                          compile_cache=compile_cache, metrics=metrics)
     client = Client(target=K8sValidationTarget(), drivers=[driver, cel],
                     enforcement_points=[WEBHOOK_EP, AUDIT_EP])
-    if driver.gen_coord is not None:
+    if getattr(driver, "gen_coord", None) is not None:
         driver.gen_coord.constraints_fn = client.constraints
     return client, driver
+
+
+def sidecar_client(address: str) -> tuple:
+    """(client, driver) over the Evaluate sidecar at ``address``: a
+    ``RemoteDriver`` (gRPC) beside a ``CELDriver``, as the JAX CLI builds
+    them; the device driver lives in the sidecar."""
+    from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP, WEBHOOK_EP
+    from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
+    from gatekeeper_tpu_torch.drivers.remote import RemoteDriver
+    from gatekeeper_tpu_torch.target.target import K8sValidationTarget
+
+    driver = RemoteDriver(address)
+    client = Client(target=K8sValidationTarget(),
+                    drivers=[driver, CELDriver()],
+                    enforcement_points=[WEBHOOK_EP, AUDIT_EP])
+    return client, driver
+
+
+def local_device(args) -> str:
+    """The device of this process's own lanes (the mutation prefilter,
+    the audit's expansion stage, the shadow candidate): ``--device``, or
+    the host behind ``--evaluate-sidecar``, whose control plane owns no
+    card (the sidecar evaluates every verdict; ``main`` refuses an
+    explicit ``--device cuda`` there)."""
+    return "cpu" if args.evaluate_sidecar else args.device
 
 
 def build_client(objects, device: str = "cuda",
@@ -406,6 +432,14 @@ def build_mutation(objects, provider_cache=None) -> tuple:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
+    if args.evaluate_sidecar and getattr(args, "device_given", False) \
+            and args.device == "cuda":
+        # the sidecar owns the card: this process's own lanes would run on
+        # the host whatever --device says, so a card asked for is refused
+        p.error("--device cuda with --evaluate-sidecar: the sidecar owns "
+                "the card; the control plane's own lanes (the mutation "
+                "prefilter, the audit's expansion stage, the shadow "
+                "candidate) run on the host")
     if args.fleet_config:
         # fleet mode is its own process shape (N clusters' audit planes
         # behind shared runtimes): the single-cluster wiring does not apply
@@ -429,6 +463,15 @@ def abandoned_audit() -> bool:
                for t in threading.enumerate())
 
 
+class _DeviceAction(argparse.Action):
+    """``--device``, marked as given (``args.device_given``), so that
+    ``main`` can refuse a card that ``--evaluate-sidecar`` would not use."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, self.dest, values)
+        namespace.device_given = True
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m gatekeeper_tpu_torch")
     p.add_argument("--manifests", action="append", default=[],
@@ -437,6 +480,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run against a live Kubernetes apiserver (watch + "
                         "paged list informer plane); 'in-cluster' uses the "
                         "service-account environment")
+    p.add_argument("--evaluate-sidecar", default="",
+                   help="host:port of a device-owning Evaluate sidecar "
+                        "(python -m gatekeeper_tpu_torch.rpc.sidecar); this "
+                        "process then runs the control plane only: no "
+                        "local accelerator, its own lanes on the host "
+                        "(--device cuda is refused)")
     p.add_argument("--management-manifests", default="",
                    help="remote-cluster mode: status/secret state routes to "
                         "a separate management cluster seeded from this "
@@ -506,6 +555,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "host (epilogue), 'differential' runs both per "
                         "chunk and raises on any difference")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   action=_DeviceAction,
                    help="cuda (default) runs the hand-written kernels and "
                         "the grid evaluator on the card; cpu runs their "
                         "plain PyTorch versions")
@@ -1122,7 +1172,10 @@ def run(args, workers=()) -> int:
     the boot and drain order are in the module docstring."""
     from gatekeeper_tpu_torch import resolve_device
 
-    resolve_device(args.device)  # no card and no --device cpu: raise now
+    if not args.evaluate_sidecar:
+        # no card and no --device cpu: raise now (behind a sidecar the
+        # control plane owns no device)
+        resolve_device(args.device)
     from gatekeeper_tpu_torch.observability.slo import SLOConfigError
 
     try:
@@ -1151,13 +1204,32 @@ def _run(args, hooks: Hooks, workers) -> int:
     metrics = hooks.metrics
     operations = args.operation or list(ALL_OPERATIONS)
     compile_cache = None
-    if args.compile_cache:
-        from gatekeeper_tpu_torch.drivers.generation import CompileCache
+    if args.evaluate_sidecar:
+        client, driver = sidecar_client(args.evaluate_sidecar)
+        # the sidecar may still be initializing its device: wait for the
+        # channel instead of crash-looping on a race
+        import grpc
 
-        compile_cache = CompileCache(args.compile_cache, metrics=metrics)
-    client, driver = new_client(
-        device=args.device, generation_swap=args.generation_swap == "on",
-        compile_cache=compile_cache, metrics=metrics)
+        try:
+            grpc.channel_ready_future(driver._channel).result(timeout=120)
+            print(f"evaluation plane: sidecar {args.evaluate_sidecar} "
+                  f"({driver.dump()['sidecar']})", file=sys.stderr)
+        except Exception as e:
+            print(f"evaluate sidecar unreachable after 120s: {e}",
+                  file=sys.stderr)
+            driver.close()
+            return 1
+    else:
+        if args.compile_cache:
+            from gatekeeper_tpu_torch.drivers.generation import \
+                CompileCache
+
+            compile_cache = CompileCache(args.compile_cache,
+                                         metrics=metrics)
+        client, driver = new_client(
+            device=args.device,
+            generation_swap=args.generation_swap == "on",
+            compile_cache=compile_cache, metrics=metrics)
     if args.shadow_candidate and not args.once:
         start_shadow(args, client, hooks)
     cluster, kube_cluster = build_cluster(args, metrics)
@@ -1192,7 +1264,8 @@ def _run(args, hooks: Hooks, workers) -> int:
                 args, client, driver, cluster, kube_cluster=kube_cluster,
                 expansion_system=ctl.expansion_system, extdata_lane=lane,
                 export_system=export, metrics=metrics)
-            if args.compile_cache and not args.once:
+            if args.compile_cache and not args.evaluate_sidecar \
+                    and not args.once:
                 from gatekeeper_tpu_torch.drivers.generation import \
                     WarmStateCache
 
@@ -1217,8 +1290,10 @@ def _run(args, hooks: Hooks, workers) -> int:
         finally:
             sys.setswitchinterval(switch_s)
     finally:
-        if driver.gen_coord is not None:
+        if getattr(driver, "gen_coord", None) is not None:
             driver.gen_coord.stop()
+        if args.evaluate_sidecar:
+            driver.close()
         if ingester is not None:
             ingester.stop()
         if kube_cluster is not None:
@@ -1244,7 +1319,7 @@ def start_shadow(args, client, hooks: Hooks) -> None:
         docs = reader.read_sources(args.shadow_candidate)
         runtime = core.load_candidate(
             docs, compile_cache_dir=args.compile_cache,
-            metrics=hooks.metrics, device=args.device)
+            metrics=hooks.metrics, device=local_device(args))
         recorder = None
         if args.shadow_sink:
             recorder = flightrec.FlightRecorder(
@@ -1347,16 +1422,31 @@ def audit_plane(args, client, driver, cluster, kube_cluster=None,
     runs go to ``export_system`` and, with ``--emit-audit-events``, to
     Events on ``cluster``."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
-    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
     from gatekeeper_tpu_torch.pipeline import (effective_cpu_count,
                                                resolve_schedule)
 
-    evaluator = SweepEvaluator(
-        driver, device=args.device,
-        violations_limit=args.constraint_violations_limit,
-        collect=args.collect, flatten_lane=args.flatten_lane,
-        flatten_workers=args.flatten_workers, metrics=metrics)
-    relist = args.audit_source == "relist"
+    audit_source = args.audit_source
+    if args.evaluate_sidecar:
+        from gatekeeper_tpu_torch.drivers.remote import RemoteEvaluator
+
+        evaluator = RemoteEvaluator(
+            driver, violations_limit=args.constraint_violations_limit)
+        if audit_source == "snapshot":
+            # the snapshot lane slices resident columns into device
+            # chunks locally; the sidecar's RPC evaluator has no such seam
+            print("--audit-source snapshot needs a local evaluator; "
+                  "falling back to relist", file=sys.stderr)
+            audit_source = "relist"
+    else:
+        from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+        evaluator = SweepEvaluator(
+            driver, device=args.device,
+            violations_limit=args.constraint_violations_limit,
+            collect=args.collect, flatten_lane=args.flatten_lane,
+            flatten_workers=args.flatten_workers, metrics=metrics)
+    # the sidecar lane and the snapshot's ticks run serially
+    relist = audit_source == "relist" and not args.evaluate_sidecar
     print(f"audit schedule: {resolve_schedule(args.pipeline, relist)} "
           f"(--pipeline {args.pipeline}, {effective_cpu_count()} effective "
           f"cores)", file=sys.stderr)
@@ -1381,14 +1471,14 @@ def audit_plane(args, client, driver, cluster, kube_cluster=None,
         chunk_size=args.audit_chunk_size,
         pipeline=args.pipeline,
         pipeline_flatten_workers=args.pipeline_flatten_workers,
-        audit_source=args.audit_source,
+        audit_source=audit_source,
         resync_every=args.snapshot_resync_every,
         resync_rotate=args.snapshot_resync_rotate,
         expand_generated=args.audit_expand)
     seams = {"expansion_system": expansion_system, "metrics": metrics,
              "export_system": export_system, "event_sink": event_sink,
              "log_violations": args.log_denies}
-    if args.audit_source != "snapshot":
+    if audit_source != "snapshot":
         return AuditManager(client, lister=lister, config=config,
                             evaluator=evaluator, **seams), None
     from gatekeeper_tpu_torch.apis.constraints import AUDIT_EP
@@ -1431,7 +1521,7 @@ def audit_plane(args, client, driver, cluster, kube_cluster=None,
                                  file=sys.stderr)).start()
     residency = DeviceResidency(evaluator, mode=args.snapshot_residency,
                                 metrics=metrics)
-    if driver.gen_coord is not None:
+    if getattr(driver, "gen_coord", None) is not None:
         # a swap drops the device mirrors at once (new schemas)
         driver.gen_coord.attach_residency(residency)
     spiller = None
@@ -1480,8 +1570,9 @@ def start_audit_loop(audit_mgr):
     the vocab's lock is armed first."""
     import threading
 
-    vocab = audit_mgr.evaluator.driver.vocab
-    if vocab._lock is None:
+    # (behind a sidecar the control plane has no vocab)
+    vocab = getattr(audit_mgr.evaluator.driver, "vocab", None)
+    if vocab is not None and vocab._lock is None:
         vocab._lock = threading.RLock()
     auditor = threading.Thread(target=audit_mgr.run_forever,
                                name="audit-loop", daemon=True)
@@ -1509,7 +1600,7 @@ def mutation_handler(args, mutation_system, namespace_lookup,
 
     lane = MutationLane(mutation_system,
                         differential=args.mutate_lane == "differential",
-                        device=args.device, ingest=args.mutate_ingest,
+                        device=local_device(args), ingest=args.mutate_ingest,
                         coordinator=coordinator, metrics=metrics)
     batcher = MutationBatcher(lane, metrics=metrics).start()
     return BatchedMutationHandler(

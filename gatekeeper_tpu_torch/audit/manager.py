@@ -182,9 +182,13 @@ def violation_rows(bits_or_hits, ci: int, n: int) -> np.ndarray:
 def _sweep_ready(pending) -> bool:
     """True when a submitted sweep's result needs no further wait
     (non-blocking).  Empty submits ({}) are always ready; local sweeps
-    answer through their CUDA event."""
+    answer through their CUDA event, RPC replies (RemoteEvaluator)
+    through ``done()``."""
     ready = getattr(pending, "ready", None)
-    return ready() if callable(ready) else True
+    if callable(ready):
+        return ready()
+    done = getattr(pending, "done", None)
+    return done() if callable(done) else True
 
 
 class AuditManager:
@@ -338,8 +342,9 @@ class AuditManager:
 
     def _annotate_run(self, run: AuditRun) -> None:
         """Stamp the pass's ingest and dispatch geometry onto the run (one
-        device: the port's sweep runs on one card)."""
-        run.n_devices = 1 if self.evaluator is not None else 0
+        device: the port's sweep runs on one card; none in this process
+        behind the sidecar lane)."""
+        run.n_devices = 1 if self._local_evaluator() else 0
         run.flatten_workers = int(
             getattr(self.evaluator, "flatten_workers", 0) or 0)
 
@@ -360,13 +365,13 @@ class AuditManager:
         limit = self.config.violations_limit
         kept: dict = {(c.kind, c.name): [] for c in constraints}
         totals: dict = {(c.kind, c.name): 0 for c in constraints}
-        device = self.evaluator is not None and self._render_driver() \
-            is not None
+        device = self._device_lane() or self._sidecar_lane()
         from gatekeeper_tpu_torch.pipeline import resolve_schedule
 
-        # staged-pipeline eligibility: an evaluator exposing the split
-        # flatten/dispatch stages; the interpreter lane stays serial
-        device_capable = (device
+        # staged-pipeline eligibility: a local evaluator exposing the
+        # split flatten/dispatch stages; the sidecar lane (renders=True,
+        # RPC replies) and the interpreter lane stay serial
+        device_capable = (self._device_lane()
                           and hasattr(self.evaluator, "sweep_flatten")
                           and hasattr(self.evaluator, "sweep_dispatch"))
         schedule = resolve_schedule(self.config.pipeline, device_capable)
@@ -441,6 +446,22 @@ class AuditManager:
             None,
         )
 
+    def _sidecar_lane(self) -> bool:
+        """The evaluator is the Evaluate sidecar's (``RemoteEvaluator``):
+        its Sweep RPC renders the kept violations and covers every
+        constraint, so this process neither routes, renders nor touches a
+        device."""
+        return getattr(self.evaluator, "renders", False) is True
+
+    def _local_evaluator(self) -> bool:
+        """An evaluator on this process's device (not the sidecar's)."""
+        return self.evaluator is not None and not self._sidecar_lane()
+
+    def _device_lane(self) -> bool:
+        """A local evaluator with the driver that renders its hits."""
+        return (self._local_evaluator()
+                and self._render_driver() is not None)
+
     def _chunk_source(self, constraints, use_router, counter):
         """Yield ``(objects, constraint_subset)`` sweep chunks in canonical
         order.
@@ -507,8 +528,10 @@ class AuditManager:
         # ship zero kept coordinates.  Read at dispatch time the budget is
         # always >= the fold-time remainder, so the device selection stays
         # a superset of what the fold keeps.
+        # the sidecar lane's Sweep RPC takes no budget and no routing
+        local = device and not self._sidecar_lane()
         budget_fn = None
-        if device:
+        if local:
             budget_fn = (lambda con:
                          limit - len(kept.get(con.key(), ())))
         retries = max(0, self.config.chunk_retries)
@@ -537,7 +560,7 @@ class AuditManager:
         def submit_once(objs, cons):
             return self.evaluator.sweep_submit(
                 cons, objs, return_bits=self.config.exact_totals,
-                budget=budget_fn)
+                **({"budget": budget_fn} if budget_fn is not None else {}))
 
         def fold_oldest():
             # retry covers the non-mutating phases ONLY (submit/collect):
@@ -619,7 +642,7 @@ class AuditManager:
                             last = e
                     chunk_failed(last, "interp")
 
-        src = iter(self._chunk_source(constraints, device, counter))
+        src = iter(self._chunk_source(constraints, local, counter))
         chunk_i = -1
         while True:
             try:
@@ -818,11 +841,14 @@ class AuditManager:
             if d is None:
                 continue  # no template: constraint cannot be evaluated
             by_driver.setdefault(id(d), (d, []))[1].append(con)
-        device = self.evaluator.device if self.evaluator is not None else None
+        # on the local sweep's device; without one (no evaluator, or the
+        # sidecar's, whose RemoteDriver takes no device) the driver's own
+        on_device = ({"device": self.evaluator.device}
+                     if self._local_evaluator() else {})
         cfg = ReviewCfg(enforcement_point=AUDIT_EP)
         for d, cons in by_driver.values():
             responses = d.query_batch(target.name, cons, reviews, cfg,
-                                      device=device)
+                                      **on_device)
             for oi, resp in enumerate(responses):
                 for r in resp.results:
                     key = (r.constraint.get("kind", ""),
@@ -879,6 +905,20 @@ class AuditManager:
         """Fold one chunk's device results into the run state and run the
         non-lowered kinds through the exact engine.  ``source``/
         ``overrides`` as in :meth:`_audit_chunk`."""
+        if self._sidecar_lane():
+            # the Sweep RPC already rendered the kept violations and
+            # covered every constraint (non-lowered kinds included):
+            # ``swept`` is {(kind, name): (total, [(oi, msg, details)])}
+            for key, (total, kept_list) in swept.items():
+                if key not in totals:
+                    continue
+                totals[key] += total
+                con = self.client.get_constraint(*key)
+                for oi, msg, details in kept_list:
+                    if con is not None and len(kept[key]) < limit:
+                        kept[key].append(
+                            self._violation(con, objects[oi], msg, details))
+            return
         target = self.client.target
         review_cache: dict = {}
 
@@ -1310,7 +1350,7 @@ class AuditManager:
         out: dict = {}
         swept: dict = {}
         ev = self.evaluator
-        if ev is not None and objects:
+        if self._local_evaluator() and objects:
             flat = ev.sweep_flatten(constraints, objects,
                                     return_bits=True, source=source)
             if flat:
@@ -1441,8 +1481,7 @@ class AuditManager:
             constraints = self._audit_constraints()
             kept_f: dict = {c.key(): [] for c in constraints}
             totals_f: dict = {c.key(): 0 for c in constraints}
-            device = self.evaluator is not None \
-                and self._render_driver() is not None
+            device = self._device_lane() or self._sidecar_lane()
             fresh = AuditRun(timestamp=run.timestamp)
             gen_stage = self._gen_stage()
             self._gen_reset(gen_stage is not None)
@@ -1533,8 +1572,10 @@ class AuditManager:
         if self._expansion_stage is None:
             from gatekeeper_tpu_torch.mutlane import ExpansionStage
 
-            device = (self.evaluator.device if self.evaluator is not None
-                      else "cuda")
+            # the sidecar lane's control plane owns no card: its stage's
+            # prefilter runs on the host
+            device = (self.evaluator.device if self._local_evaluator()
+                      else "cpu" if self._sidecar_lane() else "cuda")
             self._expansion_stage = ExpansionStage(self.expansion_system,
                                                    device=device)
         return self._expansion_stage
@@ -1633,7 +1674,9 @@ class AuditManager:
         chunk_size = max(1, self.config.chunk_size)
         retries = max(0, self.config.chunk_retries)
         ev = self.evaluator
-        device = ev is not None and self._render_driver() is not None
+        # the sidecar lane evaluates resultants through the drivers (its
+        # RemoteDriver's QueryBatch), as the JAX manager does
+        device = self._device_lane()
 
         def fold(objs, cons, overrides):
             last = None

@@ -1,17 +1,23 @@
 """The port stands alone: no module of gatekeeper_tpu_torch/, not
 chip_smoke.py and no ``tools/torch_*.py`` (the port's own tools, such as
 ``tools/torch_soak.py``) imports ``jax`` or anything of the JAX package
-(``gatekeeper_tpu``), at module level or inside a function.  The port's
-entry points run on the card unless the caller asks for the CPU."""
+(``gatekeeper_tpu``), at module level or inside a function, and none
+imports ``grpc`` or ``google`` (protobuf) at module level: the card's
+host is not promised either, so only the functions that start a gRPC
+server or channel import ``grpc``.  The port's entry points run on the
+card unless the caller asks for the CPU."""
 
 import ast
 import glob
 import os
+import subprocess
+import sys
 
 import pytest
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "gatekeeper_tpu")
+ABSENT_ON_THE_CARD_HOST = ("grpc", "google")
 
 
 def _port_files():
@@ -43,6 +49,73 @@ def test_port_file_imports_no_jax(path):
     bad = [m for m in _imported_modules(tree)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def _module_level_imports(tree):
+    """The modules ``tree`` imports outside any function body."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module or ""
+            yield from walk(child)
+    return list(walk(tree))
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_port_file_imports_no_grpc_or_protobuf_at_module_level(path):
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = [m for m in _module_level_imports(tree)
+           if m.split(".")[0] in ABSENT_ON_THE_CARD_HOST]
+    assert not bad, f"{path} imports {bad} at module level"
+
+
+def test_module_level_lint_sees_grpc_and_skips_functions():
+    tree = ast.parse("import grpc\n"
+                     "if True:\n    from google.protobuf import message\n"
+                     "def f():\n    import grpc\n"
+                     "class C:\n    def g(self):\n        import grpc\n")
+    assert _module_level_imports(tree) == ["grpc", "google.protobuf"]
+
+
+_IMPORT_ALL = r"""
+import importlib, os, sys
+sys.modules["grpc"] = None
+sys.modules["google.protobuf"] = None
+root = sys.argv[1]
+names = []
+for dirpath, _dirs, files in os.walk(
+        os.path.join(root, "gatekeeper_tpu_torch")):
+    for f in sorted(files):
+        if not f.endswith(".py"):
+            continue
+        rel = os.path.relpath(os.path.join(dirpath, f), root)[:-3]
+        name = rel.replace(os.sep, ".").removesuffix(".__init__")
+        if name.endswith("gator.__main__"):
+            continue  # runs the gator CLI when imported
+        names.append(name)
+for name in sorted(names):
+    importlib.import_module(name)
+for name in ("grpc", "google.protobuf"):
+    assert sys.modules[name] is None, name
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_grpc_or_protobuf():
+    """Every module of the port (the sidecar and its client included)
+    imports in a process where ``grpc`` and ``google.protobuf`` cannot."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL, ROOT],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) > 100
 
 
 def test_lint_sees_forbidden_imports():

@@ -6,9 +6,9 @@ lints only the JAX package):
 - the port's ``metrics/registry.py`` constants equal the JAX ones, name
   for name and value for value;
 - every registry constant the port emits is one the JAX package emits,
-  and the port emits every one the JAX package emits outside the modules
-  it has not ported (``rpc/``) — the fleet's ``FLEET_*``, the shadow
-  lane's ``SHADOW_*`` and the soak's ``FUZZ_*`` included;
+  and the port emits every one the JAX package emits (``NOT_PORTED_DIRS``
+  and ``NOT_PORTED_FILES`` are empty) — the fleet's ``FLEET_*``, the
+  shadow lane's ``SHADOW_*`` and the soak's ``FUZZ_*`` included;
 - the same holds for the names of tracing spans."""
 
 import ast
@@ -20,7 +20,7 @@ ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 NOT_PORTED_SITES: set = set()
 # JAX package directories and files with no port yet: their sites, metrics
 # and spans are not expected of the port
-NOT_PORTED_DIRS = ("rpc",)
+NOT_PORTED_DIRS: tuple = ()
 NOT_PORTED_FILES = ()
 
 _SITE = re.compile(r"""fault_point\(\s*f?["']([^"']+)["']""")
