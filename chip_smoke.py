@@ -25,7 +25,7 @@ Phases (any failure raises and exits non-zero):
    (plain versions) must equal the card's run on the first 4,096 objects;
 4. pipeline: the audit's host path, on the first 40,960 of the path
    phase's objects (``DEPTH_OBJECTS``, two chunks, cut from 131,072 and
-   then 65,536 for the time limit; phases 6, 7, 8, 10 (b)-(c) and 16 run on them too, and
+   then 65,536 for the time limit; phases 6, 7, 8, 10 (b)-(c), 15 (c) and 17 run on them too, and
    their relist on both lanes, which must agree, stands for the path
    phase's run in every comparison of those phases), reduced lane: (a0) a dict lister on the default schedule (``auto``, which
    resolves to serial: the port's stages share the interpreter lock) and
@@ -329,14 +329,40 @@ Phases (any failure raises and exits non-zero):
    RPC's wall and bytes, the codec's encode and decode seconds, the
    seam's objects/s beside the path phase's, and whether ``grpc`` and
    ``google.protobuf`` import on the host;
-15. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
-   hooks, kube, gator, canary and sidecar phases): as phase 5, at the
-   (C, N, k) the pipeline, snapshot, expand, extdata, lifecycle, hooks,
-   kube, gator, canary and sidecar paths launched too;
-16. profile: the reduced-lane audit of the pipeline phase's objects once
+15. mesh (multi-device / multi-process): the sweep's object axis split
+   over a device mesh (``parallel/mesh.py``), each shard folded by the
+   same hand-written kernels and the shards merged lowest index first on
+   the host.  (a) a mesh of two shards on ``cuda:0`` (and one over every
+   card when the host has more than one) with ``shard_chunks=2`` over
+   the path phase's objects on the reduced lane, chunks of 32,768 a
+   shard: totals, kept lists in order and messages equal to the path
+   phase's run (beside (b)'s processes); every shard folds every
+   dispatched chunk (``fused_fold``,
+   or ``epilogue`` where an overflow re-dispatches it), counted per
+   shard, and no ``torch.topk`` runs; then exact totals on the first
+   1,024 objects (``MESH_EXACT_OBJECTS``: the host's render bounds it)
+   over the mesh and on one device, equal in order.  (b) three ``python
+   -m gatekeeper_tpu_torch --once --shard-chunks 2`` processes over the
+   library and the first 4,096 objects (with a Config syncing Ingresses):
+   ranks 0 and 1 of ``--coordinator 127.0.0.1:P --num-processes 2``, both
+   on ``cuda:0`` (a 2-shard mesh whose results meet in one gloo gather per
+   chunk), and one process alone; both ranks must print the
+   ``joined global mesh`` line and the alone process's summary byte for
+   byte.  Prints each rank's wall and its gathers' share of it; each has
+   a timeout, and all three are killed if one fails.  (c) the wire
+   narrowing: ``warm_pass`` over the first 40,960 objects, then their
+   reduced-lane relist with the corpus stats and without (both beside
+   (b)), equal to the depth relist in order, with fewer wire bytes;
+   prints ``wire_bytes``, ``h2d_bytes``, ``upload`` and ``wire_pack``
+   of both and of the depth relist (no gate on speed);
+16. shapes (after the pipeline, snapshot, expand, extdata, lifecycle,
+   hooks, kube, gator, canary, sidecar and mesh phases): as phase 5, at
+   the (C, N, k) the pipeline, snapshot, expand, extdata, lifecycle,
+   hooks, kube, gator, canary, sidecar and mesh paths launched too;
+17. profile: the reduced-lane audit of the pipeline phase's objects once
    more under ``torch.profiler``,
    for the device's busy share of the audit wall and its top kernels;
-17. admission: the library (all 46 templates and their sample
+18. admission: the library (all 46 templates and their sample
    constraints, the Ingresses of the traffic synced as inventory) served
    by the port's
    ``WebhookServer`` on 127.0.0.1 with ``TorchDriver(device="cuda")``, a
@@ -363,7 +389,7 @@ Phases (any failure raises and exits non-zero):
    admissions/s, p50/p99 latency, the batch-size histogram, the lane
    counts, the DELETE count, the CEL hits per grid batch and the medians
    of the grid batches' ``flattenNS``/``batchEvalNS``/``totalNS``;
-18. served: the served process's two threads on one driver and vocab, as
+19. served: the served process's two threads on one driver and vocab, as
    ``python -m gatekeeper_tpu_torch --audit-source snapshot --port ...``
    runs them (``__main__.build_audit`` and ``start_audit_loop``): the
    webhook answers up to 512 of the admission bodies (cut from 1,024 so
@@ -374,7 +400,7 @@ Phases (any failure raises and exits non-zero):
    take an admission's new strings for its own, a final resync must find
    no difference, the vocab must stay a bijection, every lowered group
    must be resident and no chunk may take the host-column path;
-19. mutate: the admission bodies posted to ``/v1/mutate`` of a
+20. mutate: the admission bodies posted to ``/v1/mutate`` of a
    ``WebhookServer`` on the card (the batched ``MutationLane`` behind a
    ``MutationBatcher``, the bench's 8 mutators) by 64 keep-alive clients in
    8 processes.  Every answer must equal the per-object
@@ -388,7 +414,7 @@ Phases (any failure raises and exits non-zero):
    through ``MutationLane`` under each ingest lane (``dict``, ``raw``,
    ``differential``), whose outcomes must be equal.  (``/v1/admit`` with
    the expansion system is served and held in the admission phase);
-20. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
+21. report: a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}``
    last.
    ``launches`` counts the relist path's launches, ``pipeline_launches``
    those inside the pipeline phase's pipelined sweeps, ``snapshot_launches``
@@ -404,7 +430,8 @@ Phases (any failure raises and exits non-zero):
    runs on the card (not its references), ``canary_launches`` those of the
    canary phase's in-process fleet passes, replay and soak runs (not its
    child processes), ``sidecar_launches`` those of the sidecar phase's
-   card servicer, (b)-(e).
+   card servicer, (b)-(e), ``mesh_launches`` those of the mesh phase's
+   in-process sweeps, (a) and (c) (not (b)'s processes).
    The served and lifecycle (e) phases pass ``HOOKS_OFF`` to the CLI: the
    configuration they measured before the CLI had the hooks.
 
@@ -890,25 +917,27 @@ def path_phase(n_objects: int) -> tuple:
 DEPTH_OBJECTS = 40960
 
 
-def depth_references(objects, relist_runs) -> tuple:
-    """The first ``DEPTH_OBJECTS`` objects and their relist runs on both
+def depth_references(objects, relist_runs, timings) -> tuple:
+    """The first ``DEPTH_OBJECTS`` objects, their relist runs on both
     collect lanes (the path phase's own where it has no more objects),
-    which must agree."""
+    which must agree, and each lane's (seconds, phases)."""
     deep = objects[:DEPTH_OBJECTS]
     if len(deep) == len(objects):
-        return deep, relist_runs
+        return deep, relist_runs, timings
     runs = {}
+    deep_timings = {}
     for collect in ("reduced", "masks"):
-        run, _phases, dt = audit(deep, "cuda", collect)
+        run, phases, dt = audit(deep, "cuda", collect)
         if run.incomplete or run.total_objects != len(deep):
             raise AssertionError(f"depth[{collect}] result is not sane")
         runs[collect] = run
+        deep_timings[collect] = (dt, phases)
         log(f"depth[{collect}]: {run.total_objects} objects, "
             f"{sum(run.total_violations.values())} violations, {dt:.3f}s")
     if summary(runs["reduced"]) != summary(runs["masks"]):
         raise AssertionError(f"depth: the lanes disagree on the first "
                              f"{len(deep)} objects")
-    return deep, runs
+    return deep, runs, deep_timings
 
 
 # --- the audit's host path: schedules, lanes, worker processes --------------
@@ -6938,6 +6967,356 @@ def sidecar_phase(objects, path_ref, path_s: float, card: str,
     return launches, {k: dict(v) for k, v in shapes.items()}, record
 
 
+# --- the sweep over a mesh and across processes ------------------------------
+MESH_SHARDS = 2          # (a): shards of the in-process mesh on cuda:0
+MESH_CHUNK = 32768       # (a), (c): objects a chunk (a shard's in (a))
+MESH_SHARD_CHUNKS = 2    # (a), (b): --shard-chunks
+MESH_CLI_OBJECTS = 4096  # (b): objects of the CLI processes' manifests
+MESH_EXACT_OBJECTS = 1024  # (a): objects of the exact-totals pair (the
+                           # host's render bounds it)
+MESH_CLI_TIMEOUT_S = 300.0
+MESH_DIR = os.path.join(ROOT_DIR, "_mesh")
+FOLD_KERNELS = ("fused_fold", "epilogue")
+
+
+def mesh_audit(objects, device: str, exact: bool, devices=None,
+               shard_chunks: int = MESH_SHARD_CHUNKS, per_shard=None,
+               warm: bool = False) -> tuple:
+    """(run, seconds, evaluator, warm seconds): the library audit of
+    ``objects`` on the reduced lane, chunks of MESH_CHUNK, over a mesh of
+    ``devices`` (None: one shard on ``device``) with ``shard_chunks``;
+    ``per_shard`` (a Counter) receives each shard's fold launches,
+    ``warm`` runs ``warm_pass`` over the objects first (the wire
+    narrowing)."""
+    from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.ops import fold
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
+    from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
+
+    client, driver, _nt, _nc = _client(objects, device=device)
+    mesh = None if devices is None else make_mesh(device=device,
+                                                  devices=devices)
+    ev = SweepEvaluator(driver, device=device, violations_limit=20,
+                        collect="reduced", mesh=mesh)
+    if per_shard is not None:
+        fold_fn = ev._fold
+
+        def counted(raw, mask, plan, budget, n, shard=0):
+            before = {k: getattr(fold, k).launches for k in FOLD_KERNELS}
+            part = fold_fn(raw, mask, plan, budget, n, shard)
+            for k in FOLD_KERNELS:
+                per_shard[(shard, k)] += getattr(fold, k).launches - \
+                    before[k]
+            return part
+
+        ev._fold = counted
+    warm_s = 0.0
+    if warm:
+        t0 = time.perf_counter()
+        ev.warm_pass(client.constraints(), objects, MESH_CHUNK)
+        _sync(device)
+        warm_s = time.perf_counter() - t0
+        ev.perf_reset()
+    mgr = AuditManager(client, lister=lambda: iter(objects),
+                       config=AuditConfig(violations_limit=20,
+                                          chunk_size=MESH_CHUNK,
+                                          exact_totals=exact,
+                                          submit_window=4,
+                                          shard_chunks=shard_chunks),
+                       evaluator=ev)
+    t0 = time.perf_counter()
+    run = mgr.audit()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    _schedule_held(f"mesh audit ({len(objects)} objects)", mgr.perf)
+    if run.incomplete or run.total_objects != len(objects) or \
+            run.n_devices != ev.mesh.size:
+        raise AssertionError(
+            f"mesh audit: incomplete {run.incomplete}, {run.total_objects} "
+            f"of {len(objects)} objects, n_devices {run.n_devices}")
+    return run, dt, ev, warm_s
+
+
+def _same_verdicts_in_order(label: str, run, ref) -> None:
+    """``run`` equals ``ref`` = (kept, totals) canonically and with every
+    kept list in its order."""
+    from gatekeeper_tpu_torch.audit.manager import AuditManager
+
+    diff = AuditManager._verdicts_differ_canonical(
+        run.kept, run.total_violations, ref[0], ref[1], 20)
+    if diff:
+        raise AssertionError(f"{label}: {diff}")
+    if _kept_summary(run.kept, run.total_violations) != \
+            _kept_summary(ref[0], ref[1]):
+        raise AssertionError(f"{label}: the kept lists differ in order")
+
+
+def mesh_cli_start(objects, device: str) -> tuple:
+    """(b): three ``python -m gatekeeper_tpu_torch --once --shard-chunks
+    2`` processes over the library and a manifest of ``objects`` (with a
+    Config syncing Ingresses, the audit's inventory): ranks 0 and 1 of
+    ``--coordinator 127.0.0.1:P --num-processes 2``, and one process
+    alone.  Returns [(name, Popen, start time)]."""
+    from gatekeeper_tpu_torch.utils.synthetic import library_dir
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    path = os.path.join(MESH_DIR, "objects.yaml")
+    with open(path, "w") as f:
+        f.write("\n---\n".join(json.dumps(o)
+                               for o in [KUBE_CONFIG, *objects]))
+    base = [sys.executable, "-m", "gatekeeper_tpu_torch", "--manifests",
+            library_dir(), "--manifests", path, "--once", "--shard-chunks",
+            str(MESH_SHARD_CHUNKS)]
+    if device == "cpu":
+        base += ["--device", "cpu"]
+    port = _free_port()
+    env = dict(os.environ, GATEKEEPER_DIST_TIMEOUT_S=str(
+        int(MESH_CLI_TIMEOUT_S)))
+    started = []
+    for name, extra in (
+            ("rank 0", ["--coordinator", f"127.0.0.1:{port}",
+                        "--num-processes", "2", "--process-id", "0"]),
+            ("rank 1", ["--coordinator", f"127.0.0.1:{port}",
+                        "--num-processes", "2", "--process-id", "1"]),
+            ("alone", [])):
+        started.append((name, subprocess.Popen(
+            base + extra, cwd=ROOT_DIR, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), time.perf_counter()))
+    return started
+
+
+def mesh_cli_end(started, card: str) -> dict:
+    """(b)'s gates: every process exits 0; both ranks join, report a
+    2-shard mesh and print the summary of the process alone, byte for
+    byte.  Returns each process's wall, audit line and gather share."""
+    out: dict = {}
+    try:
+        for name, proc, t0 in started:
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, MESH_CLI_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"mesh (b): {name} ran past "
+                                     f"{MESH_CLI_TIMEOUT_S}s")
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh (b): {name} exited "
+                                     f"{proc.returncode}: {stderr[-3000:]}")
+            m = re.search(r"audit: (\d+) objects, (\d+) violations in "
+                          r"([0-9.]+)s \(flatten_workers=\d+, n_devices=(\d+)"
+                          r", shard_chunks=(\d+)\)", stderr)
+            if not m:
+                raise AssertionError(f"mesh (b): {name} printed no audit "
+                                     f"line: {stderr[-3000:]}")
+            rec = {"stdout": stdout, "wall_s": wall,
+                   "objects": int(m.group(1)), "violations": int(m.group(2)),
+                   "audit_s": float(m.group(3)),
+                   "n_devices": int(m.group(4)),
+                   "shard_chunks": int(m.group(5))}
+            joined = [ln for ln in stderr.splitlines()
+                      if ln.startswith("joined global mesh")]
+            g = re.search(r"mesh gather: (\d+) gathers, ([0-9.]+)s of the "
+                          r"audit's ([0-9.]+)s, (\d+) bytes sent", stderr)
+            if name != "alone":
+                if joined != [f"joined global mesh: process "
+                              f"{name[-1]}/2"] or not g \
+                        or rec["n_devices"] != 2:
+                    raise AssertionError(f"mesh (b): {name}: joined "
+                                         f"{joined}, gather line {bool(g)}, "
+                                         f"n_devices {rec['n_devices']}")
+                rec.update(joined=joined[0], gathers=int(g.group(1)),
+                           gather_s=float(g.group(2)),
+                           gather_bytes=int(g.group(4)))
+            elif joined or g or rec["n_devices"] != 1:
+                raise AssertionError(f"mesh (b): the process alone joined "
+                                     f"a mesh: {stderr[-2000:]}")
+            out[name] = rec
+    finally:
+        for _name, proc, _t0 in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    alone = out["alone"]
+    for name in ("rank 0", "rank 1"):
+        rec = out[name]
+        if (rec["stdout"], rec["objects"], rec["violations"]) != \
+                (alone["stdout"], alone["objects"], alone["violations"]):
+            raise AssertionError(f"mesh (b): {name}'s summary differs from "
+                                 f"the process alone's")
+        log(f"mesh (b): {rec['joined']}; wall {rec['wall_s']:.3f}s, audit "
+            f"{rec['audit_s']:.3f}s, {rec['gathers']} gloo gathers "
+            f"{rec['gather_s']:.3f}s ({rec['gather_s'] / rec['wall_s']:.4f} "
+            f"of the wall, {rec['gather_s'] / max(rec['audit_s'], 1e-9):.4f}"
+            f" of the audit), {rec['gather_bytes']} bytes sent; "
+            f"{rec['objects']} objects, {rec['violations']} violations")
+    if alone["violations"] <= 0 or alone["stdout"].count("\n") < 100:
+        raise AssertionError("mesh (b): the summary is not sane")
+    log(f"mesh (b): both ranks printed the summary of the process alone "
+        f"({alone['objects']} objects, {alone['violations']} violations, "
+        f"{alone['stdout'].count(chr(10))} kept lines; its wall "
+        f"{alone['wall_s']:.3f}s, audit {alone['audit_s']:.3f}s) ({card})")
+    for rec in out.values():
+        del rec["stdout"]
+    return out
+
+
+def mesh_phase(objects, path_ref, path_s: float, deep, deep_ref, card: str,
+               device: str = "cuda") -> tuple:
+    """The sweep over a device mesh and across processes: (launches,
+    shapes, record).  ``path_ref``: the path phase's reduced-lane (kept,
+    totals), ``path_s`` its wall; ``deep_ref``: the depth relist's
+    reduced-lane (kept, totals, (seconds, phases))."""
+    import shutil
+
+    from gatekeeper_tpu_torch.ops import fold
+
+    launches = {k: 0 for k in FOLD_KERNELS}
+    shapes = {k: collections.Counter() for k in FOLD_KERNELS}
+    record: dict = {"walls": {}}
+    t_phase = t0 = time.perf_counter()
+
+    def step(name: str, t: float) -> float:
+        record["walls"][name] = time.perf_counter() - t
+        log(f"mesh: {name} in {record['walls'][name]:.3f}s")
+        return time.perf_counter()
+
+    on_card = ["cuda:0"] * MESH_SHARDS if device == "cuda" \
+        else ["cpu"] * MESH_SHARDS
+    # (a) a 2-shard mesh on one card over the path phase's objects: no
+    # torch.topk may run (the plain fold); every shard folds every chunk
+    topk_calls = [0]
+    real_topk = torch.topk
+
+    def counted_topk(*args, **kwargs):
+        topk_calls[0] += 1
+        return real_topk(*args, **kwargs)
+
+    meshes = [("a", on_card)]
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        meshes.append(("a, every card", [f"cuda:{i}" for i in range(
+            torch.cuda.device_count())]))
+    started = []
+    try:
+        # (b) the CLI across two processes and alone, beside (a) and (c):
+        # its boots and exact-totals passes are the phase's longest wall
+        started = mesh_cli_start(objects[:MESH_CLI_OBJECTS], device)
+        for label, devices in meshes:
+            per_shard = collections.Counter()
+            torch.topk = counted_topk
+            try:
+                run, dt, ev, _w = _fold_counted(mesh_audit, launches,
+                                                shapes)(
+                    objects, device, False, devices, per_shard=per_shard)
+            finally:
+                torch.topk = real_topk
+            _same_verdicts_in_order(f"mesh ({label})", run, path_ref)
+            d = len(devices)
+            for s in range(d):
+                got = per_shard[(s, "fused_fold")] + \
+                    per_shard[(s, "epilogue")]
+                if device == "cuda" and (
+                        got != ev.dispatch_count
+                        or per_shard[(s, "fused_fold")] <= 0):
+                    raise AssertionError(
+                        f"mesh ({label}): shard {s} folded {got} of "
+                        f"{ev.dispatch_count} dispatches: {dict(per_shard)}")
+            if device == "cuda" and topk_calls[0]:
+                raise AssertionError(f"mesh ({label}): torch.topk ran "
+                                     f"{topk_calls[0]} times")
+            record[f"({label})"] = {
+                "shards": d, "wall_s": dt, "path_wall_s": path_s,
+                "dispatches": ev.dispatch_count,
+                "per_shard": {f"{s}/{k}": v
+                              for (s, k), v in sorted(per_shard.items())},
+                "upload_s": ev.perf.get("upload", 0.0),
+                "h2d_bytes": ev.perf.get("h2d_bytes", 0.0),
+                "fallbacks": ev.perf.get("collect_fallbacks", 0.0)}
+            log(f"mesh ({label}): {d} shards, shard_chunks "
+                f"{MESH_SHARD_CHUNKS}: {run.total_objects} objects, "
+                f"{sum(run.total_violations.values())} violations in "
+                f"{dt:.3f}s against the path phase's {path_s:.3f}s, equal "
+                f"to its verdicts in order; {ev.dispatch_count} dispatches, "
+                f"launches per shard {record[f'({label})']['per_shard']} at "
+                f"(C, N/D, k) { {k: sorted(v) for k, v in shapes.items()} }"
+                f", torch.topk calls {topk_calls[0]} ({card})")
+            del run, ev
+            t0 = step(f"({label}) the reduced lane over {d} shards", t0)
+        # (c) the wire narrowing: warm_pass over the depth objects, then
+        # their reduced-lane relist with the corpus stats, then the same
+        # relist without them (both beside (b)); the depth relist ran
+        # without them alone
+        run, dt, ev, warm_s = _fold_counted(mesh_audit, launches, shapes)(
+            deep, device, False, None, shard_chunks=0, warm=True)
+        _same_verdicts_in_order("mesh (c)", run, deep_ref)
+        keys = ("wire_bytes", "h2d_bytes", "upload", "wire_pack")
+        narrow = {k: ev.perf.get(k, 0.0) for k in keys}
+        n_stats = len(ev._col_stats)
+        del run, ev
+        run, plain_s, ev, _w = _fold_counted(mesh_audit, launches, shapes)(
+            deep, device, False, None, shard_chunks=0)
+        _same_verdicts_in_order("mesh (c) without narrowing", run, deep_ref)
+        wide = {k: ev.perf.get(k, 0.0) for k in keys}
+        depth_s, depth = deep_ref[2]
+        alone = {k: depth.get(k, 0.0) for k in keys}
+        if not narrow["wire_bytes"] < wide["wire_bytes"]:
+            raise AssertionError(f"mesh (c): wire bytes {narrow} against "
+                                 f"{wide} (the depth relist {alone})")
+        record["(c)"] = {"warm_pass_s": warm_s, "wall_s": dt,
+                         "plain_wall_s": plain_s, "narrowed": narrow,
+                         "plain": wide, "depth_wall_s": depth_s,
+                         "depth": alone, "col_stats": n_stats}
+        log(f"mesh (c): warm_pass over {len(deep)} objects in "
+            f"{warm_s:.3f}s; the narrowed relist {dt:.3f}s against "
+            f"{plain_s:.3f}s without narrowing (the depth relist alone "
+            f"{depth_s:.3f}s), both equal to its verdicts in order; "
+            f"wire_bytes {narrow['wire_bytes']:.0f} against "
+            f"{wide['wire_bytes']:.0f}, h2d_bytes {narrow['h2d_bytes']:.0f} "
+            f"against {wide['h2d_bytes']:.0f}, upload {narrow['upload']:.3f}"
+            f"s against {wide['upload']:.3f}s (alone {alone['upload']:.3f}"
+            f"s), wire_pack {narrow['wire_pack']:.3f}s against "
+            f"{wide['wire_pack']:.3f}s; {n_stats} column stats ({card})")
+        del run, ev
+        t0 = step("(c) the wire narrowing", t0)
+        # (a) exact totals over a prefix, on the mesh and on one device
+        prefix = objects[:MESH_EXACT_OBJECTS]
+        per_shard = collections.Counter()
+        exact, dt_mesh, _ev, _w = _fold_counted(mesh_audit, launches,
+                                                shapes)(
+            prefix, device, True, on_card, per_shard=per_shard)
+        alone, dt_alone, _ev, _w = mesh_audit(prefix, device, True,
+                                              shard_chunks=0)
+        if summary(exact) != summary(alone):
+            raise AssertionError("mesh (a): exact totals over the mesh "
+                                 "differ from one device's")
+        record["(a) exact"] = {"objects": len(prefix), "wall_s": dt_mesh,
+                               "alone_s": dt_alone,
+                               "per_shard": {f"{s}/{k}": v for (s, k), v
+                                             in sorted(per_shard.items())}}
+        log(f"mesh (a): exact totals over {len(prefix)} objects "
+            f"({sum(exact.total_violations.values())} results) on "
+            f"{MESH_SHARDS} shards equal one device's, kept lists in order; "
+            f"{dt_mesh:.3f}s against {dt_alone:.3f}s; launches per shard "
+            f"{record['(a) exact']['per_shard']}")
+        del exact, alone, _ev
+        t0 = step("(a) exact totals on both", t0)
+        record["(b)"] = mesh_cli_end(started, card)
+        started = []
+        t0 = step("(b) the two-process CLI", t0)
+    finally:
+        torch.topk = real_topk
+        for _name, proc, _t in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    record["wall_s"] = time.perf_counter() - t_phase
+    record["launches"] = dict(launches)
+    log(f"mesh: {record['wall_s']:.1f}s; fold launches {launches} at "
+        f"(C, N, k) { {k: sorted(v) for k, v in shapes.items()} } ({card})")
+    return launches, {k: dict(v) for k, v in shapes.items()}, record
+
+
 def _stop_resource_tracker() -> None:
     """End the resource tracker that spawning the kube phase's children
     started (it would outlive the script by a moment otherwise); call it
@@ -6984,7 +7363,7 @@ def main() -> int:
 
 def run_phases(args, card: str, rows, err, cli_runs: list,
                t_start: float, phase) -> int:
-    """Phases 3-20 (see the module docstring)."""
+    """Phases 3-21 (see the module docstring)."""
     phase("path")
     launches, shapes, objects, relist_runs, prefix_summary, timings = \
         path_phase(args.objects)
@@ -6992,8 +7371,13 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
     path_reduced = (relist_runs["reduced"].kept,
                     dict(relist_runs["reduced"].total_violations))
     path_reduced_s = timings["reduced"][0]
-    deep, deep_runs = depth_references(objects, relist_runs)
+    deep, deep_runs, deep_timings = depth_references(objects, relist_runs,
+                                                     timings)
     del relist_runs
+    # the mesh phase's (c) reference: the depth relist's reduced lane
+    deep_reduced = (deep_runs["reduced"].kept,
+                    dict(deep_runs["reduced"].total_violations),
+                    deep_timings["reduced"])
     plain_totals = {c: dict(run.total_violations)
                     for c, run in deep_runs.items()}
     phase("pipeline")
@@ -7048,6 +7432,10 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
     side_launches, side_shapes, side_record = sidecar_phase(
         objects, path_reduced, path_reduced_s, card)
     gc.collect()
+    phase("mesh")
+    mesh_launches, mesh_shapes, mesh_record = mesh_phase(
+        objects, path_reduced, path_reduced_s, deep, deep_reduced, card)
+    gc.collect()
     phase("shapes")
     shape_phase(rows, err, {
         name: dict(collections.Counter(shapes[name])
@@ -7060,7 +7448,8 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
                    + collections.Counter(kube_shapes[name])
                    + collections.Counter(gator_shapes[name])
                    + collections.Counter(canary_shapes[name])
-                   + collections.Counter(side_shapes[name]))
+                   + collections.Counter(side_shapes[name])
+                   + collections.Counter(mesh_shapes[name]))
         for name in shapes})
     phase("profile")
     profile_phase(deep)
@@ -7083,6 +7472,7 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
     log(f"gator: {json.dumps(gator_record, default=str)}")
     log(f"canary: {json.dumps(canary_record, default=str)}")
     log(f"sidecar: {json.dumps(side_record, default=str)}")
+    log(f"mesh: {json.dumps(mesh_record, default=str)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
     log(card)
     for row in rows:
@@ -7097,6 +7487,7 @@ def run_phases(args, card: str, rows, err, cli_runs: list,
         row["gator_launches"] = gator_launches[row["name"]]
         row["canary_launches"] = canary_launches[row["name"]]
         row["sidecar_launches"] = side_launches[row["name"]]
+        row["mesh_launches"] = mesh_launches[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 A second package beside ``gatekeeper_tpu`` (the JAX reference), with every
 module at the same relative path.  It imports ``torch`` and numpy, never
 ``jax`` and nothing of ``gatekeeper_tpu``: host-only modules are kept as
-copies.  Device code runs on one NVIDIA H100; the hand-written kernels live
+copies.  Device code runs on NVIDIA H100s; the hand-written kernels live
 in ``csrc/`` and build at first use.  Entry points take ``device=`` and
 default to ``"cuda"``; only a caller that asks for ``"cpu"`` gets the plain
 PyTorch versions of the kernels.
@@ -12,8 +12,9 @@ The port covers the library audit sweep, validating and mutating
 admission and expansion so far: YAML loading, the Rego and CEL front ends
 and lowering, the columnar flatten, the grid evaluator (``ir/program.py``),
 the driver (``drivers/torch_driver.py``, with the batched
-``query_batch``), the one-device sweep (``parallel/sweep.py``) with both
-fold kernels (``ops/fold.py``), the serial and staged-pipeline audit
+``query_batch``), the sweep (``parallel/sweep.py``, over a device mesh and
+across processes: ``parallel/mesh.py``, ``parallel/distributed.py``) with
+both fold kernels (``ops/fold.py``), the serial and staged-pipeline audit
 schedules (``audit/manager.py`` over ``pipeline/``) with the expansion
 generator stage, the resident snapshot and
 its device residency (``snapshot/``), mutation (``mutation/``, with the

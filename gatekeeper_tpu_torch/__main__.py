@@ -490,6 +490,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="remote-cluster mode: status/secret state routes to "
                         "a separate management cluster seeded from this "
                         "directory (reference --enable-remote-cluster)")
+    p.add_argument("--coordinator", default="",
+                   help="multi-process: coordinator address host:port "
+                        "(joins a global mesh across processes: a gloo "
+                        "process group, parallel/distributed.py)")
+    p.add_argument("--num-processes", type=int, default=1)
+    p.add_argument("--process-id", type=int, default=0)
     p.add_argument("--readiness-retries", type=int, default=0,
                    help="ingestion attempts allowed before a failing "
                         "resource's readiness expectation is cancelled; "
@@ -678,6 +684,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "with --flatten-lane differential the worker "
                         "pool is additionally asserted column- and "
                         "vocab-identical per chunk")
+    p.add_argument("--shard-chunks", type=int, default=0,
+                   help="pack K consecutive same-group audit chunks "
+                        "into one dispatch over the mesh (object axis "
+                        "split over the mesh's 'data' shards) — K ~= "
+                        "the shard count keeps each shard at "
+                        "audit-chunk-size objects while per-dispatch "
+                        "fixed costs amortize K-fold; 0/1 = off")
     p.add_argument("--flatten-lane", default="auto",
                    choices=["auto", "dict", "raw", "py", "differential"],
                    help="sweep columnizer lane: 'auto' feeds raw JSON "
@@ -1176,6 +1189,17 @@ def run(args, workers=()) -> int:
         # no card and no --device cpu: raise now (behind a sidecar the
         # control plane owns no device)
         resolve_device(args.device)
+    if args.coordinator:
+        # before any device work: the sweep's mesh spans every rank
+        from gatekeeper_tpu_torch.parallel.distributed import \
+            init_distributed
+
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id,
+                         device="cpu" if args.evaluate_sidecar
+                         else args.device)
+        print(f"joined global mesh: process {args.process_id}/"
+              f"{args.num_processes}", file=sys.stderr)
     from gatekeeper_tpu_torch.observability.slo import SLOConfigError
 
     try:
@@ -1438,13 +1462,15 @@ def audit_plane(args, client, driver, cluster, kube_cluster=None,
                   "falling back to relist", file=sys.stderr)
             audit_source = "relist"
     else:
+        from gatekeeper_tpu_torch.parallel.mesh import make_mesh
         from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
 
         evaluator = SweepEvaluator(
             driver, device=args.device,
             violations_limit=args.constraint_violations_limit,
             collect=args.collect, flatten_lane=args.flatten_lane,
-            flatten_workers=args.flatten_workers, metrics=metrics)
+            flatten_workers=args.flatten_workers, metrics=metrics,
+            mesh=make_mesh(device=args.device))
     # the sidecar lane and the snapshot's ticks run serially
     relist = audit_source == "relist" and not args.evaluate_sidecar
     print(f"audit schedule: {resolve_schedule(args.pipeline, relist)} "
@@ -1471,6 +1497,7 @@ def audit_plane(args, client, driver, cluster, kube_cluster=None,
         chunk_size=args.audit_chunk_size,
         pipeline=args.pipeline,
         pipeline_flatten_workers=args.pipeline_flatten_workers,
+        shard_chunks=args.shard_chunks,
         audit_source=audit_source,
         resync_every=args.snapshot_resync_every,
         resync_rotate=args.snapshot_resync_rotate,
@@ -1555,11 +1582,25 @@ def audit_once(mgr) -> int:
           + (f" [INCOMPLETE: {run.failed_chunks} chunks dropped, "
              f"{run.retried_chunks} retried]" if run.incomplete
              else ""), file=sys.stderr)
+    mesh = getattr(mgr.evaluator, "mesh", None)
+    if mesh is not None and mesh.spans_processes:
+        perf = mgr.evaluator.perf
+        print(f"mesh gather: {int(perf.get('gathers', 0))} gathers, "
+              f"{perf.get('gather', 0.0):.3f}s of the audit's "
+              f"{run.duration_s:.3f}s, "
+              f"{int(perf.get('gather_bytes', 0))} bytes sent",
+              file=sys.stderr)
     for key, kept in sorted(run.kept.items()):
         for v in kept:
             print(f"  {key[0]}/{key[1]}: {v.kind} "
                   f"{v.namespace + '/' if v.namespace else ''}{v.name}: "
                   f"{v.message}")
+    from gatekeeper_tpu_torch.parallel import distributed
+
+    if distributed.broken():
+        # a lost peer or diverged ranks: the pass above dropped its chunks
+        print(f"mesh broken: {distributed.broken()}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -136,6 +136,16 @@ class AuditConfig:
     # the template's enforcementAction override — policies on the
     # generated GVK see violations BEFORE any Pod exists (shift-left)
     expand_generated: bool = False
+    # data-parallel chunk sharding (--shard-chunks): pack K consecutive
+    # same-group chunks into ONE dispatch over the evaluator's mesh (the
+    # object axis splits over its data shards, parallel/sweep.py), so with
+    # K ~= the mesh size each shard evaluates ~chunk_size objects while
+    # the per-dispatch fixed costs amortize K-fold.  Objects keep their
+    # listed order inside a packed chunk, so totals are unchanged; a
+    # constraint whose kinds span more than one group keeps its first k
+    # violations in dispatch order, which the packing shifts (as in the
+    # JAX package).  0/1 = off
+    shard_chunks: int = 0
 
 
 @dataclass
@@ -341,12 +351,16 @@ class AuditManager:
             return run
 
     def _annotate_run(self, run: AuditRun) -> None:
-        """Stamp the pass's ingest and dispatch geometry onto the run (one
-        device: the port's sweep runs on one card; none in this process
-        behind the sidecar lane)."""
-        run.n_devices = 1 if self._local_evaluator() else 0
+        """Stamp the pass's ingest and dispatch geometry onto the run: the
+        evaluator's mesh size (none in this process behind the sidecar
+        lane) and the chunk coalescing."""
+        mesh = getattr(self.evaluator, "mesh", None) \
+            if self._local_evaluator() else None
+        run.n_devices = int(mesh.size) if mesh is not None else 0
         run.flatten_workers = int(
             getattr(self.evaluator, "flatten_workers", 0) or 0)
+        run.shard_chunks = max(
+            0, int(getattr(self.config, "shard_chunks", 0) or 0))
 
     def _audit_impl(self) -> AuditRun:
         t0 = time.time()
@@ -463,6 +477,34 @@ class AuditManager:
                 and self._render_driver() is not None)
 
     def _chunk_source(self, constraints, use_router, counter):
+        """The chunk stream both schedules consume: the canonical chunking
+        (:meth:`_chunk_source_impl`), coalesced by ``shard_chunks``: K
+        consecutive chunks of the SAME constraint group pack into one
+        dispatch over the mesh.  Objects keep their listed order inside a
+        packed chunk; only the emission order across groups shifts, which
+        only the kept selection of a constraint whose kinds span more than
+        one group can see (the JAX package's coalescing does the same)."""
+        src = self._chunk_source_impl(constraints, use_router, counter)
+        k = max(1, int(getattr(self.config, "shard_chunks", 0) or 1))
+        if k <= 1:
+            yield from src
+            return
+        pend: dict = {}  # group key -> [objects, cons, chunks packed]
+        for objs, cons in src:
+            key = tuple((c.kind, c.name) for c in cons)
+            buf = pend.get(key)
+            if buf is None:
+                pend[key] = [list(objs), cons, 1]
+                continue
+            buf[0].extend(objs)
+            buf[2] += 1
+            if buf[2] >= k:
+                del pend[key]
+                yield buf[0], buf[1]
+        for objs, cons, _count in pend.values():  # partial tails
+            yield objs, cons
+
+    def _chunk_source_impl(self, constraints, use_router, counter):
         """Yield ``(objects, constraint_subset)`` sweep chunks in canonical
         order.
 
@@ -1141,7 +1183,11 @@ class AuditManager:
         snap = self.snapshot
         ev = self.evaluator
         retries = max(0, self.config.chunk_retries)
-        chunk_size = max(1, self.config.chunk_size)
+        # chunk sharding (AuditConfig.shard_chunks): snapshot rows slice
+        # into K-chunk-wide dispatches; the verdict store's totals and kept
+        # lists are per row, so this changes only the dispatch geometry
+        shard_k = max(1, int(getattr(self.config, "shard_chunks", 0) or 1))
+        chunk_size = max(1, self.config.chunk_size) * shard_k
         max_inflight = max(1, self.config.submit_window)
 
         from gatekeeper_tpu_torch.observability import tracing

@@ -33,6 +33,7 @@ def _build_runtime_factory(library_docs, compile_cache, metrics, args):
         from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
         from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
         from gatekeeper_tpu_torch.gator import reader
+        from gatekeeper_tpu_torch.parallel.mesh import make_mesh
         from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
         from gatekeeper_tpu_torch.target.target import K8sValidationTarget
 
@@ -55,7 +56,8 @@ def _build_runtime_factory(library_docs, compile_cache, metrics, args):
             violations_limit=args.constraint_violations_limit,
             flatten_lane=args.flatten_lane, metrics=metrics,
             collect=args.collect,
-            flatten_workers=args.flatten_workers)
+            flatten_workers=args.flatten_workers,
+            mesh=make_mesh(device=args.device))
         return client, driver, evaluator
 
     return build

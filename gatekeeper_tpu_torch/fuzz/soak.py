@@ -218,6 +218,7 @@ class SoakHarness:
         from gatekeeper_tpu_torch.mutlane import (
             BatchedMutationHandler, MutationBatcher,
             MutationDifferentialError, MutationLane)
+        from gatekeeper_tpu_torch.parallel.mesh import make_mesh
         from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
         from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot,
                                                    SnapshotConfig)
@@ -381,10 +382,15 @@ class SoakHarness:
         for b in self.bundles:
             for o in b.objects:
                 self.cluster.apply(copy.deepcopy(o))
+        # a one-device mesh where the resident lane runs (it declines a
+        # mesh of more than one shard), every device otherwise
+        mesh = (make_mesh(1, device=self.device)
+                if self.residency_mode != "off"
+                else make_mesh(device=self.device))
         self.evaluator = SweepEvaluator(
             self.driver, device=self.device, violations_limit=20,
             flatten_lane="differential", collect="differential",
-            metrics=self.metrics)
+            metrics=self.metrics, mesh=mesh)
         cfg = dict(exact_totals=False, chunk_size=64, pipeline="off")
 
         def lister():

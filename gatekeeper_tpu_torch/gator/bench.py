@@ -87,7 +87,8 @@ def run_bench(objs, engine: str, iterations: int,
               collect: str = "reduced",
               compile_cache: str = "",
               flatten_workers: int = 0,
-              device: str = "cuda") -> BenchResult:
+              device: str = "cuda",
+              shard_chunks: int = 0) -> BenchResult:
     if engine in DEVICE_ENGINES:
         from gatekeeper_tpu_torch import resolve_device
 
@@ -136,7 +137,7 @@ def run_bench(objs, engine: str, iterations: int,
     if engine == "sweep":
         return _run_sweep_bench(r, client, data, iterations, pipeline,
                                 flatten_lane, collect, flatten_workers,
-                                device)
+                                device, shard_chunks)
 
     from gatekeeper_tpu_torch.target.review import AugmentedReview
     from gatekeeper_tpu_torch.webhook.policy import parse_admission_review
@@ -293,7 +294,8 @@ def _run_sweep_bench(r: BenchResult, client: Client, data: list,
                      flatten_lane: str = "auto",
                      collect: str = "reduced",
                      flatten_workers: int = 0,
-                     device: str = "cuda") -> BenchResult:
+                     device: str = "cuda",
+                     shard_chunks: int = 0) -> BenchResult:
     """The ``sweep`` engine: the production audit lane (AuditManager +
     SweepEvaluator on ``device``, as ``python -m gatekeeper_tpu_torch
     --once`` builds it) over the fixture's data objects, scheduled per
@@ -301,6 +303,7 @@ def _run_sweep_bench(r: BenchResult, client: Client, data: list,
     totals).  One latency sample per full sweep; the per-stage breakdown
     of the last pipelined sweep rides the result."""
     from gatekeeper_tpu_torch.audit.manager import AuditConfig, AuditManager
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
     from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
 
     driver = next((d for d in client.drivers
@@ -309,11 +312,12 @@ def _run_sweep_bench(r: BenchResult, client: Client, data: list,
     r.objects = len(corpus)
     mgr = AuditManager(
         client, lister=lambda: iter(corpus),
-        config=AuditConfig(pipeline=pipeline),
+        config=AuditConfig(pipeline=pipeline, shard_chunks=shard_chunks),
         evaluator=SweepEvaluator(driver, device=device,
                                  flatten_lane=flatten_lane,
                                  collect=collect,
-                                 flatten_workers=flatten_workers),
+                                 flatten_workers=flatten_workers,
+                                 mesh=make_mesh(device=device)),
     )
     latencies = []
     violations = 0
@@ -429,6 +433,9 @@ def run_cli(argv: list[str]) -> int:
                    help="sweep-engine flatten worker processes (see "
                         "the server's --flatten-workers); 0 = "
                         "in-process")
+    p.add_argument("--shard-chunks", type=int, default=0,
+                   help="sweep-engine chunk packing: K consecutive "
+                        "chunks per dispatch over the mesh; 0/1 = off")
     p.add_argument("--collect", default="reduced",
                    choices=["reduced", "masks", "differential"],
                    help="sweep-engine collect lane: device-side verdict "
@@ -502,7 +509,8 @@ def run_cli(argv: list[str]) -> int:
                     collect=args.collect,
                     compile_cache=args.compile_cache,
                     flatten_workers=args.flatten_workers,
-                    device=args.device))
+                    device=args.device,
+                    shard_chunks=args.shard_chunks))
             except Exception as e:
                 print(f"error: benchmarking {engine}: {e}", file=sys.stderr)
                 return 1

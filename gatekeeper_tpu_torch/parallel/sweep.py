@@ -62,8 +62,29 @@ wall to templates by mask occupancy: the masks lane by the host masks'
 sums, the reduced lane by the ``occ`` half of the fused fold's packed word,
 read from the host copy the collect already fetched (no extra transfer).
 
-Not ported here: multi-device meshes and the stats branch of
-``pack_transfer_cols`` (wire narrowing).
+Meshes (``mesh=``, ``parallel/mesh.py``): a chunk pads to ``8 * D``
+doubled (``D`` data shards), shard ``s`` holds rows ``[s * pad_n / D, (s
++ 1) * pad_n / D)``.  Each of this process's shards uploads only its rows
+of the packed columns and of the mask (the shared tables and the
+parameter tables are replicated, one content cache per device), runs the
+grid on its rows and folds its own ``[C, N/D]`` through the SAME
+hand-written kernels.  The collect merges the shards' results on the host
+(with a mesh over processes, after one gather of every rank's shards,
+``parallel/distributed.py``): totals and occupancy sum, each shard's
+first-k moves to its rows and the lowest-index-first merge keeps the
+first k, the kept budget clips after the merge, exact-totals hit
+coordinates are sorted back into canonical order, and every adaptive
+decision (overflow re-dispatch, hit-buffer sizing, masks-lane pinning)
+reads the merged values, so every rank takes it.  Where the JAX package
+leaves its Pallas kernels on a mesh of more than one device for XLA's
+gathering ``top_k`` (``sharded.py:904-907``), the port keeps its kernels.
+
+Wire narrowing: :meth:`SweepEvaluator.warm_pass` gathers the corpus column
+stats (:func:`col_stats_update`, :func:`merge_pad_stats`), and every
+dispatch after it packs with them (:func:`pack_transfer_cols` with
+``stats``: narrow dtypes, constant elision, dictionary remap), widened
+back on the device by :func:`unpack_transfer_cols`.  The resident lane's
+layout stays stats-free.
 """
 
 from __future__ import annotations
@@ -88,6 +109,9 @@ from gatekeeper_tpu_torch.ops import fold
 from gatekeeper_tpu_torch.ops.flatten import (Flattener, Schema,
                                               flatten_worker_spans,
                                               get_flatten_pool)
+from gatekeeper_tpu_torch.parallel import distributed
+from gatekeeper_tpu_torch.parallel import mesh as mesh_mod
+from gatekeeper_tpu_torch.parallel.mesh import Mesh
 from gatekeeper_tpu_torch.resilience.faults import fault_point
 
 
@@ -106,7 +130,10 @@ _BIT_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)  # np.packbits order: MSB first
 # other dtype is kept as it is.
 _TORCH_DTYPES = {"|b1": torch.bool, "|i1": torch.int8, "|u1": torch.uint8,
                  "<i2": torch.int16, "<i4": torch.int32, "<i8": torch.int32,
-                 "<f4": torch.float32, "<f8": torch.float32}
+                 "<f4": torch.float32, "<f8": torch.float32,
+                 # the narrowed wire's stores: nibble pairs in bytes, and
+                 # uint16 as the same bits in int16 (widened on the device)
+                 "|n1": torch.uint8, "<u2": torch.int16}
 
 _PARAM_CACHE_CAP = 32  # parameter-table sets kept on the device
 
@@ -254,35 +281,135 @@ def select_hits(sel: torch.Tensor, idx: torch.Tensor, hit_cap: int,
     return out[:hit_cap].to(torch.int32)
 
 
+_DICT_CAP = 254  # distinct values above this: no u1 dictionary remap
+
+
+def col_stats_update(stats: dict, cols: dict) -> None:
+    """Accumulate corpus-wide per-column (min, max, const-value,
+    distinct-values, integral-float) over the per-object transfer columns
+    of one chunk (a copy of the JAX package's, pure numpy).  Consumed by
+    :func:`pack_transfer_cols` to pick narrow wire dtypes, elide
+    corpus-constant columns and dictionary-remap low-cardinality columns,
+    with a layout that is the same for every chunk of the run."""
+    for key in cols:
+        if is_table_key(key):
+            continue
+        val = cols[key]
+        items = sorted(val.items()) if isinstance(val, dict) \
+            else [(None, val)]
+        for sub, a in items:
+            a = np.asarray(a)
+            if a.size == 0:
+                continue
+            amn = a.min().item()
+            amx = a.max().item()
+            vals: Optional[frozenset] = None
+            if a.dtype.str in ("<i4", "<i8"):
+                # distinct-set tracking for the u1 dictionary remap
+                # (low-cardinality wide-range columns, e.g. label-key
+                # sids); capped: a high-cardinality column drops out
+                u = np.unique(a)
+                if len(u) <= _DICT_CAP:
+                    vals = frozenset(int(x) for x in u)
+            # float columns holding only integral values (ports, replica
+            # counts) can ride integer wire dtypes
+            intf = (a.dtype.str == "<f4"
+                    and bool(np.all(a == np.trunc(a))))
+            prev = stats.get((key, sub))
+            if prev is None:
+                stats[(key, sub)] = (amn, amx,
+                                     amn if amn == amx else None, vals,
+                                     intf)
+            else:
+                mn, mx, cv = prev[0], prev[1], prev[2]
+                pv = prev[3] if len(prev) > 3 else None
+                if pv is None or vals is None:
+                    vals = None  # some chunk already overflowed the cap
+                else:
+                    vals = pv | vals
+                    if len(vals) > _DICT_CAP:
+                        vals = None
+                stats[(key, sub)] = (
+                    min(mn, amn), max(mx, amx),
+                    cv if (cv is not None and amn == amx == cv) else None,
+                    vals,
+                    intf and (len(prev) < 5 or prev[4]))
+
+
+_PAD_BY_SUB = {"kind": 0, "num": 0.0, "sid": -1, "idx": -1, "count": 0}
+
+
+def merge_pad_stats(stats: dict) -> None:
+    """Fold the ragged families' pad values into corpus column stats: the
+    warm pass scans chunks at their own widths, the sweeps after it pad
+    every chunk to the corpus width targets, which can add pad values a
+    scanned chunk never held.  Merging them keeps the wire layout the
+    same for every padded chunk."""
+    for (key, sub), st in list(stats.items()):
+        if not key.startswith(("rg:", "rks:", "mk:", "pi:", "ks:")):
+            continue
+        pad = _PAD_BY_SUB.get(sub)
+        if pad is None:
+            continue
+        mn, mx, cv = st[0], st[1], st[2]
+        vals = st[3] if len(st) > 3 else None
+        intf = st[4] if len(st) > 4 else False
+        ncv = cv if cv == pad else None
+        if vals is not None:
+            vals = vals | {int(pad)} if not isinstance(pad, float) else vals
+            if len(vals) > _DICT_CAP:
+                vals = None
+        stats[(key, sub)] = (min(mn, pad), max(mx, pad), ncv, vals, intf)
+
+
+def _wire_dtype(dt: str, mn: float, mx: float) -> tuple:
+    """(store dtype str, bias) for a column whose corpus range is [mn,
+    mx].  Integer columns with mn >= -1 ride unsigned narrow types with a
+    +1 bias (the -1 missing-value sentinel becomes 0); ``"|n1"`` marks a
+    nibble (two values per byte); everything else travels as it is."""
+    if dt in ("<i4", "<i8", "|i1") and mn >= -1:
+        if mx + 1 <= 0xF:
+            return "|n1", 1
+        if mx + 1 <= 0xFF:
+            return "|u1", 1
+        if mx + 1 <= 0xFFFF:
+            return "<u2", 1
+    return dt, 0
+
+
 def pack_transfer_cols(cols: dict, pad_n: int,
                        stats: Optional[dict] = None, alloc=None) -> tuple:
     """Pack every per-object column into ONE ``[pad_n, W]`` buffer per
-    dtype (port of ``gatekeeper_tpu/parallel/sharded.py``, the
-    ``stats=None`` layout only).
+    wire dtype (port of ``gatekeeper_tpu/parallel/sharded.py``: the same
+    buffers and layout for the same columns and stats).
 
-    The layout is a grouping by dtype: each column occupies ``w`` columns
-    of its dtype's buffer at offset ``off`` (a ``[pad_n, *tail]`` column
-    flattens to ``w = prod(tail)``), with no narrowing, no constant
-    elision and no dictionary remap, so every row set of one schema packs
-    to the same layout.  The same numpy array under two keys (prefix-axis
+    Each column occupies ``w`` columns of its wire dtype's buffer at
+    offset ``off`` (a ``[pad_n, *tail]`` column flattens to ``w =
+    prod(tail)``).  The same numpy array under two keys (prefix-axis
     dedup, ``ops/flatten.dedup_schema``) packs once and becomes an
     ``alias`` entry.  Table columns (``fn:``/``st:``/``inv:``/``ext:``)
     are left out.
 
-    Returns ``({dtype_str: buf}, layout)``, layout a tuple of
-    ``(key, sub, dtype_str | "alias", off, tail, w, dtype_str,
-    0 | (alias key, alias sub))``.  ``alloc(dtype_str, shape)``, when
-    given, returns the array each buffer is written into (the sweep's
-    page-locked staging, of the buffer's device dtype: int64/float64
-    columns narrow to int32/float32 in the copy, as ``torch_dtype``
-    maps them); else each buffer is a new array of the columns' dtype.
-    ``stats`` selects the wire-narrowing branch, which is not ported
-    (ROADMAP queue 1 item 14): it raises."""
-    if stats is not None:
-        raise NotImplementedError(
-            "pack_transfer_cols: the stats branch (wire narrowing, constant "
-            "elision, dictionary remap) is not ported (ROADMAP queue 1 "
-            "item 14)")
+    ``stats`` (``{(key, sub): (min, max, const|None, values|None,
+    integral)}`` from :func:`col_stats_update` over the corpus, which
+    ``SweepEvaluator.warm_pass`` gathers) turns on the wire narrowing:
+    integer columns whose corpus range fits ride ``|n1`` (two values per
+    byte), ``|u1`` or ``<u2`` with a +1 bias, integral float columns
+    alike; corpus-constant columns ship as a layout scalar (``const``);
+    a wide-range column of at most 254 distinct values ships ``|u1``
+    dictionary indices with the sorted values in the layout.  A chunk
+    outside the corpus stats falls back to a wider dtype for that column,
+    never to a wrong value.  Without stats every row set of one schema
+    packs to the same layout, with no narrowing.
+
+    Returns ``({wire dtype str: buf}, layout)``, layout a tuple of
+    ``(key, sub, wire dtype | "alias" | "const", off, tail, w, dtype str,
+    bias | const value | dictionary values | (alias key, alias sub))``.
+    ``alloc(wire dtype str, shape)``, when given, returns the array each
+    buffer is written into (the sweep's page-locked staging, of the
+    buffer's device dtype: int64/float64 columns narrow to int32/float32
+    in the copy, as ``torch_dtype`` maps them); else each buffer is a new
+    array of the wire dtype."""
     parts: dict = {}
     widths: dict = {}
     layout: list = []
@@ -301,34 +428,133 @@ def pack_transfer_cols(cols: dict, pad_n: int,
             a = np.ascontiguousarray(a)
             dt = a.dtype.str
             tail = a.shape[1:]
+            st = stats.get((key, sub)) if stats is not None else None
+            dict_vals = None
+            narrowable = dt in ("<i4", "<i8", "|i1") or (
+                dt == "<f4" and st is not None and len(st) > 4 and st[4])
+            if st is not None and (st[2] is not None or narrowable) \
+                    and a.size:
+                amn = a.min().item()
+                amx = a.max().item()
+                if st[2] is not None and amn == amx == st[2]:
+                    # corpus-constant and this chunk agrees: elide
+                    layout.append((key, sub, "const", 0, tail, 0, dt,
+                                   st[2]))
+                    continue
+                eff_mn = min(st[0], amn)
+                eff_mx = max(st[1], amx)
+                if not narrowable:
+                    wdt, bias = dt, 0
+                elif dt == "<f4":
+                    # integral-float column: an integer wire dtype, if
+                    # this chunk is integral too and the range fits
+                    wdt, bias = _wire_dtype("<i4", eff_mn, eff_mx)
+                    if wdt == "<i4" or not bool(np.all(a == np.trunc(a))):
+                        wdt, bias = dt, 0
+                else:
+                    wdt, bias = _wire_dtype(dt, eff_mn, eff_mx)
+                dct = st[3] if len(st) > 3 else None
+                if dct is not None and wdt not in ("|u1", "|n1"):
+                    # u1 dictionary remap; values outside the corpus
+                    # dictionary fall back to the plain narrowed dtype
+                    dv = np.array(sorted(dct), np.int64)
+                    idx = np.searchsorted(dv, a.ravel())
+                    idx_c = np.minimum(idx, len(dv) - 1)
+                    if bool(np.all(dv[idx_c] == a.ravel())):
+                        a = idx_c.astype(np.uint8).reshape(a.shape)
+                        wdt, bias = "|u1", 0
+                        dict_vals = tuple(int(x) for x in dv)
+            else:
+                wdt, bias = dt, 0
             w = int(np.prod(tail, dtype=np.int64)) if a.ndim > 1 else 1
-            off = widths.get(dt, 0)
-            parts.setdefault(dt, []).append(a.reshape(pad_n, w))
-            layout.append((key, sub, dt, off, tail, w, dt, 0))
-            widths[dt] = off + w
+            if wdt == "|n1" and w % 2:
+                wdt = "|u1"  # nibble pairs need an even element count
+            if wdt == "|n1":
+                b = (a + bias).astype(np.uint8).reshape(pad_n, w)
+                a = b[:, 0::2] | (b[:, 1::2] << 4)
+                store_w = w // 2
+            elif bias:
+                a = (a + bias).astype(np.dtype(wdt))
+                store_w = w
+            else:
+                store_w = w
+            off = widths.get(wdt, 0)
+            parts.setdefault(wdt, []).append(a.reshape(pad_n, store_w))
+            layout.append((key, sub, wdt, off, tail, w, dt,
+                           dict_vals if dict_vals is not None else bias))
+            widths[wdt] = off + store_w
     bufs = {}
-    for dt, ps in parts.items():
+    for wdt, ps in parts.items():
         if alloc is None:
-            bufs[dt] = np.concatenate(ps, axis=1)
+            bufs[wdt] = np.concatenate(ps, axis=1)
         else:
-            bufs[dt] = np.concatenate(ps, axis=1, casting="same_kind",
-                                      out=alloc(dt, (pad_n, widths[dt])))
+            bufs[wdt] = np.concatenate(ps, axis=1, casting="same_kind",
+                                       out=alloc(wdt, (pad_n, widths[wdt])))
     return bufs, tuple(layout)
 
 
-def unpack_transfer_cols(bufs: dict, layout: tuple, pad_n: int) -> dict:
+# (dictionary values, dtype, device) -> the values as a device tensor: a
+# layout's dictionaries are made once per device and only ever read
+_DICTS: dict = {}
+_DICTS_CAP = 4096
+
+
+def _dict_values(vals: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    key = (vals, dtype, str(device))
+    t = _DICTS.get(key)
+    if t is None:
+        if len(_DICTS) >= _DICTS_CAP:
+            _DICTS.clear()
+        t = _DICTS[key] = torch.tensor(vals, dtype=torch.int64).to(
+            dtype).to(device)
+    return t
+
+
+def unpack_transfer_cols(bufs: dict, layout: tuple, pad_n: int,
+                         device=None) -> dict:
     """The cols dict back from :func:`pack_transfer_cols` buffers (numpy
-    or tensors): every column is a slice of its dtype's buffer viewed to
-    ``[n, *tail]`` (no copy), and an alias entry is the SAME object as
-    the column it names."""
+    or tensors; ``pad_n`` rows).  A plain entry is a slice of its dtype's
+    buffer viewed to ``[n, *tail]`` (no copy), an alias entry is the SAME
+    object as the column it names.  Narrowed entries widen back to the
+    column's device dtype on ``device`` (else the buffers' device):
+    ``|n1`` splits its nibbles (low first), ``|u1``/``<u2`` widen (a
+    ``<u2`` buffer crosses as the same bits in int16) and drop the bias, a
+    dictionary entry gathers its values, a ``const`` entry broadcasts."""
     cols: dict = {}
     aliases: list = []
-    for key, sub, wdt, off, tail, w, _dt, extra in layout:
+    for key, sub, wdt, off, tail, w, dt, extra in layout:
         if wdt == "alias":
             aliases.append((key, sub, extra))
             continue
-        buf = bufs[wdt]
-        arr = buf[:, off: off + w].reshape((buf.shape[0],) + tuple(tail))
+        if wdt == "const":
+            if device is None:
+                device = next((b.device for b in bufs.values()
+                               if isinstance(b, torch.Tensor)), "cpu")
+            arr = torch.full((pad_n,) + tuple(tail), extra,
+                             dtype=torch_dtype(dt), device=device)
+        elif wdt == dt:
+            buf = bufs[wdt]
+            arr = buf[:, off: off + w].reshape((buf.shape[0],) + tuple(tail))
+        else:
+            buf = bufs[wdt]
+            if isinstance(buf, np.ndarray):
+                buf = torch.from_numpy(buf)
+            n = buf.shape[0]
+            odt = torch_dtype(dt)
+            if wdt == "|n1":
+                sl = buf[:, off: off + w // 2]
+                arr = torch.stack([sl & 0xF, sl >> 4], dim=-1)
+                arr = arr.reshape((n,) + tuple(tail)).to(odt)
+            else:
+                arr = buf[:, off: off + w].reshape((n,) + tuple(tail))
+                if isinstance(extra, tuple):
+                    arr = _dict_values(extra, odt, arr.device)[arr.long()]
+                else:
+                    if wdt == "<u2":
+                        arr = arr.to(torch.int32) & 0xFFFF
+                    arr = arr.to(odt)
+            if not isinstance(extra, tuple) and extra:
+                arr = arr - extra
         if sub is None:
             cols[key] = arr
         else:
@@ -366,16 +592,32 @@ def gather_resident(idx: torch.Tensor, cols_dev: dict, mask_dev,
     return cols, mask
 
 
+class _Part:
+    """One shard's device result: ``result`` (a tensor, or the masks
+    lane's (packed, bits) pair), and on a CUDA device the page-locked host
+    copies the dispatch enqueued (``host``) and the CUDA event recorded
+    after them (``event``)."""
+
+    __slots__ = ("shard", "result", "host", "event")
+
+    def __init__(self, shard: int, result):
+        self.shard = shard
+        self.result = result
+        self.host = None
+        self.event = None
+
+
 class _PendingSweep:
-    __slots__ = ("result", "kinds", "offsets", "by_kind", "n",
+    __slots__ = ("parts", "kinds", "offsets", "by_kind", "n",
                  "return_bits", "lane", "pad_n", "hit_cap", "flat",
-                 "event", "host", "staging", "dispatch_wall",
+                 "staging", "dispatch_wall",
                  "attr_weights", "attr_rows", "ref", "host_occ",
                  "budget_np")
 
-    def __init__(self, result, kinds, offsets, by_kind, n, return_bits,
+    def __init__(self, parts, kinds, offsets, by_kind, n, return_bits,
                  lane="masks", pad_n=0, hit_cap=0, flat=None):
-        self.result = result
+        # this process's shards' results (:class:`_Part`), in shard order
+        self.parts = parts
         self.kinds = kinds
         self.offsets = offsets
         self.by_kind = by_kind
@@ -388,10 +630,6 @@ class _PendingSweep:
         # hit count overflows it (dropped at collect)
         self.hit_cap = hit_cap
         self.flat = flat
-        # CUDA event recorded after the dispatch (None on the CPU), and
-        # the page-locked host copies of ``result`` it covers
-        self.event = None
-        self.host = None
         # page-locked upload staging of the chunk: kept alive until the
         # collect, after the event has fired
         self.staging = None
@@ -411,7 +649,8 @@ class _PendingSweep:
 
     def ready(self) -> bool:
         """True when the device result needs no further wait."""
-        return (self.event is None or self.event.query()) and (
+        return all(p.event is None or p.event.query()
+                   for p in self.parts) and (
             self.ref is None or self.ref.ready())
 
 
@@ -468,8 +707,9 @@ class _ResidentChunk:
 
 
 class SweepEvaluator:
-    """Runs a TorchDriver's compiled programs over sweep chunks on one
-    device.  Reuses the driver's vocab so interned ids agree with the
+    """Runs a TorchDriver's compiled programs over sweep chunks on a
+    device mesh (``parallel/mesh.py``; ``mesh=None``: one shard on
+    ``device``).  Reuses the driver's vocab so interned ids agree with the
     driver's parameter tables."""
 
     renders = False  # kept violations render in the audit manager
@@ -477,10 +717,16 @@ class SweepEvaluator:
     def __init__(self, driver, device: str = "cuda",
                  violations_limit: int = 20, flatten_lane: str = "auto",
                  collect: str = "reduced", flatten_workers: int = 0,
-                 metrics=None):
+                 metrics=None, mesh: Optional[Mesh] = None):
         self.driver = driver
         self.metrics = metrics
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_mod.single(
+            self.device)
+        if self.mesh.shape["model"] != 1:
+            raise ValueError("the sweep shards the object axis only: a "
+                             "mesh with model_parallel > 1 is not "
+                             "supported")
         self.violations_limit = violations_limit
         # how sweep chunks columnize (ops/flatten.py FLATTEN_LANES)
         self.flatten_lane = flatten_lane
@@ -513,6 +759,14 @@ class SweepEvaluator:
         # table in that order); a warm pass rebuilds identical tables and
         # uploads none of them
         self._param_dev_cache: dict = {}
+        # corpus-wide per-column stats and ragged width targets from
+        # warm_pass: the wire narrowing of every dispatch after it
+        self._col_stats: dict = {}
+        self._width_targets: dict = {}
+        # sweep_warm's dispatches enqueue no device-to-host copy
+        self._no_fetch = False
+        # gathers across processes made (the chunk tag's sequence number)
+        self._gathers = 0
         self._bucket = 2
         # device dispatches made (each lane of a differential chunk and
         # each overflow re-dispatch counts one), as the JAX evaluator's
@@ -530,6 +784,7 @@ class SweepEvaluator:
 
     def _flattener(self, schema: Schema) -> Flattener:
         return Flattener(schema, self.driver.vocab, bucket=self._bucket,
+                         width_targets=self._width_targets or None,
                          lane=self.flatten_lane,
                          workers=self.flatten_workers)
 
@@ -573,6 +828,138 @@ class SweepEvaluator:
         return self.sweep_dispatch(
             self.sweep_flatten(constraints, objects, return_bits,
                                budget=budget))
+
+    def warm_pass(self, constraints: Sequence, objects, chunk_size: int,
+                  return_bits: bool = False, route: bool = True) -> None:
+        """Scan the whole corpus before a timed run, with no device-to-host
+        fetch: every chunk interns its strings (the vocab tables of the run
+        after it are final), feeds the corpus column stats (the wire
+        narrowing of every dispatch after it: :func:`pack_transfer_cols`
+        with ``stats``) and records the corpus ragged-width maxes (every
+        later chunk pads to them); then one sweep per (group, pad bucket)
+        runs through :meth:`sweep_warm`.  ``objects`` may be any iterable:
+        chunks are scanned as they fill, and one chunk per (group, pad
+        bucket) is kept.  ``route`` streams objects into per-group chunks
+        as the audit's kind router does."""
+        from gatekeeper_tpu_torch.utils.rawjson import peek_kind
+
+        state: dict = {}  # group -> (cons, flattener, needs) or None
+        buckets: dict = {}  # (group, pad) -> (cons, representative chunk)
+        progs = self.driver._programs
+
+        def group_state(g):
+            if g in state:
+                return state[g]
+            cons_g = [c for c in constraints if c.kind in g]
+            by_kind: dict = {}
+            for con in cons_g:
+                by_kind.setdefault(con.kind, []).append(con)
+            lowered = [k for k in by_kind
+                       if k in progs
+                       and self.driver.inventory_exact(k, programs=progs)
+                       and self.driver.extdata_ready(k, programs=progs)]
+            if not lowered:
+                state[g] = None
+                return None
+            # the group's parameter tables register their needle rows
+            # before any sweep, so no later group's tables grow them
+            for kind in lowered:
+                build_param_table(progs[kind].program, by_kind[kind],
+                                  self.driver.vocab)
+            schema = Schema()
+            for kind in lowered:
+                schema.merge(progs[kind].program.schema)
+            fl = Flattener(schema, self.driver.vocab, bucket=self._bucket,
+                           lane=self.flatten_lane,
+                           workers=self.flatten_workers)
+            st = (cons_g, fl, self._needs_union(lowered, fl.alias,
+                                                programs=progs))
+            state[g] = st
+            return st
+
+        def scan_chunk(g, ch):
+            st = group_state(g)
+            if st is None:
+                return
+            cons_g, fl, needs = st
+            batch = fl.flatten(ch, pad_n=self._pad(len(ch)))
+            fl.record_widths(batch, self._width_targets)
+            col_stats_update(self._col_stats,
+                             slim_cols(pack_batch_cols(batch), needs))
+            buckets.setdefault((g, self._pad(len(ch))), (cons_g, ch))
+
+        if route:
+            router = make_kind_router(constraints)
+            bufs: dict = {}
+            for obj in objects:
+                g = router(peek_kind(obj))
+                if not g:
+                    continue
+                buf = bufs.setdefault(g, [])
+                buf.append(obj)
+                if len(buf) >= chunk_size:
+                    scan_chunk(g, buf)
+                    bufs[g] = []
+            for g, buf in bufs.items():
+                if buf:
+                    scan_chunk(g, buf)
+        else:
+            g_all = frozenset(c.kind for c in constraints)
+            buf = []
+            for obj in objects:
+                buf.append(obj)
+                if len(buf) >= chunk_size:
+                    scan_chunk(g_all, buf)
+                    buf = []
+            if buf:
+                scan_chunk(g_all, buf)
+        # the scan flattened at chunk-local widths; the sweeps after it pad
+        # to the corpus targets: fold the pad values in so the layout holds
+        merge_pad_stats(self._col_stats)
+        for cons_g, ch in buckets.values():
+            self.sweep_warm(cons_g, ch, return_bits)
+
+    def sweep_warm(self, constraints: Sequence, objects: Sequence[dict],
+                   return_bits: bool = False) -> None:
+        """Dispatch a sweep and wait for the device WITHOUT any
+        device-to-host copy (each shard's CUDA event, no ``.cpu()``); on
+        the reduced lane also the budgeted hit-buffer ladder
+        (``_HIT_STEPS``) that a run's chunks walk down as kept budgets
+        drain.  Nothing is collected, so no adaptive state moves."""
+
+        def wait(p):
+            for part in getattr(p, "parts", ()):
+                if part.event is not None:
+                    part.event.synchronize()
+            if getattr(p, "ref", None) is not None:
+                wait(p.ref)
+
+        flat = self.sweep_flatten(constraints, objects, return_bits)
+        if not isinstance(flat, _FlatChunk):
+            return
+        with self._dispatch_lock:
+            self._no_fetch = True
+            try:
+                wait(self.sweep_dispatch(flat))
+                if self.collect in ("reduced", "differential") \
+                        and not return_bits:
+                    def warm_budget(total):
+                        left = [total]
+
+                        def b(_con):
+                            v = min(self.violations_limit, left[0])
+                            left[0] -= v
+                            return v
+
+                        return b
+
+                    # the chunk is flattened once; each step dispatches it
+                    # under its own budget
+                    for total in _HIT_STEPS:
+                        flat.budget = warm_budget(total)
+                        wait(self.sweep_dispatch(flat))
+            finally:
+                self._no_fetch = False
 
     def sweep_schema(self, constraints: Sequence, programs=None) -> tuple:
         """(by_kind, lowered_kinds, merged_schema) — the columnize plan of
@@ -780,19 +1167,27 @@ class SweepEvaluator:
 
     def warm_state(self) -> dict:
         """The persistable warm state (drivers/generation.WarmStateCache):
-        the reduced lane's hit-buffer sizing per (kinds, padded N).  The
-        JAX package's trace record, column statistics and width targets
-        have no counterpart here: nothing is traced, and the wire is not
-        narrowed."""
+        the reduced lane's hit-buffer sizing per (kinds, padded N) and,
+        after a :meth:`warm_pass`, the corpus column stats and width
+        targets that decide the wire layout.  The JAX package's trace
+        record has no counterpart here: nothing is traced."""
         with self._dispatch_lock:
-            return {"hit_state": {k: dict(v)
-                                  for k, v in self._hit_state.items()}}
+            out = {"hit_state": {k: dict(v)
+                                 for k, v in self._hit_state.items()}}
+            if self._col_stats:
+                out["col_stats"] = dict(self._col_stats)
+            if self._width_targets:
+                out["width_targets"] = dict(self._width_targets)
+            return out
 
     def restore_warm_state(self, state: dict) -> int:
-        """Adopt :meth:`warm_state` output; returns the entries restored."""
+        """Adopt :meth:`warm_state` output; returns the hit-buffer entries
+        restored."""
         with self._dispatch_lock:
             self._hit_state = {k: dict(v) for k, v in
                                (state.get("hit_state") or {}).items()}
+            self._col_stats = dict(state.get("col_stats") or {})
+            self._width_targets = dict(state.get("width_targets") or {})
             return len(self._hit_state)
 
     def _hit_state_for(self, kinds: tuple, pad_n: int) -> dict:
@@ -803,33 +1198,40 @@ class SweepEvaluator:
                                          "pinned": False, "blast": None}
         return st
 
-    def _table_tensor(self, key: str, val,
-                      meter: str = "h2d_bytes") -> torch.Tensor:
-        hit = self._table_dev_cache.get(key)
+    def _table_tensor(self, key: str, val, meter: str = "h2d_bytes",
+                      device=None) -> torch.Tensor:
+        """A shared lookup table on ``device`` (default: the first local
+        shard's), from the per-device content cache."""
+        device = device if device is not None else self.mesh.local[0][1]
+        ckey = (str(device), key)
+        hit = self._table_dev_cache.get(ckey)
         if hit is not None and (
                 hit[0] is val
                 or (hit[0].shape == val.shape and hit[0].dtype == val.dtype
                     and np.array_equal(hit[0], val))):
             return hit[1]
-        dev = to_tensor(val, self.device)
-        self._table_dev_cache[key] = (val, dev)
+        dev = to_tensor(val, device)
+        self._table_dev_cache[ckey] = (val, dev)
         self._perf_add(meter, float(val.nbytes))
         self._perf_add("h2d_copies", 1.0)
         self._perf_add("h2d_table_misses", 1.0)
         return dev
 
-    def _param_tensors(self, tables: list, meter: str) -> list:
-        """The dispatch's parameter tables on the device, from the content
-        cache when one dispatch before built the same tables; a miss
-        uploads them (one copy per array, counted in ``h2d_param_misses``)
-        and adds their bytes to ``perf[meter]``."""
+    def _param_tensors(self, tables: list, meter: str, device=None) -> list:
+        """The dispatch's parameter tables on ``device`` (default: the
+        first local shard's), from the per-device content cache when one
+        dispatch before built the same tables; a miss uploads them (one
+        copy per array, counted in ``h2d_param_misses``) and adds their
+        bytes to ``perf[meter]``."""
+        device = device if device is not None else self.mesh.local[0][1]
         arrs = [{name: np.asarray(v) for name, v in t.items()}
                 for t in tables]
-        key = tuple(tuple((name, a.dtype.str, a.shape, a.tobytes())
-                          for name, a in t.items()) for t in arrs)
+        key = (str(device),) + tuple(
+            tuple((name, a.dtype.str, a.shape, a.tobytes())
+                  for name, a in t.items()) for t in arrs)
         hit = self._param_dev_cache.pop(key, None)
         if hit is None:
-            hit = [{name: to_tensor(a, self.device) for name, a in t.items()}
+            hit = [{name: to_tensor(a, device) for name, a in t.items()}
                    for t in arrs]
             self._perf_add(meter, float(sum(a.nbytes for t in arrs
                                             for a in t.values())))
@@ -837,7 +1239,8 @@ class SweepEvaluator:
             self._perf_add("h2d_copies", copies)
             self._perf_add("h2d_param_misses", copies)
         self._param_dev_cache[key] = hit  # re-insert: most recent last
-        while len(self._param_dev_cache) > _PARAM_CACHE_CAP:
+        while len(self._param_dev_cache) > _PARAM_CACHE_CAP * len(
+                {str(d) for _s, d in self.mesh.local}):
             self._param_dev_cache.pop(next(iter(self._param_dev_cache)))
         return hit
 
@@ -851,42 +1254,63 @@ class SweepEvaluator:
         keep.append(t)
         return t
 
-    def _put(self, staged: torch.Tensor) -> torch.Tensor:
-        """One host-to-device copy of a staged tensor (a no-op on the
-        CPU), counted in ``h2d_copies`` with its bytes in ``h2d_bytes``."""
+    def _put(self, staged: torch.Tensor, device=None) -> torch.Tensor:
+        """One host-to-device copy of a staged tensor to ``device``
+        (default: the evaluator's; a no-op on the CPU), counted in
+        ``h2d_copies`` with its bytes in ``h2d_bytes``."""
         self._perf_add("h2d_copies", 1.0)
         self._perf_add("h2d_bytes",
                        float(staged.numel() * staged.element_size()))
-        return staged.to(self.device, non_blocking=True)
+        return staged.to(device if device is not None else self.device,
+                         non_blocking=True)
 
-    def _upload_cols(self, cols: dict, pad_n: int, keep: list) -> dict:
+    def _spans(self, pad_n: int) -> list:
+        """``(shard, lo, hi, device)`` of this process's shards: shard
+        ``s`` of ``D`` holds rows ``[s * pad_n / D, (s + 1) * pad_n / D)``
+        (a multiple of 8 rows: :meth:`_pad`)."""
+        step = pad_n // self.mesh.size
+        return [(s, s * step, (s + 1) * step, dev)
+                for s, dev in self.mesh.local]
+
+    def _upload_cols(self, cols: dict, pad_n: int, keep: list,
+                     spans: Optional[list] = None) -> dict:
         """The chunk's per-object columns on the device: packed into one
-        ``[pad_n, W]`` buffer per dtype (``pack_transfer_cols``), each sent
-        in one copy, then viewed back into columns on the device
-        (``unpack_transfer_cols``).  ``wire_pack`` times the packing,
-        ``wire_bytes`` counts the buffers, ``h2d_col_buffers`` the
-        copies."""
+        ``[pad_n, W]`` buffer per wire dtype (``pack_transfer_cols``,
+        narrowed by the corpus stats of a :meth:`warm_pass`), each shard's
+        rows of each buffer sent in one copy to the shard's device, then
+        viewed back into columns there (``unpack_transfer_cols``).
+        ``wire_pack`` times the packing, ``wire_bytes`` counts the
+        buffers, ``h2d_col_buffers`` the copies.  Returns the columns of
+        one shard covering every row, or with ``spans`` (from
+        :meth:`_spans`) a list of each span's columns."""
         t0 = time.perf_counter()
         staged: dict = {}
 
         def alloc(dt, shape):
             staged[dt] = self._staging(shape, torch_dtype(dt), keep)
-            return staged[dt].numpy()
+            arr = staged[dt].numpy()
+            return arr.view(np.uint16) if dt == "<u2" else arr
 
-        bufs, layout = pack_transfer_cols(cols, pad_n, alloc=alloc)
+        bufs, layout = pack_transfer_cols(cols, pad_n,
+                                          stats=self._col_stats or None,
+                                          alloc=alloc)
         self._perf_add("wire_pack", time.perf_counter() - t0)
         self._perf_add("wire_bytes",
                        float(sum(b.nbytes for b in bufs.values())))
-        self._perf_add("h2d_col_buffers", float(len(staged)))
-        return unpack_transfer_cols(
-            {dt: self._put(t) for dt, t in staged.items()}, layout, pad_n)
+        out = []
+        for _s, lo, hi, dev in spans or [(0, 0, pad_n, self.device)]:
+            self._perf_add("h2d_col_buffers", float(len(staged)))
+            out.append(unpack_transfer_cols(
+                {dt: self._put(t[lo:hi], dev) for dt, t in staged.items()},
+                layout, hi - lo, device=dev))
+        return out if spans is not None else out[0]
 
-    def _upload_mask(self, mask_rows: list, budget_np, pad_n: int,
-                     keep: list) -> tuple:
-        """(bool mask [C, pad_n], int32 budget [C] or None) on the device
-        from ONE uint8 copy: the budget's bytes, then the bit-packed mask
-        (``[C, pad_n/8]``), unpacked on the device."""
-        bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
+    def _upload_mask(self, bits: np.ndarray, budget_np, n: int,
+                     keep: list, device=None) -> tuple:
+        """(bool mask [C, n], int32 budget [C] or None) on ``device`` from
+        ONE uint8 copy: the budget's bytes, then the bit-packed mask rows
+        ``bits`` (``[C, n/8]``, a shard's columns of the chunk's packed
+        mask), unpacked on the device."""
         head = 0 if budget_np is None else budget_np.nbytes
         st = self._staging((head + bits.size,), torch.uint8, keep)
         buf = st.numpy()
@@ -895,9 +1319,9 @@ class SweepEvaluator:
         buf[head:] = bits.reshape(-1)
         self._perf_add("wire_bytes", float(buf.nbytes))
         self._perf_add("h2d_mask_copies", 1.0)
-        dev = self._put(st)
+        dev = self._put(st, device)
         budget = dev[:head].view(torch.int32) if head else None
-        mask = unpackbits(dev[head:].view(bits.shape), pad_n)
+        mask = unpackbits(dev[head:].view(bits.shape), n)
         return mask, budget
 
     def _sweep_dispatch_impl(self, flat, lane: str = "masks",
@@ -939,19 +1363,30 @@ class SweepEvaluator:
                              for k, m in zip(kinds, mask_rows)}
             t0 = time.perf_counter()
             keep: list = []
-            cols_dev = self._upload_cols(flat.cols, pad_n, keep)
-            for key, val in self._shared_tables(kinds, progs,
-                                                flat.batch).items():
-                cols_dev[key] = self._table_tensor(key, val)
-            params_dev = self._param_tensors(tables, "h2d_bytes")
-            mask, budget = self._upload_mask(mask_rows, plan[2], pad_n,
-                                             keep)
+            spans = self._spans(pad_n)
+            cols_devs = self._upload_cols(flat.cols, pad_n, keep, spans)
+            shared = self._shared_tables(kinds, progs, flat.batch)
+            bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
+            shards = []
+            for (s, lo, hi, dev), cols_dev in zip(spans, cols_devs):
+                for key, val in shared.items():
+                    cols_dev[key] = self._table_tensor(key, val, device=dev)
+                params_dev = self._param_tensors(tables, "h2d_bytes", dev)
+                mask, budget = self._upload_mask(
+                    bits[:, lo // 8: hi // 8], plan[2], hi - lo, keep, dev)
+                shards.append((s, hi - lo, cols_dev, params_dev, mask,
+                               budget))
             self._perf_add("upload", time.perf_counter() - t0)
             t0 = time.perf_counter()
-            raw = torch.cat([progs[kind].grid(params_dev[i], cols_dev,
-                                              pad_n)
-                             for i, kind in enumerate(kinds)], dim=0)
-            pending = self._fold(flat, raw, mask, plan, budget, offsets)
+            parts = []
+            for s, n_s, cols_dev, params_dev, mask, budget in shards:
+                # each shard's grid over its own rows, folded by the
+                # hand-written kernels on the shard's device
+                raw = torch.cat([progs[kind].grid(params_dev[i], cols_dev,
+                                                  n_s)
+                                 for i, kind in enumerate(kinds)], dim=0)
+                parts.append(self._fold(raw, mask, plan, budget, n_s, s))
+            pending = self._pending(flat, plan, offsets, parts)
             pending.staging = keep
             if host_occ:
                 pending.host_occ = np.concatenate(
@@ -1006,7 +1441,9 @@ class SweepEvaluator:
             cols.update(tables_dev)
             raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
                              for i, kind in enumerate(kinds)], dim=0)
-            pending = self._fold(flat, raw, mask, plan, budget, offsets)
+            pending = self._pending(
+                flat, plan, offsets,
+                [self._fold(raw, mask, plan, budget, pad_n, 0)])
             if host_occ:
                 pos = np.asarray(flat.positions, np.intp)
                 pending.host_occ = rg.mask_host[:, pos].sum(
@@ -1084,43 +1521,52 @@ class SweepEvaluator:
             min(need, max(_HIT_STEPS[1], 2 * blast))
         return lane, complete, budget_np, hit_bucket(guess, c_off * k_eff)
 
-    def _fold(self, flat, raw, mask, plan: tuple, budget, offsets: dict):
-        """The device side of both chunk kinds from the raw grid and the
-        match mask on: the collect lane's fold (``plan`` from
+    def _fold(self, raw, mask, plan: tuple, budget, n: int,
+              shard: int = 0) -> _Part:
+        """One shard's device fold from its raw grid ``[C, n]`` and match
+        mask on: the collect lane's fold (``plan`` from
         :meth:`_fold_plan`, ``budget`` its kept budget, see
-        :meth:`_reduce`), as
-        a :class:`_PendingSweep`.  On a CUDA device the result is copied
-        into page-locked host memory and a CUDA event recorded after that
-        copy."""
-        by_kind, kinds = flat.by_kind, flat.kinds
-        n, pad_n, return_bits = flat.n, flat.pad_n, flat.return_bits
+        :meth:`_reduce`) through one fold kernel launch, as a
+        :class:`_Part`.  On a CUDA device the result is copied into
+        page-locked host memory and a CUDA event recorded after that copy
+        (only the event under :meth:`sweep_warm`)."""
         k = self.violations_limit
         lane, complete, _budget_np, hit_cap = plan
         if lane == "reduced":
             result = self._reduce(raw, mask, budget, complete, hit_cap, k,
-                                  pad_n)
-            pending = _PendingSweep(result, kinds, offsets, by_kind, n,
-                                    return_bits, lane="reduced",
-                                    pad_n=pad_n, hit_cap=hit_cap,
-                                    flat=flat)
-            pending.budget_np = _budget_np
+                                  n)
         else:
             grid = raw & mask
             idx, valid, counts = fold.epilogue(grid, k)
             packed = torch.cat([idx, valid.to(torch.int32), counts[:, None]],
                                dim=1)
             # bit-packed verdict rows: the exact hit set (exact totals)
-            result = (packed, packbits(grid)) if return_bits else packed
-            pending = _PendingSweep(result, kinds, offsets, by_kind, n,
-                                    return_bits, pad_n=pad_n)
-        if self.device.type == "cuda":
-            outs = result if isinstance(result, tuple) else (result,)
-            pending.host = tuple(
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                .copy_(t, non_blocking=True) for t in outs)
-            pending.event = torch.cuda.Event()
-            pending.event.record()
-        return pending
+            result = (packed, packbits(grid)) if complete else packed
+        part = _Part(shard, result)
+        if raw.device.type == "cuda":
+            with torch.cuda.device(raw.device):
+                if not self._no_fetch:
+                    outs = result if isinstance(result, tuple) else (result,)
+                    part.host = tuple(
+                        torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        .copy_(t, non_blocking=True) for t in outs)
+                part.event = torch.cuda.Event()
+                part.event.record()
+        return part
+
+    @staticmethod
+    def _pending(flat, plan: tuple, offsets: dict, parts: list):
+        """The :class:`_PendingSweep` of one chunk's shard results."""
+        lane, _complete, budget_np, hit_cap = plan
+        if lane == "reduced":
+            pending = _PendingSweep(parts, flat.kinds, offsets, flat.by_kind,
+                                    flat.n, flat.return_bits,
+                                    lane="reduced", pad_n=flat.pad_n,
+                                    hit_cap=hit_cap, flat=flat)
+            pending.budget_np = budget_np
+            return pending
+        return _PendingSweep(parts, flat.kinds, offsets, flat.by_kind,
+                             flat.n, flat.return_bits, pad_n=flat.pad_n)
 
     def _reduce(self, raw, mask, budget, complete: bool, hit_cap: int,
                 k: int, pad_n: int) -> torch.Tensor:
@@ -1171,21 +1617,68 @@ class SweepEvaluator:
                 hits = torch.zeros((0,), dtype=torch.int32, device=dev)
         return torch.cat(head + [nsel.reshape(1).to(torch.int32), hits])
 
-    @staticmethod
-    def _fetch(pending) -> list:
-        """The chunk's result tensors as numpy on the host: after its CUDA
-        event, the page-locked copies the dispatch enqueued (the wait
-        releases the interpreter lock); on the CPU the tensors
-        themselves."""
-        if pending.host is not None:
-            pending.event.synchronize()
-            out = [t.numpy() for t in pending.host]
-        else:
-            res = pending.result
-            outs = res if isinstance(res, tuple) else (res,)
-            out = [t.cpu().numpy() for t in outs]
+    def _fetch(self, pending) -> list:
+        """Every mesh shard's result arrays (numpy, in shard order) of one
+        chunk: this process's after each shard's CUDA event, from the
+        page-locked copies the dispatch enqueued (the wait releases the
+        interpreter lock; on the CPU the tensors themselves), counted in
+        ``d2h_bytes``; with a mesh over processes, every rank's through
+        one gather (``gather`` seconds, ``gather_bytes``)."""
+        local = []
+        nbytes = 0
+        for part in pending.parts:
+            if part.host is not None:
+                part.event.synchronize()
+                arrs = [t.numpy() for t in part.host]
+            else:
+                res = part.result
+                outs = res if isinstance(res, tuple) else (res,)
+                arrs = [t.cpu().numpy() for t in outs]
+            nbytes += sum(a.nbytes for a in arrs)
+            local.append((part.shard, arrs))
         pending.staging = None
-        return out
+        self._perf_add("d2h_bytes", float(nbytes))
+        if self.mesh.spans_processes:
+            self._gathers += 1
+            local, dt = distributed.gather_shards(
+                local, (self._gathers, pending.lane, pending.kinds,
+                        pending.n, pending.pad_n))
+            self._perf_add("gather", dt)
+            self._perf_add("gathers", 1.0)
+            self._perf_add("gather_bytes", float(nbytes))
+        return [arrs for _s, arrs in sorted(local, key=lambda x: x[0])]
+
+    def _merge_masks(self, shards: list, pad_n: int,
+                     return_bits: bool) -> tuple:
+        """(packed [C, 2k+1], bits [C, pad_n/8] or None) of the whole chunk
+        from its shards' masks-lane results: totals summed, each shard's
+        first-k offset by its first row and concatenated in shard order,
+        the first ``min(k, pad_n)`` valid slots kept (lowest index first),
+        the bit rows joined (every shard holds a multiple of 8 rows)."""
+        n_s = pad_n // len(shards)
+        k_eff = min(self.violations_limit, pad_n)
+        idx_parts, valid_parts = [], []
+        counts = None
+        for s, arrs in enumerate(shards):
+            p = arrs[0]
+            ks = (p.shape[1] - 1) // 2
+            valid = p[:, ks: 2 * ks] != 0
+            idx_parts.append(np.where(valid, p[:, :ks] + s * n_s, 0))
+            valid_parts.append(valid)
+            c = p[:, 2 * ks].astype(np.int64)
+            counts = c if counts is None else counts + c
+        idx = np.concatenate(idx_parts, axis=1)
+        valid = np.concatenate(valid_parts, axis=1)
+        # valid slots first, each shard's in its order: the merged first-k
+        order = np.argsort(~valid, axis=1, kind="stable")[:, :k_eff]
+        idx = np.take_along_axis(idx, order, axis=1)
+        valid = np.take_along_axis(valid, order, axis=1)
+        packed = np.concatenate(
+            [np.where(valid, idx, 0), valid.astype(np.int32),
+             counts.astype(np.int32)[:, None]], axis=1).astype(np.int32)
+        bits = np.concatenate([a[1] for a in shards], axis=1) \
+            if return_bits else None
+        return packed, bits
 
     def sweep_collect(self, pending):
         """Fetch + unpack a submitted sweep (the single device->host
@@ -1203,10 +1696,13 @@ class SweepEvaluator:
 
     def _collect_masks(self, pending):
         t0 = time.perf_counter()
-        host = self._fetch(pending)
-        packed_np = host[0]
-        bits_np = host[1] if pending.return_bits else None
-        self._perf_add("d2h_bytes", float(sum(a.nbytes for a in host)))
+        shards = self._fetch(pending)
+        if len(shards) == 1:
+            packed_np = shards[0][0]
+            bits_np = shards[0][1] if pending.return_bits else None
+        else:
+            packed_np, bits_np = self._merge_masks(
+                shards, pending.pad_n, pending.return_bits)
         # k is clipped to the padded batch width; recover the effective k
         # from the packed layout [idx(k') | valid(k') | count]
         k_eff = (packed_np.shape[1] - 1) // 2
@@ -1249,22 +1745,24 @@ class SweepEvaluator:
         with the device occupancy per constraint, or ``(out, None)`` after
         an overflow fallback."""
         t0 = time.perf_counter()
-        arr = self._fetch(pending)[0]
-        self._perf_add("d2h_bytes", arr.nbytes)
+        shards = self._fetch(pending)
         c_total = max(hi for _lo, hi in pending.offsets.values())
         pad_n, n = pending.pad_n, pending.n
-        if pad_n <= 0xFFFF:
-            co = arr[:c_total].view(np.uint32)
-            counts_all = (co & 0xFFFF).astype(np.int32)
-            occ_all = (co >> 16).astype(np.int32)
-            base = c_total
-        else:
-            counts_all = arr[:c_total]
-            occ_all = arr[c_total: 2 * c_total]
-            base = 2 * c_total
-        nsel = int(arr[base])
-        hits = arr[base + 1:]
         complete = pending.return_bits
+        n_s = pad_n // len(shards)
+        dec = [self._decode_reduced(a[0], c_total, n_s) for a in shards]
+        if len(dec) == 1:
+            counts_all, occ_all, nsel, hits = dec[0]
+        else:
+            # every decision below reads the merged values (the largest
+            # shard selection for the buffer), so every rank takes it
+            counts_all = sum(d[0] for d in dec).astype(np.int32)
+            occ_all = sum(d[1] for d in dec).astype(np.int32)
+            nsel = max(d[2] for d in dec)
+            if nsel <= pending.hit_cap:
+                hits = self._merge_hits(dec, pad_n, counts_all,
+                                        None if complete
+                                        else pending.budget_np)
         st = self._hit_state_for(pending.kinds, pad_n)
         if not complete:
             # budgeted buffer sizing feedback for the NEXT chunk
@@ -1279,7 +1777,7 @@ class SweepEvaluator:
                 cap = 256
                 while cap < 2 * nsel:
                     cap *= 2
-                if 4 * cap > (c_total * pad_n) // 8:
+                if 4 * cap > (c_total * n_s) // 8:
                     st["pinned"] = True
                 else:
                     st["cap"] = cap
@@ -1305,7 +1803,8 @@ class SweepEvaluator:
                     st["low"] = 0
             else:
                 st["low"] = 0
-        hits = hits[: min(nsel, hits.size)]
+        if len(dec) == 1:
+            hits = hits[: min(nsel, hits.size)]
         k_eff = min(self.violations_limit, pad_n)
         out = {}
         for kind in pending.kinds:
@@ -1390,8 +1889,49 @@ class SweepEvaluator:
         self._perf_add("collect_differential_ok", 1.0)
         return ref
 
+    @staticmethod
+    def _decode_reduced(arr: np.ndarray, c_total: int, n: int) -> tuple:
+        """(counts, occ, nsel, hits) of one shard's reduced result over
+        ``n`` rows (``[counts|occ | nsel | hits]``, see :meth:`_reduce`)."""
+        if n <= 0xFFFF:
+            co = arr[:c_total].view(np.uint32)
+            counts = (co & 0xFFFF).astype(np.int32)
+            occ = (co >> 16).astype(np.int32)
+            base = c_total
+        else:
+            counts = arr[:c_total]
+            occ = arr[c_total: 2 * c_total]
+            base = 2 * c_total
+        return counts, occ, int(arr[base]), arr[base + 1:]
+
+    @staticmethod
+    def _merge_hits(dec: list, pad_n: int, counts: np.ndarray,
+                    budget_np) -> np.ndarray:
+        """The chunk's hit coordinates (``ci * pad_n + oi``, sorted) from
+        its shards' decoded results: each shard's local coordinates moved
+        to its rows, in canonical order; with a kept budget, each
+        constraint's first ``min(count, budget)`` (every shard selected up
+        to the whole budget)."""
+        n_s = pad_n // len(dec)
+        parts = []
+        for s, (_c, _o, nsel, hits) in enumerate(dec):
+            h = hits[:nsel].astype(np.int64)
+            parts.append((h // n_s) * pad_n + s * n_s + h % n_s)
+        flat = np.sort(np.concatenate(parts))
+        if budget_np is not None and flat.size:
+            ci = flat // pad_n
+            starts = np.searchsorted(ci, np.arange(len(counts)))
+            j = np.arange(flat.size) - starts[ci]
+            want = np.minimum(budget_np.astype(np.int64), counts)
+            flat = flat[j < want[ci]]
+        return flat.astype(np.int32)
+
     def _pad(self, n: int) -> int:
-        p = 8
+        """The padded rows of an ``n``-object chunk: ``8 * D`` doubled
+        until it covers ``n`` (``D`` = the mesh's data shards), so each
+        shard holds a multiple of 8 rows and the mask's bit rows split on
+        byte boundaries."""
+        p = self.mesh.shape["data"] * 8
         while p < n:
             p *= 2
         return p

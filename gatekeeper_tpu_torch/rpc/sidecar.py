@@ -63,6 +63,7 @@ class EvaluateServicer:
         from gatekeeper_tpu_torch import resolve_device
         from gatekeeper_tpu_torch.drivers.cel_driver import CELDriver
         from gatekeeper_tpu_torch.drivers.torch_driver import TorchDriver
+        from gatekeeper_tpu_torch.parallel.mesh import make_mesh
         from gatekeeper_tpu_torch.parallel.sweep import SweepEvaluator
         from gatekeeper_tpu_torch.target.target import K8sValidationTarget
 
@@ -71,7 +72,8 @@ class EvaluateServicer:
         self.driver = TorchDriver(device=device, cel_driver=self.cel)
         self.target = K8sValidationTarget()
         self.evaluator = SweepEvaluator(self.driver, device=device,
-                                        violations_limit=violations_limit)
+                                        violations_limit=violations_limit,
+                                        mesh=make_mesh(device=device))
         self._constraints: dict = {}  # (kind, name) -> Constraint
         # one reentrant lock serializes ALL state-touching RPCs: the
         # driver/evaluator internals (vocab interning, program caches,

@@ -36,7 +36,9 @@ store whose ``layout_version`` moved, so its first ``prepare`` uploads it
 whole.  The ``device_residency_evict`` degradation (an SLO breach,
 ``resilience/overload``) demotes every group to host columns until it
 releases; uploads and patches run under the ``snapshot.residency.upload``
-and ``snapshot.residency.patch`` spans.  Not ported: the multi-chip check.
+and ``snapshot.residency.patch`` spans.  An evaluator whose mesh has more
+than one shard keeps host columns (the resident gather is single-device),
+logged once as a ``residency_fallback``.
 """
 
 from __future__ import annotations
@@ -175,6 +177,11 @@ class DeviceResidency:
             return False
         ev = self.evaluator
         if ev is None:
+            return False
+        mesh = getattr(ev, "mesh", None)
+        if mesh is not None and mesh.size != 1:
+            self._log_fallback("multi-device mesh (resident gather is "
+                               "single-device)", mesh_size=int(mesh.size))
             return False
         if self.mode == "auto" and ev.device.type != "cuda":
             self._log_fallback("no CUDA device (mode=auto on a "

@@ -746,8 +746,8 @@ def test_webhook_certs_and_rotation(tmp_path):
 
 
 # the JAX CLI's flags the port leaves to later slices (ROADMAP queue 1)
-QUEUED_FLAGS = {"--coordinator", "--num-processes", "--process-id",
-                "--shard-chunks"}
+# every flag of the JAX CLI is ported (the last four came with the mesh)
+QUEUED_FLAGS: set = set()
 SLICE_ARGV = [
     "--kubeconfig", "k.yaml", "--management-manifests", "mgmt",
     "--readiness-retries", "3", "--export-dir", "exp",
@@ -758,7 +758,9 @@ SLICE_ARGV = [
     "--fail-open-on-error", "--exempt-namespace", "a",
     "--exempt-namespace", "b", "--exempt-namespace-prefix", "kube-",
     "--exempt-namespace-suffix=-sys", "--operation", "audit",
-    "--operation", "status", "--evaluate-sidecar", "sidecar:9090"]
+    "--operation", "status", "--evaluate-sidecar", "sidecar:9090",
+    "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+    "--process-id", "1", "--shard-chunks", "4"]
 
 
 class _Parsed(Exception):

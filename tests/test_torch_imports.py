@@ -4,8 +4,9 @@ chip_smoke.py and no ``tools/torch_*.py`` (the port's own tools, such as
 (``gatekeeper_tpu``), at module level or inside a function, and none
 imports ``grpc`` or ``google`` (protobuf) at module level: the card's
 host is not promised either, so only the functions that start a gRPC
-server or channel import ``grpc``.  The port's entry points run on the
-card unless the caller asks for the CPU."""
+server or channel import ``grpc``.  ``torch.distributed`` is torch, so the
+lint allows it.  The port's entry points run on the card unless the caller
+asks for the CPU."""
 
 import ast
 import glob
@@ -125,14 +126,60 @@ def test_lint_sees_forbidden_imports():
         "jax", "gatekeeper_tpu"]
 
 
+def test_lint_allows_torch_distributed():
+    """``torch.distributed`` is torch: the multi-process sweep
+    (``parallel/distributed.py``) imports it, and the lint still refuses
+    JAX and the JAX package beside it."""
+    tree = ast.parse("import torch.distributed as dist\n"
+                     "from torch.distributed import all_gather_object\n"
+                     "import jax\n"
+                     "def f():\n    from gatekeeper_tpu.parallel import "
+                     "distributed\n")
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == ["jax", "gatekeeper_tpu.parallel"]
+    with open(os.path.join(ROOT, "gatekeeper_tpu_torch", "parallel",
+                           "distributed.py")) as f:
+        mods = list(_imported_modules(ast.parse(f.read())))
+    assert "torch.distributed" in mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
 def test_cuda_is_the_default_and_never_falls_back():
     import torch
 
     from gatekeeper_tpu_torch import resolve_device
+    from gatekeeper_tpu_torch.parallel.distributed import init_distributed
+    from gatekeeper_tpu_torch.parallel.mesh import make_mesh
 
     assert resolve_device("cpu") == torch.device("cpu")
+    assert make_mesh(device="cpu").shards[0][1] == torch.device("cpu")
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert make_mesh().shards[0][1].type == "cuda"
     else:
         with pytest.raises(RuntimeError):
             resolve_device()
+        with pytest.raises(RuntimeError, match="device 'cuda' requested"):
+            make_mesh()
+        # before any rendezvous: no coordinator is needed to refuse
+        with pytest.raises(RuntimeError, match="device 'cuda' requested"):
+            init_distributed("127.0.0.1:1", 2, 0)
+
+
+def test_two_process_cli_refuses_cuda_without_a_card(tmp_path):
+    """Each rank of ``--coordinator`` without ``--device cpu`` raises at
+    start, before joining, rather than sweeping on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("refusing --device cuda needs a host without a card")
+    for i in range(2):
+        p = subprocess.run(
+            [sys.executable, "-m", "gatekeeper_tpu_torch", "--manifests",
+             str(tmp_path), "--once", "--coordinator", "127.0.0.1:1",
+             "--num-processes", "2", "--process-id", str(i)],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert p.returncode != 0
+        assert "device 'cuda' requested" in p.stderr
+        assert "joined global mesh" not in p.stderr

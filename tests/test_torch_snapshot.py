@@ -524,8 +524,8 @@ def test_residency_modes(walk):
 
 def test_pack_transfer_cols_layout_and_aliases(walk):
     """The stats-free layout equals the JAX package's on the same columns;
-    unpacking views the buffers, an alias is the same tensor, and the
-    stats branch raises."""
+    unpacking views the buffers, an alias is the same tensor, and empty
+    stats pack the stats-free layout, as in the JAX package."""
     lane = walk["_lanes"]["res"]
     aliased = 0
     for store in lane.snap.routed_stores():
@@ -551,8 +551,10 @@ def test_pack_transfer_cols_layout_and_aliases(walk):
                 aliased += 1
             else:
                 assert got.data_ptr() >= tbufs[wdt].data_ptr()  # a view
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-            pack_transfer_cols(cols, 64, stats={})
+        ebufs, elayout = pack_transfer_cols(cols, 64, stats={})
+        assert elayout == layout == jpack(cols, 64, stats={})[1]
+        for dt in bufs:
+            np.testing.assert_array_equal(ebufs[dt], bufs[dt])
     assert aliased > 0
 
 
