@@ -1,0 +1,2 @@
+"""The plain reference and the comparison that decides ``correct``: see
+``check.py``."""
