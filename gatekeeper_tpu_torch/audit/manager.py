@@ -61,6 +61,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
@@ -71,10 +72,16 @@ from gatekeeper_tpu_torch.client.client import Client
 from gatekeeper_tpu_torch.drivers.base import ReviewCfg
 from gatekeeper_tpu_torch.expansion.aggregate import CHILD_MSG_PREFIX
 from gatekeeper_tpu_torch.match.match import SOURCE_GENERATED, SOURCE_ORIGINAL
+from gatekeeper_tpu_torch.observability import tracing
 from gatekeeper_tpu_torch.target.review import AugmentedUnstructured
 from gatekeeper_tpu_torch.utils.logging import log_event
 from gatekeeper_tpu_torch.utils.rawjson import peek_kind
 from gatekeeper_tpu_torch.utils.unstructured import gvk_of
+
+# a gauge of this package beyond the reference's registry
+# (``metrics/registry.py`` keeps the JAX package's names one for one):
+# the seconds the cyclic garbage collector ran during the last audit pass
+AUDIT_COLLECTOR_SECONDS = "audit_collector_seconds"
 
 
 @dataclass
@@ -261,10 +268,15 @@ class AuditManager:
         self.last_resync_diff: Optional[str] = None
         self._resync_phase = 0  # rotated-resync rotor position
         self._stop = threading.Event()
-        # per-phase seconds for the host-side fold/render of device sweeps
-        # (the evaluator tracks its own flatten/masks/dispatch/collect),
-        # and the snapshot lane's counters
+        # per-phase seconds of the host's side of a pass (the evaluator
+        # tracks its own flatten/masks/upload/dispatch/collect): listing and
+        # routing (list_route), fold_render, render and n_renders, the
+        # snapshot lane's snapshot_ready, snapshot_rows, snapshot_collect,
+        # status_write, and the collector's seconds (gc, gc/<phase>), with
+        # the snapshot lane's counters
         self.perf: dict = {}
+        # the collector's hook, held while a pass runs
+        self._collector = tracing.CollectorHook(self._perf_add)
         # the last pipelined pass's PipelineRun.summary() plus
         # device_wait_s and device_idle_fraction (None after a serial one)
         self.pipe_stats: Optional[dict] = None
@@ -328,9 +340,7 @@ class AuditManager:
     def audit(self) -> AuditRun:
         """One full pass under its root span: a relist sweep, or in
         snapshot mode a pass over every resident row."""
-        from gatekeeper_tpu_torch.observability import tracing
-
-        with tracing.span("audit.sweep") as sp:
+        with tracing.span("audit.sweep") as sp, self._collector:
             if self._snapshot_mode():
                 sp.set_attribute("source", "snapshot")
                 run = self._audit_snapshot_impl(full=True)
@@ -448,9 +458,11 @@ class AuditManager:
         run.total_violations = totals
         run.kept = kept
         run.duration_s = time.time() - t0
-        self._write_statuses(run, constraints)
-        self._publish_metrics(run)
-        self._finish(run)
+        with tracing.phase(self._perf_add, "status_write",
+                           "audit.status_write"):
+            self._write_statuses(run, constraints)
+            self._publish_metrics(run)
+            self._finish(run)
         return run
 
     def _render_driver(self):
@@ -484,7 +496,8 @@ class AuditManager:
         packed chunk; only the emission order across groups shifts, which
         only the kept selection of a constraint whose kinds span more than
         one group can see (the JAX package's coalescing does the same)."""
-        src = self._chunk_source_impl(constraints, use_router, counter)
+        src = self._listed(self._chunk_source_impl(constraints, use_router,
+                                                   counter))
         k = max(1, int(getattr(self.config, "shard_chunks", 0) or 1))
         if k <= 1:
             yield from src
@@ -503,6 +516,21 @@ class AuditManager:
                 yield buf[0], buf[1]
         for objs, cons, _count in pend.values():  # partial tails
             yield objs, cons
+
+    def _listed(self, src):
+        """``src``'s chunks, each timed from the generator's resume to its
+        yield as the ``list_route`` phase (the lister's pages, the kind
+        peek, the router and the generator tee; not the consumer's
+        time)."""
+        it = iter(src)
+        while True:
+            with tracing.phase(self._perf_add, "list_route",
+                               "audit.list_route"):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+            yield item
 
     def _chunk_source_impl(self, constraints, use_router, counter):
         """Yield ``(objects, constraint_subset)`` sweep chunks in canonical
@@ -577,7 +605,6 @@ class AuditManager:
             budget_fn = (lambda con:
                          limit - len(kept.get(con.key(), ())))
         retries = max(0, self.config.chunk_retries)
-        from gatekeeper_tpu_torch.observability import tracing
 
         def chunk_failed(exc, phase):
             """Retry budget exhausted: skip the chunk, flag the run."""
@@ -610,7 +637,8 @@ class AuditManager:
             # count, so a fold failure drops the chunk instead
             pending, objs, cons, chunk_i = window.popleft()
             with tracing.span("audit.chunk.collect_fold", chunk=chunk_i,
-                              objects=len(objs)):
+                              objects=len(objs)) as sp, \
+                    self._renders_on(sp):
                 last = None
                 swept = None
                 for attempt in range(retries + 1):
@@ -628,12 +656,10 @@ class AuditManager:
                     chunk_failed(last, "collect")
                     return
                 try:
-                    t0 = time.perf_counter()
-                    self._process_swept(swept, objs, cons, kept, totals,
-                                        limit)
-                    self.perf["fold_render"] = (
-                        self.perf.get("fold_render", 0.0)
-                        + time.perf_counter() - t0)
+                    with tracing.phase(self._perf_add, "fold_render",
+                                       "audit.fold_render"):
+                        self._process_swept(swept, objs, cons, kept, totals,
+                                            limit)
                 except Exception as e:
                     chunk_failed(e, "fold")
 
@@ -656,8 +682,6 @@ class AuditManager:
                     window.append((pending, objects, cons, chunk_i))
                 while window and (len(window) > max_inflight
                                   or _sweep_ready(window[0][0])):
-                    self.perf["n_eager_collects"] = (
-                        self.perf.get("n_eager_collects", 0) + 1)
                     fold_oldest()
             else:
                 # interpreter lane: evaluate into CHUNK-LOCAL dicts and
@@ -759,11 +783,9 @@ class AuditManager:
 
         def fold_render(item):
             swept, objs, cons = item
-            t0 = time.perf_counter()
-            self._process_swept(swept, objs, cons, kept, totals, limit)
-            self.perf["fold_render"] = (
-                self.perf.get("fold_render", 0.0)
-                + time.perf_counter() - t0)
+            with tracing.phase(self._perf_add, "fold_render",
+                               "audit.fold_render"):
+                self._process_swept(swept, objs, cons, kept, totals, limit)
             return None
 
         fw = cfg.pipeline_flatten_workers
@@ -1053,10 +1075,25 @@ class AuditManager:
                         cache[cache_key] = review
             results = driver.render_query(target.name, con, review,
                                           cfg).results
-            self._attr_render(con, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self._perf_add("render", dt)
+            self._attr_render(con, dt)
             return results
 
         return render
+
+    @contextmanager
+    def _renders_on(self, sp):
+        """Stamp the renders made inside the block (``renders``) and their
+        seconds (``render_s``) on the span ``sp``."""
+        n0 = self.perf.get("n_renders", 0)
+        s0 = self.perf.get("render", 0.0)
+        try:
+            yield sp
+        finally:
+            sp.set_attribute("renders", self.perf.get("n_renders", 0) - n0)
+            sp.set_attribute("render_s",
+                             round(self.perf.get("render", 0.0) - s0, 6))
 
     @staticmethod
     def _attr_render(con, dt: float) -> None:
@@ -1083,9 +1120,7 @@ class AuditManager:
         (rows the watch patched since the last evaluation) — O(churn), not
         O(cluster).  Cluster-wide totals and kept lists come from the
         per-row verdict store (clean rows keep their last results)."""
-        from gatekeeper_tpu_torch.observability import tracing
-
-        with tracing.span("audit.tick") as sp:
+        with tracing.span("audit.tick") as sp, self._collector:
             run = self._audit_snapshot_impl(full=False)
             sp.set_attribute("objects", run.total_objects)
             sp.set_attribute("duration_s", round(run.duration_s, 3))
@@ -1133,8 +1168,10 @@ class AuditManager:
             self._finish(run)
             return run
         snap = self.snapshot
-        self._snapshot_ready(constraints)
-        rows = snap.all_rows() if full else snap.dirty_rows()
+        with tracing.phase(self._perf_add, "snapshot_ready",
+                           "snapshot.ready", full=full):
+            self._snapshot_ready(constraints)
+            rows = snap.all_rows() if full else snap.dirty_rows()
         n_rows = sum(len(v) for v in rows.values())
         self.perf["snapshot_rows_evaluated"] = (
             self.perf.get("snapshot_rows_evaluated", 0.0) + n_rows)
@@ -1151,7 +1188,10 @@ class AuditManager:
         # parents re-expand, clean parents keep their generated verdicts
         self._snapshot_generated(rows, constraints, run)
         run.total_objects = snap.live_count()
-        totals, kept = self._snapshot_collect(constraints)
+        with tracing.phase(self._perf_add, "snapshot_collect",
+                           "snapshot.collect") as ph, \
+                self._renders_on(ph.span):
+            totals, kept = self._snapshot_collect(constraints)
         run.total_violations = totals
         run.kept = kept
         run.duration_s = time.time() - t0
@@ -1166,10 +1206,12 @@ class AuditManager:
                     else None
                 self.metrics.set_gauge(M.TICK_H2D_BYTES, float(tick_h2d),
                                        labels)
-        snap.publish_metrics()
-        self._write_statuses(run, constraints)
-        self._publish_metrics(run)
-        self._finish(run)
+        with tracing.phase(self._perf_add, "status_write",
+                           "audit.status_write"):
+            snap.publish_metrics()
+            self._write_statuses(run, constraints)
+            self._publish_metrics(run)
+            self._finish(run)
         return run
 
     def _snapshot_eval(self, rows_by_store, run) -> None:
@@ -1190,8 +1232,6 @@ class AuditManager:
         chunk_size = max(1, self.config.chunk_size) * shard_k
         max_inflight = max(1, self.config.submit_window)
 
-        from gatekeeper_tpu_torch.observability import tracing
-
         def chunk_failed(exc):
             run.failed_chunks += 1
             run.incomplete = True
@@ -1209,7 +1249,9 @@ class AuditManager:
             rg = None
             if self.residency is not None and ev is not None \
                     and store.lowered:
-                rg = self.residency.prepare(store)
+                with tracing.phase(self._perf_add, "snapshot_rows",
+                                   "snapshot.rows", prepare=True):
+                    rg = self.residency.prepare(store)
             window: deque = deque()
 
             def submit_chunk(positions, objects, _rg=rg, _store=store):
@@ -1232,7 +1274,9 @@ class AuditManager:
                             _window=window):
                 pending, gids, positions, objects, ci = _window.popleft()
                 with tracing.span("audit.chunk.collect_fold", chunk=ci,
-                                  objects=len(gids), source="snapshot"):
+                                  objects=len(gids),
+                                  source="snapshot") as sp, \
+                        self._renders_on(sp):
                     last = None
                     swept = {}
                     for attempt in range(retries + 1):
@@ -1249,21 +1293,21 @@ class AuditManager:
                         chunk_failed(last)
                         return
                     try:
-                        t0 = time.perf_counter()
-                        self._fold_snapshot_chunk(swept, _store.cons, gids,
-                                                  objects)
-                        snap.mark_clean(gids)
-                        self.perf["fold_render"] = (
-                            self.perf.get("fold_render", 0.0)
-                            + time.perf_counter() - t0)
+                        with tracing.phase(self._perf_add, "fold_render",
+                                           "audit.fold_render"):
+                            self._fold_snapshot_chunk(swept, _store.cons,
+                                                      gids, objects)
+                            snap.mark_clean(gids)
                     except Exception as e:
                         chunk_failed(e)
 
             for ci, i in enumerate(range(0, len(rowlist), chunk_size)):
-                chunk = rowlist[i: i + chunk_size]
-                gids = [g for g, _p in chunk]
-                positions = [p for _g, p in chunk]
-                objects = [store.row_obj(p) for p in positions]
+                with tracing.phase(self._perf_add, "snapshot_rows",
+                                   "snapshot.rows", chunk=ci):
+                    chunk = rowlist[i: i + chunk_size]
+                    gids = [g for g, _p in chunk]
+                    positions = [p for _g, p in chunk]
+                    objects = [store.row_obj(p) for p in positions]
                 pending = None
                 if store.lowered and ev is not None:
                     with tracing.span("audit.chunk.submit", chunk=ci,
@@ -1505,15 +1549,13 @@ class AuditManager:
         fresh relist sweep, compared canonically).  A divergence marks
         the run incomplete and invalidates the snapshot: the next pass
         rebuilds."""
-        from gatekeeper_tpu_torch.observability import tracing
-
         t0 = time.time()
         rotate = max(0, self.config.resync_rotate)
         rotor = None
         if rotate > 1:
             rotor = (self._resync_phase % rotate, rotate)
             self._resync_phase = (self._resync_phase + 1) % rotate
-        with tracing.span("snapshot.resync") as sp:
+        with tracing.span("snapshot.resync") as sp, self._collector:
             if rotor is not None:
                 sp.set_attribute("rotor_phase", rotor[0])
                 sp.set_attribute("rotor_k", rotor[1])
@@ -1683,8 +1725,6 @@ class AuditManager:
         lane for the rest — folding into the same kept/totals with the
         template's enforcementAction override and the reference's
         ``[Implied by <template>]`` message prefix."""
-        from gatekeeper_tpu_torch.observability import tracing
-
         chunk_size = max(1, self.config.chunk_size)
         n_resultants = 0
         with tracing.span("expansion.stage", phase="audit",
@@ -1834,6 +1874,9 @@ class AuditManager:
         self.metrics.set_gauge(M.AUDIT_LAST_RUN_END, now)
         self.metrics.set_gauge(M.AUDIT_LAST_RUN_INCOMPLETE,
                                1.0 if run.incomplete else 0.0)
+        # the collector's seconds in this pass so far
+        gc_s = self._collector.seconds
+        self.metrics.set_gauge(AUDIT_COLLECTOR_SECONDS, gc_s)
         if self.cluster:
             # fleet: the per-cluster staleness series the cluster-scoped
             # objectives sample (the unlabelled gauges keep their process-
@@ -1844,6 +1887,7 @@ class AuditManager:
             self.metrics.set_gauge(M.AUDIT_LAST_RUN_END, now, lab)
             self.metrics.set_gauge(M.AUDIT_LAST_RUN_INCOMPLETE,
                                    1.0 if run.incomplete else 0.0, lab)
+            self.metrics.set_gauge(AUDIT_COLLECTOR_SECONDS, gc_s, lab)
         if not self.pipe_stats:
             return
         for name, st in self.pipe_stats.get("stages", {}).items():

@@ -46,11 +46,13 @@ from gatekeeper_tpu_torch.observability.slo import (  # noqa: F401
 from gatekeeper_tpu_torch.observability.export import (  # noqa: F401
     chrome_trace,
     format_span_summary,
+    host_spans,
     top_spans_by_self_time,
     write_chrome_trace,
 )
 from gatekeeper_tpu_torch.observability.tracing import (  # noqa: F401
     NOOP_SPAN,
+    CollectorHook,
     Span,
     SpanContext,
     Tracer,
@@ -61,7 +63,9 @@ from gatekeeper_tpu_torch.observability.tracing import (  # noqa: F401
     enabled,
     format_traceparent,
     install,
+    open_phases,
     parse_traceparent,
+    phase,
     set_attribute,
     span,
     uninstall,

@@ -84,6 +84,24 @@ def write_chrome_trace(path: str, tracer) -> int:
     return len(doc["traceEvents"])
 
 
+def host_spans(traces: list) -> list:
+    """``[(name, start, end)]`` of every span of ``traces`` on the
+    tracer's monotonic clock (``start_mono``; ``time.perf_counter`` unless
+    the tracer was given another), oldest start first: the shape a
+    profiler's window anchor maps onto the device trace's clock.  Spans
+    exported without ``start_mono`` are left out."""
+    out = []
+    for trace in traces:
+        for sp in trace.get("spans", []):
+            t0 = sp.get("start_mono")
+            if t0 is None:
+                continue
+            out.append((sp.get("name", ""), t0,
+                        t0 + max(0.0, sp.get("duration_s", 0.0))))
+    out.sort(key=lambda s: s[1])
+    return out
+
+
 # --- self-time summary ----------------------------------------------------
 
 def self_times(traces: list) -> dict:

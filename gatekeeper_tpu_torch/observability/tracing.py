@@ -32,6 +32,14 @@ helper thread) is explicit: capture :func:`current_span` on the
 submitting thread, re-enter it with :func:`use_span` (or pass it as
 ``parent=``) on the worker.
 
+The port's phase clock (:class:`phase`) times an audit phase once for
+both its counter (the owner's ``perf`` dict) and its span, and keeps a
+per-thread stack of the open phases; :class:`CollectorHook` charges each
+garbage collection to the innermost one (``perf["gc/<phase>"]``) and
+turns full collections into ``python.gc`` spans.  A span's
+``start_mono`` is its start on the monotonic clock, which
+``export.host_spans`` hands to a profiler's window anchor.
+
 W3C trace-context interop: :func:`parse_traceparent` ingests an incoming
 ``traceparent`` header as a remote parent (the webhook HTTP path), and
 :func:`format_traceparent` emits the current span's context on outbound
@@ -41,6 +49,7 @@ calls (external-data provider sends, apiserver requests).
 from __future__ import annotations
 
 import contextvars
+import gc
 import random
 import threading
 import time
@@ -109,6 +118,9 @@ class Span:
             "span_id": self.span_id,
             "parent_id": self.parent_id,
             "start_ts": self.start_ts,
+            # the tracer's monotonic clock (perf_counter unless injected):
+            # the clock a profiler's window is anchored to
+            "start_mono": self._t0,
             "duration_s": self.duration_s,
             "thread_id": self.thread_id,
             "thread_name": self.thread_name,
@@ -181,11 +193,18 @@ class Tracer:
 
     # --- span lifecycle ---------------------------------------------------
     def start_span(self, name: str, parent=None,
-                   attributes: Optional[dict] = None) -> Span:
+                   attributes: Optional[dict] = None,
+                   t0: Optional[float] = None,
+                   start_ts: Optional[float] = None,
+                   thread: Optional[tuple] = None) -> Span:
         """``parent`` may be a local :class:`Span`, a remote
         :class:`SpanContext` (ingested traceparent), or None (new trace).
         A span with no *local* parent is its trace's local root — its end
-        finalizes the trace through the tail sampler."""
+        finalizes the trace through the tail sampler.  ``t0`` is a start
+        already read on the monotonic clock (a :class:`phase`'s),
+        ``start_ts`` the same start on the wall clock and ``thread`` the
+        ``(id, name)`` of the thread that ran it, for a span opened after
+        the fact (a ``python.gc`` span)."""
         with self._lock:
             if parent is None:
                 trace_id = self._gen_trace_id()
@@ -197,12 +216,19 @@ class Tracer:
             self.span_count += 1
         is_root = parent is None or isinstance(parent, SpanContext)
         s = Span(name, trace_id, span_id, parent_id, is_root, self)
+        if t0 is not None:
+            s._t0 = t0
+        if start_ts is not None:
+            s.start_ts = start_ts
+        if thread is not None:
+            s.thread_id, s.thread_name = thread
         if attributes:
             s.attributes.update(attributes)
         return s
 
-    def end_span(self, s: Span) -> None:
-        s.duration_s = self._clock() - s._t0
+    def end_span(self, s: Span, t1: Optional[float] = None) -> None:
+        """End ``s`` now, or at ``t1`` read on the monotonic clock."""
+        s.duration_s = (self._clock() if t1 is None else t1) - s._t0
         with self._lock:
             buf = self._pending.setdefault(s.trace_id, [])
             if len(buf) < self.max_spans_per_trace:
@@ -376,6 +402,175 @@ def use_span(s: Optional[Span]):
 
 def enabled() -> bool:
     return _ctx_tracer.get() is not None or _global_tracer[0] is not None
+
+
+# --- the phase clock -------------------------------------------------------
+
+_phase_stacks = threading.local()
+
+# The spans only the port opens, beyond the JAX package's names: its phase
+# clock's (``phase(add, key, span)``; the counter key in brackets) and the
+# collector hook's.
+PORT_ONLY_SPANS = frozenset({
+    "audit.list_route",    # a chunk's listing and routing [list_route]
+    "audit.fold_render",   # a chunk's fold and renders [fold_render]
+    "audit.status_write",  # statuses, metrics, export [status_write]
+    "snapshot.ready",      # constraint adoption, pump, rows [snapshot_ready]
+    "snapshot.rows",       # a chunk's row objects, residency [snapshot_rows]
+    "snapshot.collect",    # totals and kept off the store [snapshot_collect]
+    "device.masks",        # a dispatch's tables and masks [masks]
+    "device.upload",       # a dispatch's uploads [upload]
+    "device.launch",       # a dispatch's grid and fold enqueue [dispatch]
+    "device.collect",      # a chunk's fetch and unpack [collect]
+    "python.gc",           # a full garbage collection (CollectorHook)
+})
+
+
+def open_phases() -> list:
+    """The keys of the phases open on this thread, innermost last."""
+    stack = getattr(_phase_stacks, "keys", None)
+    if stack is None:
+        stack = _phase_stacks.keys = []
+    return stack
+
+
+class phase:
+    """One timing of one phase, for its counter and its span alike::
+
+        with tracing.phase(self._perf_add, "upload", "device.upload") as ph:
+            ...
+        ph.dt  # the seconds just added under "upload"
+
+    Reads one ``time.perf_counter()`` pair and adds the seconds through
+    ``add(key, dt)`` (the owner's counter, under the owner's lock), also
+    when the body raises.  While open, ``key`` is on this thread's phase
+    stack (:func:`open_phases`), which the collector hook reads.  With a
+    tracer active and a ``span`` name, it opens that span (``attrs`` its
+    attributes, ``ph.span`` the span) with exactly the counter's two
+    readings as its start and end, so the span lies on the monotonic
+    clock the counter reads.  Without a tracer it costs one contextvar
+    read, one global read and the stack's push and pop.
+
+    It opens no range of the CUDA profiler's: the profiler mirrors such
+    ranges onto the device's timeline, where they would read as device
+    work."""
+
+    __slots__ = ("_add", "key", "_name", "_attrs", "span", "dt", "_t0",
+                 "_stack", "_tracer", "_token")
+
+    def __init__(self, add: Callable[[str, float], None], key: str,
+                 span: Optional[str] = None, **attrs: Any):
+        self._add = add
+        self.key = key
+        self._name = span
+        self._attrs = attrs
+        self.span = NOOP_SPAN
+        self.dt = 0.0
+        self._tracer = None
+
+    def __enter__(self) -> "phase":
+        self._stack = open_phases()
+        self._stack.append(self.key)
+        if self._name is not None:
+            tracer = _ctx_tracer.get()
+            if tracer is None:
+                tracer = _global_tracer[0]
+            self._tracer = tracer
+        self._t0 = time.perf_counter()
+        if self._tracer is not None:
+            s = self._tracer.start_span(self._name, parent=_ctx_span.get(),
+                                        attributes=self._attrs, t0=self._t0)
+            self.span = s
+            self._token = _ctx_span.set(s)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        self.dt = t1 - self._t0
+        self._add(self.key, self.dt)
+        self._stack.pop()
+        if self._tracer is not None:
+            s = self.span
+            if exc_type is not None:
+                s.set_status("error", f"{exc_type.__name__}: {exc}")
+            _ctx_span.reset(self._token)
+            self._tracer.end_span(s, t1)
+        return False
+
+
+class CollectorHook:
+    """The cyclic garbage collector's seconds by phase, while entered.
+
+    One ``gc.callbacks`` hook: each collection's seconds add through
+    ``add`` under ``"gc"`` and under ``"gc/<innermost open phase>"`` of
+    the thread that ran it (``"gc/none"`` outside every phase).  With a
+    tracer active, a full (generation 2) collection inside an open span
+    also becomes a ``python.gc`` span under it; younger generations only
+    count.  Entering again while entered only deepens the hold; the hook
+    leaves ``gc.callbacks`` when the outermost hold exits, and opens the
+    ``python.gc`` spans then (a collection can interrupt code that holds
+    the tracer's lock), so hold it inside the span that roots the pass.
+    Each such span keeps the start (monotonic and wall) and the thread of
+    its collection, so a trace draws it where it ran.
+    ``seconds`` sums the collections since the outermost hold began."""
+
+    def __init__(self, add: Callable[[str, float], None]):
+        self._add = add
+        self._depth = 0
+        self._t0 = 0.0
+        self._tracer = None
+        self._wall0 = 0.0
+        self._full: list = []
+        self.seconds = 0.0
+
+    def __call__(self, stage: str, info: dict) -> None:
+        if stage == "start":
+            self._tracer = None
+            if info.get("generation") == 2 and \
+                    _ctx_span.get() is not None:
+                tracer = _ctx_tracer.get()
+                if tracer is None:
+                    tracer = _global_tracer[0]
+                if tracer is not None:
+                    # the span opens later: keep where and when it ran
+                    self._tracer = tracer
+                    self._wall0 = tracer._wall()
+            self._t0 = time.perf_counter()
+            return
+        t1 = time.perf_counter()
+        dt = t1 - self._t0
+        self.seconds += dt
+        stack = open_phases()
+        self._add("gc", dt)
+        self._add("gc/" + (stack[-1] if stack else "none"), dt)
+        tracer = self._tracer
+        if tracer is None:
+            return
+        self._tracer = None
+        t = threading.current_thread()
+        self._full.append((tracer, _ctx_span.get(), self._t0, t1,
+                           self._wall0, (t.ident or 0, t.name), {
+            "generation": 2, "collected": info.get("collected", 0),
+            "phase": stack[-1] if stack else "none"}))
+
+    def __enter__(self) -> "CollectorHook":
+        if self._depth == 0:
+            self.seconds = 0.0
+            gc.callbacks.append(self)
+        self._depth += 1
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._depth -= 1
+        if self._depth == 0:
+            gc.callbacks.remove(self)
+            full, self._full = self._full, []
+            for tracer, parent, t0, t1, wall0, thread, attrs in full:
+                s = tracer.start_span("python.gc", parent=parent,
+                                      attributes=attrs, t0=t0,
+                                      start_ts=wall0, thread=thread)
+                tracer.end_span(s, t1)
+        return False
 
 
 # --- W3C trace-context ----------------------------------------------------

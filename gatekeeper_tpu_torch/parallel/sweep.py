@@ -1001,14 +1001,12 @@ class SweepEvaluator:
             return {}
         n = len(objects)
         pad_n = self._pad(n)
-        t0 = time.perf_counter()
-        fl = self._flattener(schema)
-        with tracing.span("ops.flatten.columnize", n=n,
-                          lane=self.flatten_lane) as sp:
+        with tracing.phase(self._perf_add, "flatten", "ops.flatten.columnize",
+                           n=n, lane=self.flatten_lane) as ph:
+            fl = self._flattener(schema)
             batch = fl.flatten(objects, pad_n=pad_n)
-            sp.set_attribute("lane_used", fl.lane_used)
-        dt = time.perf_counter() - t0
-        self._perf_add("flatten", dt)
+            ph.span.set_attribute("lane_used", fl.lane_used)
+        dt = ph.dt
         self._flatten_accounting(fl, n)
         attr = costattr.active()
         if attr is not None:
@@ -1341,19 +1339,19 @@ class SweepEvaluator:
             fault_point("device.dispatch", lane="sweep", n=flat.n)
         with self._dispatch_lock:
             self.dispatch_count += 1
+            self._perf_add("dispatches", 1.0)
             kinds = flat.kinds
             pad_n = flat.pad_n
             progs = flat.programs if flat.programs is not None \
                 else self.driver._programs
-            t0 = time.perf_counter()
-            tables, offsets, c_off = self._param_tables(flat, progs)
-            sources = [flat.source] * len(flat.objects)
-            mask_rows = [masks_mod.constraint_masks(
-                flat.by_kind[kind], flat.batch, self.driver.vocab,
-                flat.objects, sources=sources,
-                any_generate_name=flat.any_gen)
-                for kind in kinds]
-            self._perf_add("masks", time.perf_counter() - t0)
+            with tracing.phase(self._perf_add, "masks", "device.masks"):
+                tables, offsets, c_off = self._param_tables(flat, progs)
+                sources = [flat.source] * len(flat.objects)
+                mask_rows = [masks_mod.constraint_masks(
+                    flat.by_kind[kind], flat.batch, self.driver.vocab,
+                    flat.objects, sources=sources,
+                    any_generate_name=flat.any_gen)
+                    for kind in kinds]
             plan = self._fold_plan(flat, lane, c_off)
             attr_rows = None
             if plan[0] != "reduced" and costattr.active() is not None:
@@ -1361,42 +1359,43 @@ class SweepEvaluator:
                 # the host masks; +1 keeps an all-masked template visible
                 attr_rows = {k: int(m.sum())
                              for k, m in zip(kinds, mask_rows)}
-            t0 = time.perf_counter()
-            keep: list = []
-            spans = self._spans(pad_n)
-            cols_devs = self._upload_cols(flat.cols, pad_n, keep, spans)
-            shared = self._shared_tables(kinds, progs, flat.batch)
-            bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
-            shards = []
-            for (s, lo, hi, dev), cols_dev in zip(spans, cols_devs):
-                for key, val in shared.items():
-                    cols_dev[key] = self._table_tensor(key, val, device=dev)
-                params_dev = self._param_tensors(tables, "h2d_bytes", dev)
-                mask, budget = self._upload_mask(
-                    bits[:, lo // 8: hi // 8], plan[2], hi - lo, keep, dev)
-                shards.append((s, hi - lo, cols_dev, params_dev, mask,
-                               budget))
-            self._perf_add("upload", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            parts = []
-            for s, n_s, cols_dev, params_dev, mask, budget in shards:
-                # each shard's grid over its own rows, folded by the
-                # hand-written kernels on the shard's device
-                raw = torch.cat([progs[kind].grid(params_dev[i], cols_dev,
-                                                  n_s)
-                                 for i, kind in enumerate(kinds)], dim=0)
-                parts.append(self._fold(raw, mask, plan, budget, n_s, s))
-            pending = self._pending(flat, plan, offsets, parts)
-            pending.staging = keep
-            if host_occ:
-                pending.host_occ = np.concatenate(
-                    [m.sum(axis=1, dtype=np.int64) for m in mask_rows]
-                ).astype(np.int32)
-            if attr_rows is not None:
-                pending.attr_rows = attr_rows
-                pending.attr_weights = {k: 1.0 + r
-                                        for k, r in attr_rows.items()}
-            self._perf_add("dispatch", time.perf_counter() - t0)
+            with tracing.phase(self._perf_add, "upload", "device.upload"):
+                keep: list = []
+                spans = self._spans(pad_n)
+                cols_devs = self._upload_cols(flat.cols, pad_n, keep, spans)
+                shared = self._shared_tables(kinds, progs, flat.batch)
+                bits = np.packbits(np.concatenate(mask_rows, axis=0), axis=1)
+                shards = []
+                for (s, lo, hi, dev), cols_dev in zip(spans, cols_devs):
+                    for key, val in shared.items():
+                        cols_dev[key] = self._table_tensor(key, val,
+                                                           device=dev)
+                    params_dev = self._param_tensors(tables, "h2d_bytes",
+                                                     dev)
+                    mask, budget = self._upload_mask(
+                        bits[:, lo // 8: hi // 8], plan[2], hi - lo, keep,
+                        dev)
+                    shards.append((s, hi - lo, cols_dev, params_dev, mask,
+                                   budget))
+            with tracing.phase(self._perf_add, "dispatch", "device.launch"):
+                parts = []
+                for s, n_s, cols_dev, params_dev, mask, budget in shards:
+                    # each shard's grid over its own rows, folded by the
+                    # hand-written kernels on the shard's device
+                    raw = torch.cat([progs[kind].grid(params_dev[i],
+                                                      cols_dev, n_s)
+                                     for i, kind in enumerate(kinds)], dim=0)
+                    parts.append(self._fold(raw, mask, plan, budget, n_s, s))
+                pending = self._pending(flat, plan, offsets, parts)
+                pending.staging = keep
+                if host_occ:
+                    pending.host_occ = np.concatenate(
+                        [m.sum(axis=1, dtype=np.int64) for m in mask_rows]
+                    ).astype(np.int32)
+                if attr_rows is not None:
+                    pending.attr_rows = attr_rows
+                    pending.attr_weights = {k: 1.0 + r
+                                            for k, r in attr_rows.items()}
             return pending
 
     def _dispatch_resident_impl(self, flat, lane: str = "masks",
@@ -1415,40 +1414,42 @@ class SweepEvaluator:
             fault_point("device.dispatch", lane="sweep_resident", n=flat.n)
         with self._dispatch_lock:
             self.dispatch_count += 1
+            self._perf_add("dispatches", 1.0)
             rg = flat.rg
             kinds = flat.kinds
             pad_n = flat.pad_n
             progs = flat.programs if flat.programs is not None \
                 else self.driver._programs
             meter = "resident_h2d_bytes"
-            t0 = time.perf_counter()
-            tables, offsets, c_off = self._param_tables(flat, progs)
-            tables_dev = {key: self._table_tensor(key, val, meter)
-                          for key, val in self._shared_tables(
-                              kinds, progs).items()}
-            params_dev = self._param_tensors(tables, meter)
-            idx_dev, idx_bytes = rg.chunk_idx(flat.positions, pad_n)
-            self._perf_add(meter, float(idx_bytes))
-            plan = self._fold_plan(flat, lane, c_off)
-            budget = plan[2]  # crosses in _reduce
-            if budget is not None:
-                self._perf_add(meter, float(budget.nbytes))
-                self._perf_add("h2d_copies", 1.0)
-            self._perf_add("upload", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            cols, mask = gather_resident(idx_dev, rg.cols_dev, rg.mask_dev,
-                                         rg.cols_layout, pad_n)
-            cols.update(tables_dev)
-            raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
-                             for i, kind in enumerate(kinds)], dim=0)
-            pending = self._pending(
-                flat, plan, offsets,
-                [self._fold(raw, mask, plan, budget, pad_n, 0)])
-            if host_occ:
-                pos = np.asarray(flat.positions, np.intp)
-                pending.host_occ = rg.mask_host[:, pos].sum(
-                    axis=1, dtype=np.int64).astype(np.int32)
-            self._perf_add("dispatch", time.perf_counter() - t0)
+            with tracing.phase(self._perf_add, "upload", "device.upload",
+                               resident=True):
+                tables, offsets, c_off = self._param_tables(flat, progs)
+                tables_dev = {key: self._table_tensor(key, val, meter)
+                              for key, val in self._shared_tables(
+                                  kinds, progs).items()}
+                params_dev = self._param_tensors(tables, meter)
+                idx_dev, idx_bytes = rg.chunk_idx(flat.positions, pad_n)
+                self._perf_add(meter, float(idx_bytes))
+                plan = self._fold_plan(flat, lane, c_off)
+                budget = plan[2]  # crosses in _reduce
+                if budget is not None:
+                    self._perf_add(meter, float(budget.nbytes))
+                    self._perf_add("h2d_copies", 1.0)
+            with tracing.phase(self._perf_add, "dispatch", "device.launch",
+                               resident=True):
+                cols, mask = gather_resident(idx_dev, rg.cols_dev,
+                                             rg.mask_dev, rg.cols_layout,
+                                             pad_n)
+                cols.update(tables_dev)
+                raw = torch.cat([progs[kind].grid(params_dev[i], cols, pad_n)
+                                 for i, kind in enumerate(kinds)], dim=0)
+                pending = self._pending(
+                    flat, plan, offsets,
+                    [self._fold(raw, mask, plan, budget, pad_n, 0)])
+                if host_occ:
+                    pos = np.asarray(flat.positions, np.intp)
+                    pending.host_occ = rg.mask_host[:, pos].sum(
+                        axis=1, dtype=np.int64).astype(np.int32)
             return pending
 
     def _param_tables(self, flat, progs) -> tuple:
@@ -1695,30 +1696,30 @@ class SweepEvaluator:
             return self._collect_masks(pending)
 
     def _collect_masks(self, pending):
-        t0 = time.perf_counter()
-        shards = self._fetch(pending)
-        if len(shards) == 1:
-            packed_np = shards[0][0]
-            bits_np = shards[0][1] if pending.return_bits else None
-        else:
-            packed_np, bits_np = self._merge_masks(
-                shards, pending.pad_n, pending.return_bits)
-        # k is clipped to the padded batch width; recover the effective k
-        # from the packed layout [idx(k') | valid(k') | count]
-        k_eff = (packed_np.shape[1] - 1) // 2
-        n = pending.n
-        out = {}
-        for kind in pending.kinds:
-            lo, hi = pending.offsets[kind]
-            idx_np = packed_np[lo:hi, :k_eff]
-            valid_np = (packed_np[lo:hi, k_eff: 2 * k_eff] != 0) \
-                & (idx_np < n)
-            counts_np = packed_np[lo:hi, 2 * k_eff]
-            kb = bits_np[lo:hi] if bits_np is not None else None
-            out[kind] = (pending.by_kind[kind], idx_np, valid_np, counts_np,
-                         kb)
-        self._perf_add("collect", time.perf_counter() - t0)
-        return out
+        with tracing.phase(self._perf_add, "collect", "device.collect",
+                           lane="masks"):
+            shards = self._fetch(pending)
+            if len(shards) == 1:
+                packed_np = shards[0][0]
+                bits_np = shards[0][1] if pending.return_bits else None
+            else:
+                packed_np, bits_np = self._merge_masks(
+                    shards, pending.pad_n, pending.return_bits)
+            # k is clipped to the padded batch width; recover the effective
+            # k from the packed layout [idx(k') | valid(k') | count]
+            k_eff = (packed_np.shape[1] - 1) // 2
+            n = pending.n
+            out = {}
+            for kind in pending.kinds:
+                lo, hi = pending.offsets[kind]
+                idx_np = packed_np[lo:hi, :k_eff]
+                valid_np = (packed_np[lo:hi, k_eff: 2 * k_eff] != 0) \
+                    & (idx_np < n)
+                counts_np = packed_np[lo:hi, 2 * k_eff]
+                kb = bits_np[lo:hi] if bits_np is not None else None
+                out[kind] = (pending.by_kind[kind], idx_np, valid_np,
+                             counts_np, kb)
+            return out
 
     @staticmethod
     def _kept_from_hits(sub: np.ndarray, ck: int, pad_n: int, k_eff: int,
@@ -1744,7 +1745,30 @@ class SweepEvaluator:
         after it.  ``_aux`` (the differential lane) returns ``(out, occ)``
         with the device occupancy per constraint, or ``(out, None)`` after
         an overflow fallback."""
-        t0 = time.perf_counter()
+        with tracing.phase(self._perf_add, "collect", "device.collect",
+                           lane="reduced"):
+            got = self._unpack_reduced(pending)
+        if got is not None:
+            out, occ_all = got
+            return (out, occ_all) if _aux else out
+        # the chunk's hits overflowed its buffer: re-dispatch THIS chunk
+        # through the masks lane (always complete)
+        flat, pending.flat = pending.flat, None
+        fb = self._sweep_dispatch_impl(flat, lane="masks")
+        attr = costattr.active()
+        if attr is not None and fb.attr_weights:
+            # the overflowed chunk's dispatch wall, by the host masks of its
+            # re-dispatch
+            attr.attribute(pending.dispatch_wall, fb.attr_weights,
+                           costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
+                           rows=fb.attr_rows)
+        out = self._collect_masks(fb)
+        return (out, None) if _aux else out
+
+    def _unpack_reduced(self, pending):
+        """``(out, occ)`` of one reduced chunk, or None when its true hit
+        count overflowed the buffer (the shape's buffer is grown or pinned
+        for the chunks after it)."""
         shards = self._fetch(pending)
         c_total = max(hi for _lo, hi in pending.offsets.values())
         pad_n, n = pending.pad_n, pending.n
@@ -1768,10 +1792,10 @@ class SweepEvaluator:
             # budgeted buffer sizing feedback for the NEXT chunk
             st["blast"] = nsel
         if nsel > pending.hit_cap:
-            # the chunk's true hit count overflowed the buffer: re-dispatch
-            # THIS chunk through the masks lane (always complete), and grow
-            # — or, past the point where coordinates outweigh the grid,
-            # pin — the shape's buffer
+            # the chunk's true hit count overflowed the buffer: the caller
+            # re-dispatches it through the masks lane; grow — or, past the
+            # point where coordinates outweigh the grid, pin — the shape's
+            # buffer
             self._perf_add("collect_fallbacks", 1.0)
             if complete:
                 cap = 256
@@ -1782,17 +1806,7 @@ class SweepEvaluator:
                 else:
                     st["cap"] = cap
                 st["low"] = 0
-            flat, pending.flat = pending.flat, None
-            fb = self._sweep_dispatch_impl(flat, lane="masks")
-            attr = costattr.active()
-            if attr is not None and fb.attr_weights:
-                # the overflowed chunk's dispatch wall, by the host masks
-                # of its re-dispatch
-                attr.attribute(pending.dispatch_wall, fb.attr_weights,
-                               costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
-                               rows=fb.attr_rows)
-            out = self._collect_masks(fb)
-            return (out, None) if _aux else out
+            return None
         if complete and not st["pinned"]:
             # de-escalate a buffer the corpus stopped filling (16-chunk
             # hysteresis)
@@ -1828,8 +1842,7 @@ class SweepEvaluator:
                            costattr.EP_AUDIT, costattr.PHASE_DISPATCH,
                            rows=rows)
         pending.flat = None
-        self._perf_add("collect", time.perf_counter() - t0)
-        return (out, occ_all) if _aux else out
+        return out, occ_all
 
     def _collect_differential(self, pending):
         """``collect="differential"``: the reduced result must equal the

@@ -68,11 +68,14 @@ def _tracer(pkg, **kw):
 
 
 def _normalized(traces: list) -> list:
-    """Thread ids differ between runs; everything else must not."""
+    """Thread ids differ between runs; everything else must not.  The
+    port's spans also carry their monotonic start (``start_mono``), which
+    the JAX package's do not."""
     out = []
     for tr in traces:
         tr = dict(tr)
-        tr["spans"] = [{k: v for k, v in sp.items() if k != "thread_id"}
+        tr["spans"] = [{k: v for k, v in sp.items()
+                        if k not in ("thread_id", "start_mono")}
                        for sp in tr["spans"]]
         out.append(tr)
     return out
@@ -116,6 +119,17 @@ def _span_scenario(pkg) -> list:
 def test_span_trees_match():
     got, want = _span_scenario(PORT), _span_scenario(JAX)
     assert got == want
+    # the port's monotonic starts are the injected clock's readings, in
+    # the order the spans opened
+    tracer = _tracer(PORT)
+    with ttracing.activate(tracer):
+        with ttracing.span("audit.sweep"):
+            with ttracing.span("device.sweep_dispatch"):
+                pass
+    spans = {sp["name"]: sp for sp in tracer.traces()[0]["spans"]}
+    assert spans["audit.sweep"]["start_mono"] == pytest.approx(0.001)
+    assert spans["device.sweep_dispatch"]["start_mono"] == \
+        pytest.approx(0.002)
     traces = got[0]
     names = {sp["name"]: sp for sp in traces[0]["spans"]}
     assert names["webhook.batcher.flush"]["parent_id"] == \
