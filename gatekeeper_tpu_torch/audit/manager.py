@@ -58,6 +58,7 @@ derive its totals and kept lists.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import deque
@@ -82,6 +83,23 @@ from gatekeeper_tpu_torch.utils.unstructured import gvk_of
 # (``metrics/registry.py`` keeps the JAX package's names one for one):
 # the seconds the cyclic garbage collector ran during the last audit pass
 AUDIT_COLLECTOR_SECONDS = "audit_collector_seconds"
+
+# ``gc.freeze()`` acts on the whole process, so the settles of every
+# manager in it (:meth:`AuditManager._settling`) share one owner of the
+# freeze: whether the last settle's freeze still holds, under one lock
+_FREEZE_LOCK = threading.Lock()
+_frozen = False
+
+
+def unfreeze_settled() -> bool:
+    """Make what the last settle froze collectable again (True if a
+    freeze held).  The next pass of every manager settles again."""
+    global _frozen
+    with _FREEZE_LOCK:
+        held, _frozen = _frozen, False
+        if held:
+            gc.unfreeze()
+        return held
 
 
 @dataclass
@@ -272,11 +290,16 @@ class AuditManager:
         # tracks its own flatten/masks/upload/dispatch/collect): listing and
         # routing (list_route), fold_render, render and n_renders, the
         # snapshot lane's snapshot_ready, snapshot_rows, snapshot_collect,
-        # status_write, and the collector's seconds (gc, gc/<phase>), with
-        # the snapshot lane's counters
+        # status_write, and the collector's seconds (gc, gc/<phase>) and
+        # full collections (gc_full, gc_full_s), the settles (gc_settles,
+        # gc_frozen, gc_unfreezes, :meth:`_settling`), with the snapshot
+        # lane's counters
         self.perf: dict = {}
         # the collector's hook, held while a pass runs
         self._collector = tracing.CollectorHook(self._perf_add)
+        # what this manager's long-lived state was last settled under
+        # (_settle_key); None once it unfroze
+        self._settled_key: Optional[tuple] = None
         # the last pipelined pass's PipelineRun.summary() plus
         # device_wait_s and device_idle_fraction (None after a serial one)
         self.pipe_stats: Optional[dict] = None
@@ -340,7 +363,8 @@ class AuditManager:
     def audit(self) -> AuditRun:
         """One full pass under its root span: a relist sweep, or in
         snapshot mode a pass over every resident row."""
-        with tracing.span("audit.sweep") as sp, self._collector:
+        with tracing.span("audit.sweep") as sp, self._collector, \
+                self._settling():
             if self._snapshot_mode():
                 sp.set_attribute("source", "snapshot")
                 run = self._audit_snapshot_impl(full=True)
@@ -1115,12 +1139,74 @@ class AuditManager:
         return [c for c in self.client.constraints()
                 if c.actions_for(AUDIT_EP)]
 
+    # --- the collector's settle -------------------------------------------
+    def _settle_key(self, constraints) -> tuple:
+        """What the process's long-lived audit state was built from, in
+        O(constraints): the audited constraints with their templates'
+        digests and generation, and in snapshot mode the snapshot's
+        generation (a rebuild, a rechunk and a spill's adoption bump it)."""
+        driver = getattr(self.evaluator, "driver", None)
+        gen = getattr(getattr(driver, "gen_coord", None), "gen_id", None)
+        digests = getattr(driver, "template_digests", None) or {}
+        cons = tuple(sorted((c.kind, c.name, digests.get(c.kind, ""))
+                            for c in constraints))
+        snap = self.snapshot.generation if self._snapshot_mode() else None
+        return cons, gen, snap
+
+    @contextmanager
+    def _settling(self):
+        """Hold the long-lived state out of the cyclic collector's walk.
+
+        A pass ends with one full collection and ``gc.freeze()`` (a
+        settle) when its key (:meth:`_settle_key`) differs from the one
+        this manager last settled under, or when no settle's freeze holds
+        (:func:`unfreeze_settled`; any manager's unfreeze); later full
+        collections walk only what was allocated since.  Before a pass
+        that is about to replace this manager's state (a changed
+        constraint set, a stale snapshot), and inside every settle, the
+        process's freeze is lifted first, so cyclic garbage among objects
+        alive at a settle is reclaimed there, not sooner.  A pass that
+        raises settles nothing; the next pass of any manager does."""
+        global _frozen
+        constraints = self._audit_constraints()
+        if self._settle_key(constraints) != self._settled_key or (
+                constraints and self._snapshot_mode()
+                and self.snapshot.stale):
+            self._unfreeze()
+        yield
+        key = self._settle_key(self._audit_constraints())
+        if key == self._settled_key and _frozen:
+            return
+        with _FREEZE_LOCK:
+            if _frozen:  # a rechunk only the pass saw, or another's settle
+                gc.unfreeze()
+                self._perf_count("gc_unfreezes")
+            with tracing.phase(self._perf_add, "gc_settle",
+                               "audit.gc_settle") as ph:
+                collected = gc.collect()
+                gc.freeze()
+                frozen = gc.get_freeze_count()
+                ph.span.set_attribute("frozen", frozen)
+                ph.span.set_attribute("collected", collected)
+            _frozen = True
+        self._settled_key = key
+        self._perf_count("gc_settles")
+        self.perf["gc_frozen"] = float(frozen)
+
+    def _unfreeze(self) -> None:
+        """Lift the process's freeze before this manager's state is
+        replaced; the pass then settles again."""
+        self._settled_key = None
+        if unfreeze_settled():
+            self._perf_count("gc_unfreezes")
+
     def audit_tick(self) -> AuditRun:
         """Incremental snapshot audit: evaluate ONLY the dirty row set
         (rows the watch patched since the last evaluation) — O(churn), not
         O(cluster).  Cluster-wide totals and kept lists come from the
         per-row verdict store (clean rows keep their last results)."""
-        with tracing.span("audit.tick") as sp, self._collector:
+        with tracing.span("audit.tick") as sp, self._collector, \
+                self._settling():
             run = self._audit_snapshot_impl(full=False)
             sp.set_attribute("objects", run.total_objects)
             sp.set_attribute("duration_s", round(run.duration_s, 3))
@@ -1555,7 +1641,8 @@ class AuditManager:
         if rotate > 1:
             rotor = (self._resync_phase % rotate, rotate)
             self._resync_phase = (self._resync_phase + 1) % rotate
-        with tracing.span("snapshot.resync") as sp, self._collector:
+        with tracing.span("snapshot.resync") as sp, self._collector, \
+                self._settling():
             if rotor is not None:
                 sp.set_attribute("rotor_phase", rotor[0])
                 sp.set_attribute("rotor_k", rotor[1])

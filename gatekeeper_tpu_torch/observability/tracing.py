@@ -422,6 +422,7 @@ PORT_ONLY_SPANS = frozenset({
     "device.upload",       # a dispatch's uploads [upload]
     "device.launch",       # a dispatch's grid and fold enqueue [dispatch]
     "device.collect",      # a chunk's fetch and unpack [collect]
+    "audit.gc_settle",     # a settle's collection and freeze [gc_settle]
     "python.gc",           # a full garbage collection (CollectorHook)
 })
 
@@ -503,13 +504,15 @@ class CollectorHook:
 
     One ``gc.callbacks`` hook: each collection's seconds add through
     ``add`` under ``"gc"`` and under ``"gc/<innermost open phase>"`` of
-    the thread that ran it (``"gc/none"`` outside every phase).  With a
-    tracer active, a full (generation 2) collection inside an open span
-    also becomes a ``python.gc`` span under it; younger generations only
-    count.  Entering again while entered only deepens the hold; the hook
-    leaves ``gc.callbacks`` when the outermost hold exits, and opens the
-    ``python.gc`` spans then (a collection can interrupt code that holds
-    the tracer's lock), so hold it inside the span that roots the pass.
+    the thread that ran it (``"gc/none"`` outside every phase); a full
+    (generation 2) collection also adds 1 under ``"gc_full"`` and its
+    seconds under ``"gc_full_s"``.  With a tracer active, a full
+    collection inside an open span also becomes a ``python.gc`` span under
+    it; younger generations only count.  Entering again while entered only
+    deepens the hold; the hook leaves ``gc.callbacks`` when the outermost
+    hold exits, and opens the ``python.gc`` spans then (a collection can
+    interrupt code that holds the tracer's lock), so hold it inside the
+    span that roots the pass.
     Each such span keeps the start (monotonic and wall) and the thread of
     its collection, so a trace draws it where it ran.
     ``seconds`` sums the collections since the outermost hold began."""
@@ -543,6 +546,9 @@ class CollectorHook:
         stack = open_phases()
         self._add("gc", dt)
         self._add("gc/" + (stack[-1] if stack else "none"), dt)
+        if info.get("generation") == 2:
+            self._add("gc_full", 1.0)
+            self._add("gc_full_s", dt)
         tracer = self._tracer
         if tracer is None:
             return

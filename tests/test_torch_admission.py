@@ -59,6 +59,7 @@ from gatekeeper_tpu_torch.utils.synthetic import \
     load_library as tload  # noqa: E402
 from gatekeeper_tpu_torch.webhook.policy import \
     parse_admission_review as tparse  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 LIB = os.path.join(os.path.dirname(__file__), "..", "library")
 CEL_KINDS = ("K8sContainerLimitsCEL", "K8sNoPrivileged")

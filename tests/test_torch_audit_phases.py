@@ -37,6 +37,7 @@ from gatekeeper_tpu_torch.snapshot import (ClusterSnapshot, DeviceResidency,
 from gatekeeper_tpu_torch.sync.source import FakeCluster
 from gatekeeper_tpu_torch.utils.synthetic import (load_library,
                                                   make_cluster_objects)
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 N_OBJECTS = 2000

@@ -67,6 +67,7 @@ from gatekeeper_tpu_torch.utils.synthetic import \
 from gatekeeper_tpu_torch.utils.unstructured import \
     load_yaml_file  # noqa: E402
 from gatekeeper_tpu_torch.webhook import policy as tpolicy  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 LIB = os.path.join(os.path.dirname(__file__), "..", "library", "general")
 SUBSET = ("requiredlabels", "allowedrepos", "containerlimits",

@@ -29,6 +29,7 @@ from gatekeeper_tpu_torch.sync.mock_apiserver import \
 from gatekeeper_tpu_torch.target.target import \
     K8sValidationTarget as TTarget  # noqa: E402
 from gatekeeper_tpu_torch.webhook import policy as tpolicy  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 TARGET = "admission.k8s.gatekeeper.sh"
 TEMPLATE = {

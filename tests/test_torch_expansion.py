@@ -82,6 +82,7 @@ from gatekeeper_tpu_torch.webhook.server import WebhookServer  # noqa: E402
 from test_torch_mutation import (EXPAND_DEPLOYMENTS,  # noqa: E402
                                  admission_body, assign, mixed_registry,
                                  post, systems)
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 N_RELIST = 2000
 N_SNAPSHOT = 600

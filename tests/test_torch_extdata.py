@@ -93,6 +93,7 @@ from gatekeeper_tpu_torch.utils.synthetic import \
 from gatekeeper_tpu_torch.webhook.server import WebhookServer  # noqa: E402
 from tests.test_extdata import (RULES_DIGEST, RULES_ERRORS,  # noqa: E402
                                 TARGET, corpus)
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TRUSTED_PREFIX = "openpolicyagent/"

@@ -66,6 +66,7 @@ from gatekeeper_tpu_torch.utils.synthetic import (library_dir,  # noqa
                                                   load_library)
 from gatekeeper_tpu_torch.utils.unstructured import \
     load_yaml_file  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 _KEEP = 5  # library-A slice: a bounded lowering wall

@@ -29,6 +29,7 @@ from gatekeeper_tpu_torch.gator import bench as tbench
 from gatekeeper_tpu_torch.gator import cli as tcli
 from gatekeeper_tpu_torch.gator import reader as treader
 from gatekeeper_tpu_torch.utils.synthetic import make_cluster_objects
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 LIBRARY = os.path.join(ROOT, "library")

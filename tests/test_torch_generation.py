@@ -67,6 +67,7 @@ from gatekeeper_tpu_torch.target.review import \
     AugmentedUnstructured as TAug  # noqa: E402
 from gatekeeper_tpu_torch.target.target import \
     K8sValidationTarget as TTarget  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LIB = os.path.join(ROOT, "library")

@@ -76,6 +76,7 @@ from gatekeeper_tpu_torch.utils.synthetic import \
     load_library as tload  # noqa: E402
 from gatekeeper_tpu_torch.webhook import policy as tpolicy  # noqa: E402
 from gatekeeper_tpu_torch.webhook import server as tserver  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 LIB = os.path.join(os.path.dirname(__file__), "..", "library")
 SUBSET = ("general/allowedrepos", "general/requiredlabels",

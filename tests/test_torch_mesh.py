@@ -56,6 +56,7 @@ from gatekeeper_tpu_torch.target.target import \
     K8sValidationTarget as TTarget  # noqa: E402
 from gatekeeper_tpu_torch.utils.synthetic import \
     load_library as tload  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 N_OBJECTS = 600
 CHUNK = 64

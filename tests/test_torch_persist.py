@@ -76,6 +76,7 @@ from gatekeeper_tpu_torch.snapshot import (  # noqa: E402
 from gatekeeper_tpu_torch.sync.source import FakeCluster  # noqa: E402
 from gatekeeper_tpu_torch.target.target import \
     K8sValidationTarget as TTarget  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LIB = os.path.join(ROOT, "library")

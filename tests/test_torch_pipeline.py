@@ -79,6 +79,7 @@ from gatekeeper_tpu_torch.target.target import \
 from gatekeeper_tpu_torch.utils.rawjson import RawJSON, as_raw  # noqa: E402
 from gatekeeper_tpu_torch.utils.synthetic import \
     load_library as tload  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 N_OBJECTS = 2000

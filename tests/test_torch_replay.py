@@ -37,6 +37,7 @@ from gatekeeper_tpu_torch.metrics.registry import MetricsRegistry
 from gatekeeper_tpu_torch.replay import core as tcore
 from gatekeeper_tpu_torch.utils.synthetic import make_cluster_objects
 from gatekeeper_tpu_torch.utils.unstructured import name_of
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 RECORD_KEYS = ("endpoint", "decision", "uid", "kind", "namespace", "name",

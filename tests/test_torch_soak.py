@@ -24,6 +24,7 @@ from gatekeeper_tpu_torch.fuzz import corpus
 pytest.importorskip("jax")
 
 from gatekeeper_tpu.fuzz import corpus as jcorpus  # noqa: E402
+from tests.torch_settle import unfreeze_after_each_test  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
